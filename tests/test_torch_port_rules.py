@@ -1,0 +1,149 @@
+"""The rules the port keeps: what it imports, what it copies, where it runs.
+
+* No module of ``src/repro_torch/`` and not ``chip_smoke.py`` imports
+  JAX or anything of the JAX package (an AST walk, so a lazy import
+  inside a function counts too).
+* The numpy copies have not drifted: every scenario the port copies
+  builds demand and node memory equal byte for byte to the JAX
+  package's, and the presets equal the JAX package's presets.
+* Entry points run on CUDA unless asked for the CPU, and raise without
+  a card; a CUDA tensor never reaches the plain version.
+"""
+
+import ast
+import dataclasses
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+import repro.lab as jlab
+from repro.configs import dynims as jd
+from repro_torch.configs import dynims as td
+from repro_torch.convert import gainset_from_numpy
+from repro_torch.kernels import sweep as ks
+from repro_torch.lab import fused_sweep as fs
+from repro_torch.lab import scenarios as tsc
+from repro_torch.lab import sweep as tsw
+from repro_torch.lab import tune as ttu
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _port_files():
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    return files + [REPO / "chip_smoke.py"]
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
+def test_port_imports_nothing_of_jax_or_repro(path):
+    bad = [m for m in _imports(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert bad == [], f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_every_scenario_copy_builds_identical_inputs():
+    copied = set(tsc.list_scenarios())
+    assert copied == set(jlab.list_scenarios()) - {"runtime-churn"}
+    for name in sorted(copied):
+        js, ts = jlab.get_scenario(name), tsc.get_scenario(name)
+        assert js.n_nodes == ts.n_nodes and js.n_intervals == ts.n_intervals
+        for seed in (0, 3):
+            a, b = js.build_demand(seed=seed), ts.build_demand(seed=seed)
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), name
+            a = js.build_node_memory(seed=seed)
+            b = ts.build_node_memory(seed=seed)
+            assert a.tobytes() == b.tobytes(), name
+
+
+def test_presets_equal_the_jax_presets():
+    for name, p in jd.LAB_TUNED.items():
+        assert dataclasses.asdict(td.LAB_TUNED[name]) == \
+            dataclasses.asdict(p)
+    assert td.LAB_TUNED_OBJECTIVES == jd.LAB_TUNED_OBJECTIVES
+    assert td.PAPER_SCENARIOS == jd.PAPER_SCENARIOS
+    assert dataclasses.asdict(td.PAPER_TABLE_I) == \
+        dataclasses.asdict(jd.PAPER_TABLE_I)
+
+
+def test_entry_points_raise_without_cuda_when_no_device_given(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = tsc.get_scenario("swap-storm").replace(n_nodes=4, n_intervals=8)
+    g = ttu.grid_gains(lam=(0.5,), r0=(0.95,))
+    demand = spec.build_demand()
+    calls = [
+        lambda: tsw.sweep_demand(demand, g, node_memory=125 * 2**30),
+        lambda: tsw.run_sweep(spec, g),
+        lambda: ttu.tune_gains(spec, budget=4),
+        lambda: ttu.halving_tune(spec, budget=4),
+        lambda: fs.halving_sweep(demand, g, g, node_memory=125 * 2**30),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+class _OnCuda:
+    """Stands in for a CUDA tensor: dispatch reads only ``.device``."""
+
+    device = torch.device("cuda", 0)
+
+
+def test_cuda_tensors_launch_the_kernel_and_never_the_plain_version(
+        monkeypatch):
+    launched = []
+
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(ks, "sweep_segment_plain", plain)
+    monkeypatch.setattr(ks, "_launch",
+                        lambda *a, **k: launched.append(a) or "kernel")
+    out = ks.sweep_segment(_OnCuda(), None, None, None, None, t0=0,
+                           con=None, names=())
+    assert out == "kernel" and len(launched) == 1
+    meta = torch.empty((1, 1, 1), device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        ks.sweep_segment(meta, None, None, None, None, t0=0, con=None,
+                         names=())
+
+
+def test_kernel_layout_and_build_flags():
+    """The wrapper's plane order and the flags parity depends on."""
+    from repro_torch.kernels import _build
+    assert "-fmad=false" in _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
+    src = (REPO / "src/repro_torch/csrc/sweep.cu").read_text()
+    assert "extern \"C\" int dynims_sweep_segment(" in src
+    fields = [f for f, _ in ks._SweepConsts._fields_]
+    body = src[src.index("struct SweepConsts {"):src.index("};")]
+    decl = [ln.split("//")[0].split() for ln in body.splitlines()[1:]]
+    assert [d[-1].rstrip(";") for d in decl if d] == fields
+    assert ks.state_names(True, False)[:1] == ("u",)
+    assert len(ks.state_names(False, True)) == 18
+
+
+def test_convert_checks_gainset_fields():
+    g = jlab.grid_gains(lam=(0.5, 1.0), r0=(0.95,))
+    fields = {f.name: getattr(g, f.name) for f in dataclasses.fields(g)}
+    port = gainset_from_numpy(fields)
+    for name, arr in fields.items():
+        np.testing.assert_array_equal(getattr(port, name), arr)
+    fields.pop("deadband")
+    with pytest.raises(ValueError, match="deadband"):
+        gainset_from_numpy(fields)
+
+
+def test_build_dir_is_ignored_by_git():
+    assert "build/" in (REPO / ".gitignore").read_text().split()
