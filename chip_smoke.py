@@ -3,20 +3,31 @@
 
     python3 chip_smoke.py
 
-Builds the sweep kernel from ``src/repro_torch/csrc/sweep.cu``, holds
-it against its plain PyTorch version on the card, drives the port's
-main path (``run_sweep``, ``sweep_demand``, ``tune_gains``) at the
-lab benchmark's fleet size (4096 nodes x 1000 intervals x 64 gains)
-and at the registry scenarios' declared sizes, checks the card's
-results against the port's own CPU run and the checked-in presets, and
-times the kernel.  Every phase prints a line; any failed check raises
-and the exit code is nonzero.  The last line is the JSON the driver
-reads; the line before it lists the kernel with its numbers.
+Builds the three kernels from ``src/repro_torch/csrc/`` (one ``nvcc``
+each, all at once) and drives the port's two main paths on the card:
+
+* the sweep (phases 1-5): the sweep kernel against its plain PyTorch
+  version, then ``run_sweep``, ``sweep_demand`` and ``tune_gains`` at
+  the lab benchmark's fleet size (4096 nodes x 1000 intervals x 64
+  gains) and the registry scenarios' declared sizes, checked against
+  the port's own CPU run and the checked-in presets, then its times;
+* serving llama3.2-1b at full width (phases 6-9): the decode- and
+  flash-attention kernels against their plain versions, the
+  continuous-batching engine through a pool burst, forward (flash)
+  against decode (decode attention), mixed progress against isolated
+  serving, then the kernels' times beside their bounds, their plain
+  versions and PyTorch's ``scaled_dot_product_attention``.
+
+Every phase prints a line; any failed check raises and the exit code is
+nonzero.  The last line is a JSON object naming the device; the one
+before it lists the kernels with their numbers, and the one before
+that the card's name and power limit.
 
 Needs a CUDA card and ``nvcc``; imports nothing of JAX or of the JAX
 package.  Without a card it exits nonzero before printing a result.
 """
 
+import concurrent.futures
 import json
 import os
 import statistics
@@ -33,10 +44,13 @@ if not torch.cuda.is_available():
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+from repro_torch.configs import DECODE_32K, get_config  # noqa: E402
 from repro_torch.configs.dynims import (LAB_TUNED,  # noqa: E402
                                         LAB_TUNED_OBJECTIVES)
 from repro_torch.core.traces import GiB, fleet_demand_traces  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import decode_attention as kd  # noqa: E402
+from repro_torch.kernels import flash_attention as kf  # noqa: E402
 from repro_torch.kernels import sweep as ks  # noqa: E402
 from repro_torch.lab import fused_sweep as fs  # noqa: E402
 from repro_torch.lab.scenarios import get_scenario  # noqa: E402
@@ -44,6 +58,9 @@ from repro_torch.lab.score import stats_mismatches  # noqa: E402
 from repro_torch.lab.sweep import (plan_specialization, run_sweep,  # noqa
                                    sweep_demand)
 from repro_torch.lab.tune import grid_gains, tune_gains  # noqa: E402
+from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.models import decode as D  # noqa: E402
+from repro_torch.serving import ServingConfig, ServingEngine  # noqa: E402
 
 CUDA = torch.device("cuda")
 N_NODES, N_STEPS = 4096, 1000            # the lab benchmark's fleet
@@ -52,6 +69,7 @@ CACHE = get_scenario("spark-iterative-cache").cache
 # outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+PEAK_BF16_S = 989e12                     # dense, tensor cores
 # Operations per (lane, node, interval) update of the paper-law step in
 # csrc/sweep.cu, counted from its source: every add, multiply, divide,
 # compare, select, min/max and the code's conversion.  A multiply-add
@@ -69,12 +87,19 @@ def check(ok: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def cuda_ms(fn, reps: int = 5, warm: int = 2) -> float:
-    """Median of ``reps`` warm runs, timed with CUDA events."""
+def cuda_ms(fn, reps: int = 5, warm: int = 2, flush=None) -> float:
+    """Median of ``reps`` warm runs, timed with CUDA events.
+
+    ``flush``, a large tensor, is overwritten before each timed run so
+    the run finds the 50 MB L2 cache cold, as a caller between other
+    work does.
+    """
     for _ in range(warm):
         fn()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush.fill_(1.0)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -267,6 +292,270 @@ def phase5(demand):
             f"(bytes {t_bytes:.4f} ms, ops {t_ops:.4f} ms)")
     return out
 
+# ---- serving llama3.2-1b: the attention kernels ------------------------
+
+ARCH = "llama3.2-1b"
+N_LAYERS = get_config(ARCH).n_layers
+# (b, s, h, kv, hd, window): tests/test_kernels.py's DECODE_CASES, then a
+# cache length that is a multiple of no tile, at the model's heads.
+DECODE_CASES = [(4, 512, 8, 2, 64, 0), (2, 1024, 4, 4, 32, 0),
+                (3, 512, 8, 4, 64, 200), (1, 256, 2, 1, 128, 0),
+                (5, 1000, 32, 8, 64, 0)]
+# (b, sq, skv, h, kv, hd, causal, window): tests/test_kernels.py's
+# FLASH_CASES, then ragged lengths at the model's heads.
+FLASH_CASES = [(2, 256, 256, 4, 2, 64, True, 0),
+               (1, 128, 128, 4, 4, 32, True, 0),
+               (2, 128, 256, 4, 1, 64, False, 0),
+               (1, 256, 256, 8, 2, 64, True, 64),
+               (1, 512, 512, 2, 2, 128, True, 0),
+               (2, 192, 192, 4, 2, 64, True, 48),
+               (2, 300, 300, 32, 8, 64, True, 0)]
+F32, BF16 = torch.float32, torch.bfloat16
+# (B, S) of one decode_32k layer: 128 x 32768, 8.6 GB of bf16 K/V
+DECODE_LONG = (DECODE_32K.global_batch, DECODE_32K.seq_len)
+FLASH_TIMED = (2, 4096)          # (B, S) of the timed causal forward
+
+
+def randn(shape, dtype, gen):
+    return torch.randn(shape, generator=gen, device=CUDA).to(dtype)
+
+
+def max_err(got, want, tol, tag):
+    """Largest |got - want|; raises past ``atol = rtol = tol``."""
+    check(bool(torch.isfinite(got).all()), f"{tag}: non-finite output")
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol,
+                               msg=lambda m: f"{tag}: {m}")
+    return float((got.float() - want.float()).abs().max())
+
+
+def phase6():
+    log("phase 6: attention kernels vs plain on the card (tolerance 2e-5 "
+        "f32, 3e-2 decode / 2e-2 flash bf16)")
+    gen = torch.Generator(device=CUDA).manual_seed(6)
+    errs = {"decode": {}, "flash": {}}
+    for b, s, h, kv, hd, window in DECODE_CASES:
+        for qdt, kdt in ((F32, F32), (BF16, BF16), (F32, BF16)):
+            q = randn((b, h, hd), qdt, gen)
+            kc, vc = randn((b, s, kv, hd), kdt, gen), \
+                randn((b, s, kv, hd), kdt, gen)
+            if s == 1000:                        # len 1 and len S included
+                lens = [1, s, 333, s - 1, 17]
+            else:
+                lo = window + 1 if window else 1
+                lens = torch.randint(lo, s, (b,), generator=gen,
+                                     device=CUDA).tolist()
+            lens = torch.tensor(lens, dtype=torch.int32, device=CUDA)
+            before = kd.LAUNCHES
+            out = kd.decode_attention(q, kc, vc, lens, window=window)
+            torch.cuda.synchronize()
+            check(kd.LAUNCHES == before + 1, "decode kernel did not launch")
+            ref = kd.decode_attention_plain(q, kc, vc, lens, window=window)
+            tol = 3e-2 if BF16 in (qdt, kdt) else 2e-5
+            tag = (f"decode b{b} S{s} H{h}/KV{kv} hd{hd} w{window} "
+                   f"q={str(qdt)[6:]} cache={str(kdt)[6:]}")
+            err = max_err(out, ref, tol, tag)
+            key = "f32" if tol == 2e-5 else "bf16"
+            errs["decode"][key] = max(errs["decode"].get(key, 0.0), err)
+            log(f"  {tag}: max_abs_err={err:.3e} ok")
+    for window in (0, 40):                       # NaN past len_b (and
+        for kdt in (F32, BF16):                  # before the window)
+            b, s, h, kv, hd = 2, 256, 4, 2, 64
+            q = randn((b, h, hd), F32, gen)
+            kc, vc = randn((b, s, kv, hd), kdt, gen), \
+                randn((b, s, kv, hd), kdt, gen)
+            lens = torch.tensor([100, 17], dtype=torch.int32, device=CUDA)
+            pos = torch.arange(s, device=CUDA)[None]
+            dead = pos >= lens[:, None]
+            if window:
+                dead |= pos < lens[:, None] - window
+            dead = dead[..., None, None]
+            a = kd.decode_attention(q, kc, vc, lens, window=window)
+            p = kd.decode_attention(q, kc.masked_fill(dead, float("nan")),
+                                    vc.masked_fill(dead, float("nan")), lens,
+                                    window=window)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(p).all()) and torch.equal(a, p),
+                  f"decode read a poisoned key (window {window}, {kdt})")
+    log("  poisoned cache (NaN past len_b, and before the window): output "
+        "unchanged and finite, f32 and bf16 caches")
+    for b, sq, skv, h, kv, hd, causal, window in FLASH_CASES:
+        for dt in (F32, BF16):
+            q = randn((b, sq, h, hd), dt, gen)
+            k, v = randn((b, skv, kv, hd), dt, gen), \
+                randn((b, skv, kv, hd), dt, gen)
+            before = kf.LAUNCHES
+            out = kf.flash_attention(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            check(kf.LAUNCHES == before + 1, "flash kernel did not launch")
+            ref = kf.flash_attention_plain(q, k, v, causal=causal,
+                                           window=window)
+            tol = 2e-2 if dt == BF16 else 2e-5
+            tag = (f"flash b{b} Sq{sq} Skv{skv} H{h}/KV{kv} hd{hd} "
+                   f"causal={causal} w{window} {str(dt)[6:]}")
+            err = max_err(out, ref, tol, tag)
+            key = "f32" if dt == F32 else "bf16"
+            errs["flash"][key] = max(errs["flash"].get(key, 0.0), err)
+            log(f"  {tag}: max_abs_err={err:.3e} ok")
+    return errs
+
+
+def phase7(smi):
+    log("phase 7: serve llama3.2-1b at full width (16 layers, d 2048, "
+        "32/8 heads, d_ff 8192, vocab 128256; f32 weights, seed 0; bf16 "
+        "cache), 16 requests x 256-token prompts x 32 new tokens, "
+        "max_batch 8, max_len 1024, block 16, pool to 25% after 10 steps, "
+        "restored 5 steps later")
+    report = serve(ARCH, requests=16, prompt_len=256, max_new=32,
+                   max_batch=8, max_len=1024, block_tokens=16, burst=True,
+                   seed=0)
+    eng = report["engine"]
+    st = eng.stats()
+    fin = report["finished"]
+    dt = report["seconds"]
+    check(len(fin) == 16 and all(len(r.output) == 32 for r in fin.values()),
+          f"not drained: {st}")
+    check(st["preemptions"] >= 1, f"the burst preempted nothing: {st}")
+    check(st["logits_finite"], "non-finite logits")
+    check(kd.LAUNCHES == st["decode_steps"] * N_LAYERS,
+          f"decode kernel launched {kd.LAUNCHES} times for "
+          f"{st['decode_steps']} steps x {N_LAYERS} layers")
+    log(f"  drained 16/16, {report['tokens']} tokens, "
+        f"{st['preemptions']} preemption(s), {st['steps']} steps "
+        f"({st['decode_steps']} with an active slot); decode kernel "
+        f"launches {kd.LAUNCHES} = steps x {N_LAYERS}; logits finite")
+    log(f"  {report['tokens'] / dt:.1f} tok/s, {st['steps'] / dt:.2f} "
+        f"steps/s ({dt:.3f} s, host clock) on {smi}")
+    return eng, {"tok_s": report["tokens"] / dt, "steps_s": st["steps"] / dt,
+                 "seconds": dt, "steps": st["steps"],
+                 "preemptions": st["preemptions"]}
+
+
+def phase8(model):
+    log("phase 8: forward (flash) against decode (decode attention) at "
+        "full width, 2 x 256 tokens, f32 cache; mixed progress")
+    gen = torch.Generator(device=CUDA).manual_seed(8)
+    tokens = torch.randint(0, model.cfg.vocab_size, (2, 256), generator=gen,
+                           device=CUDA)
+    before = kf.LAUNCHES
+    fwd = model(tokens)
+    check(kf.LAUNCHES == before + N_LAYERS, "forward skipped the flash "
+          "kernel")
+    state = D.init_state(model, 2, 256, cache_dtype="float32")
+    dec = torch.cat([D.decode_step(model, state, tokens[:, t:t + 1])
+                     for t in range(256)], dim=1)
+    rel = float((fwd - dec).abs().max() / fwd.abs().max())
+    check(bool(torch.isfinite(fwd).all()) and rel < 5e-3,
+          f"forward and decode differ by {rel:.3e} relative (bound 5e-3)")
+    log(f"  forward vs decode: max relative diff {rel:.3e} (bound 5e-3)")
+
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, model.cfg.vocab_size, n) for n in (5, 9, 3)]
+
+    def run(prompt_list):
+        eng = ServingEngine(model, ServingConfig(
+            max_batch=3, max_len=64, block_tokens=8, cache_dtype="float32"))
+        rids = [eng.submit(p, 6) for p in prompt_list]
+        done = eng.run_until_drained(max_steps=2000)
+        return [done[r].output for r in rids]
+
+    together = run(prompts)
+    alone = [run([p])[0] for p in prompts]
+    check(together == alone, f"mixed progress {together} != isolated "
+          f"{alone}")
+    log(f"  three prompts served together == each served alone: "
+        f"{together}")
+    return rel
+
+
+def sdpa(q, k, v, **kw):
+    """PyTorch's fused attention on the port's (B, S, H, hd) layouts."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        enable_gqa=True, **kw).transpose(1, 2)
+
+
+def bound(n_bytes, n_ops, peak_ops):
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_ops = n_ops / peak_ops * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def time_decode(tag, q, kc, vc, lens, flush):
+    b, h, hd = q.shape
+    kv = kc.shape[2]
+    kept = lens.clamp(max=kc.shape[1]).long()
+    n_keys = int(kept.sum())
+    n_bytes = (n_keys * kv * hd * 2 * kc.element_size()
+               + 2 * q.numel() * q.element_size() + lens.numel() * 4)
+    bound_ms, by = bound(n_bytes, 4 * n_keys * h * hd, PEAK_F32_S)
+    ms = cuda_ms(lambda: kd.decode_attention(q, kc, vc, lens), reps=7,
+                 flush=flush)
+    plain = cuda_ms(lambda: kd.decode_attention_plain(q, kc, vc, lens),
+                    reps=3, warm=1, flush=flush)
+    qs = q.to(kc.dtype)[:, None]                     # (B, 1, H, hd)
+    mask = (torch.arange(kc.shape[1], device=CUDA)[None]
+            < kept[:, None])[:, None, None, :]       # (B, 1, 1, S)
+    lib_out = sdpa(qs, kc, vc, attn_mask=mask)[:, 0]
+    ref = kd.decode_attention(q, kc, vc, lens)
+    check(bool(torch.isfinite(lib_out).all()), f"{tag}: SDPA non-finite")
+    lib = cuda_ms(lambda: sdpa(qs, kc, vc, attn_mask=mask), reps=5,
+                  flush=flush)
+    log(f"  decode {tag}: kernel {ms:.4f} ms, plain {plain:.3f} ms, SDPA "
+        f"{lib:.4f} ms, bound {bound_ms:.4f} ms by {by} ({n_bytes / 1e9:.3f}"
+        f" GB; {n_bytes / ms / 1e6:.1f} GB/s achieved); SDPA vs kernel max "
+        f"|diff| {float((lib_out.float() - ref.float()).abs().max()):.2e}")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound_ms,
+                bound_by=by, shape=tag)
+
+
+def phase9(state, scfg):
+    log("phase 9: times on the card (CUDA events, median of warm runs, L2 "
+        "flushed before each; bf16 peak 989 TFLOP/s, f32 67, 3.35 TB/s)")
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=CUDA)
+    gen = torch.Generator(device=CUDA).manual_seed(9)
+    cfg = get_config(ARCH)
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    out = {}
+    lens = (state.pos + 1).clamp(max=scfg.max_len).to(torch.int32)
+    q = randn((scfg.max_batch, h, hd), F32, gen)
+    out["decode_engine"] = time_decode(
+        f"engine B{scfg.max_batch} x S{scfg.max_len} x KV{kv} x hd{hd}, q "
+        f"f32, bf16 cache, lengths {lens.tolist()}", q, state.k[0],
+        state.v[0], lens, flush)
+    del state
+    b, s = DECODE_LONG                               # one layer of decode_32k
+    kc, vc = randn((b, s, kv, hd), BF16, gen), randn((b, s, kv, hd), BF16,
+                                                      gen)
+    q = randn((b, h, hd), BF16, gen)
+    lens = torch.full((b,), s, dtype=torch.int32, device=CUDA)
+    out["decode_32k"] = time_decode(
+        f"decode_32k layer B{b} x S{s} x KV{kv} x hd{hd} bf16, full lengths",
+        q, kc, vc, lens, flush)
+    del kc, vc
+    torch.cuda.empty_cache()
+    b, s = FLASH_TIMED
+    q = randn((b, s, h, hd), BF16, gen)
+    k, v = randn((b, s, kv, hd), BF16, gen), randn((b, s, kv, hd), BF16, gen)
+    n_pairs = b * h * s * (s + 1) // 2               # causal (query, key)
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    bound_ms, by = bound(n_bytes, 4 * n_pairs * hd, PEAK_BF16_S)
+    ms = cuda_ms(lambda: kf.flash_attention(q, k, v), reps=7, flush=flush)
+    plain = cuda_ms(lambda: kf.flash_attention_plain(q, k, v), reps=3,
+                    warm=1, flush=flush)
+    lib_out = sdpa(q, k, v, is_causal=True)
+    diff = float((lib_out.float() - kf.flash_attention(q, k, v).float())
+                 .abs().max())
+    lib = cuda_ms(lambda: sdpa(q, k, v, is_causal=True), reps=7,
+                  flush=flush)
+    tag = f"B{b} x S{s} x H{h}/KV{kv} x hd{hd} bf16 causal"
+    log(f"  flash {tag}: kernel {ms:.4f} ms ({4 * n_pairs * hd / ms / 1e9:.2f}"
+        f" TFLOP/s), plain {plain:.3f} ms, SDPA {lib:.4f} ms, bound "
+        f"{bound_ms:.4f} ms by {by}; SDPA vs kernel max |diff| {diff:.2e}")
+    out["flash"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                        bound_ms=bound_ms, bound_by=by, shape=tag)
+    return out
+
 
 def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -276,12 +565,16 @@ def main() -> None:
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    lib = _build.load_library()
-    log(f"  kernel build {time.perf_counter() - t0:.2f}s (nvcc "
-        f"{lib.build_s:.2f}s) -> {os.path.relpath(lib.path)}")
-    for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas: " + line.strip())
+    sources = list(_build.LIBRARIES)             # one nvcc each, at once
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        libs = dict(zip(sources, pool.map(_build.load_library, sources)))
+    log(f"  kernel builds {time.perf_counter() - t0:.2f}s in parallel")
+    for name, lib in libs.items():
+        log(f"  {name}: nvcc {lib.build_s:.2f}s -> "
+            f"{os.path.relpath(lib.path)}")
+        for line in lib.log.splitlines():
+            if "registers" in line or "spill" in line:
+                log("    ptxas: " + line.strip())
 
     demand = fleet_demand_traces(N_NODES, N_STEPS, 0.1, seed=0)
     max_abs = phase1(demand)
@@ -310,8 +603,47 @@ def main() -> None:
                         "cache-on": on["finalize_ms"]},
         "shape": "4096 nodes x 1000 intervals x 64 gains, f32, paper law",
     }
+
+    errs = phase6()
+    kd.LAUNCHES = kf.LAUNCHES = 0          # the serving path starts here
+    eng, served = phase7(smi)
+    phase8(eng.model)
+    launches = {"decode": kd.LAUNCHES, "flash": kf.LAUNCHES}
+    log(f"main path: decode attention launched {launches['decode']} times, "
+        f"flash attention {launches['flash']} times")
+    check(min(launches.values()) > 0,
+          "the serving path skipped an attention kernel")
+    state, scfg = eng.state, eng.cfg
+    del eng                                # free the weights for phase 9
+    t = phase9(state, scfg)
+    del state
+    dec, dec32, fl = t["decode_engine"], t["decode_32k"], t["flash"]
+    decode = {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/kernel.py:28",
+        "launches": launches["decode"],
+        "max_abs_err": max(errs["decode"].values()),
+        "max_abs_err_f32": errs["decode"]["f32"],
+        **{k: dec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "shape")},
+        "decode_32k": dec32,
+    }
+    flash = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
+        "launches": launches["flash"],
+        "max_abs_err": max(errs["flash"].values()),
+        "max_abs_err_f32": errs["flash"]["f32"],
+        **{k: fl[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "shape")},
+    }
+    serving = {k: served[k] for k in ("tok_s", "steps_s", "seconds",
+                                      "steps", "preemptions")}
+    log("serving: " + json.dumps(serving))
     print(smi)
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [kernel, decode, flash]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

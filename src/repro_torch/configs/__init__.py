@@ -1,1 +1,34 @@
-"""Controller presets of the port (paper Table I, ScenarioLab presets)."""
+"""Configs of the port: controller presets and model architectures.
+
+``dynims`` holds paper Table I and the ScenarioLab presets.
+:func:`get_config` resolves ``--arch <id>`` for the architectures the
+port serves so far: ``llama3.2-1b`` and its ``-smoke`` reduction.  The
+other architectures of the JAX package come with their families
+(ROADMAP A5).
+"""
+
+from __future__ import annotations
+
+from .base import (ArchConfig, DECODE_32K, InputShape, LONG_500K,
+                   PREFILL_32K, SHAPES, TRAIN_4K)
+from .llama32_1b import ARCH as _LLAMA32_1B
+
+_ARCHS = {_LLAMA32_1B.name: _LLAMA32_1B}
+
+ARCH_IDS = list(_ARCHS)
+
+
+def get_config(name: str) -> ArchConfig:
+    """The config of ``name``; a ``-smoke`` suffix gives its reduction."""
+    smoke = name.endswith("-smoke")
+    base = name[: -len("-smoke")] if smoke else name
+    if base not in _ARCHS:
+        raise KeyError(
+            f"arch {name!r} is not ported yet (available: {ARCH_IDS}); "
+            f"the other families come with ROADMAP A5")
+    cfg = _ARCHS[base]
+    return cfg.reduced() if smoke else cfg
+
+
+__all__ = ["ARCH_IDS", "ArchConfig", "DECODE_32K", "InputShape",
+           "LONG_500K", "PREFILL_32K", "SHAPES", "TRAIN_4K", "get_config"]

@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels at first use.
 
-``nvcc`` compiles ``csrc/sweep.cu`` into a shared library with a plain
-C interface (no PyTorch headers, so the build takes seconds), and
-``ctypes`` loads it.  The library goes to ``build/kernels/`` at the root
-of the checkout, named by a hash of the source and the flags, so a
-changed source builds anew and an unchanged one is loaded as it is.
-Nothing here runs at import: the CPU tests import every module on a
-machine with no ``nvcc``.
+``nvcc`` compiles each ``csrc/<name>.cu`` into a shared library of its
+own with a plain C interface (no PyTorch headers, so a build takes
+seconds), and ``ctypes`` loads it.  :data:`LIBRARIES` gives each source
+its flags and the C function it exports with its argument types.
+The library goes to ``build/kernels/`` at the root of the checkout,
+named by a hash of the source and its flags, so a changed source builds
+anew and an unchanged one is loaded as it is.  Nothing here runs at
+import: the CPU tests import every module on a machine with no
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -21,15 +23,22 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from typing import Callable, Dict, Tuple
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
-# sm_90a for Hopper; -fmad=false keeps every product and sum separately
-# rounded, as the plain PyTorch versions round them (no fast math).
+# The sweep's flags: sm_90a for Hopper; -fmad=false keeps every product
+# and sum separately rounded, as the plain PyTorch version rounds them
+# (no fast math).  They enter the sweep library's hash, so they stay as
+# they are.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+# The attention kernels' flags: the same without -fmad=false.  They are
+# held to their plain versions by a tolerance, not bit for bit, so nvcc
+# may contract multiply-adds.
+ATTENTION_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-fmad=false")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,22 +64,67 @@ def _nvcc() -> str:
     return path
 
 
-def _declare(lib: ctypes.CDLL) -> None:
+def _sweep_argtypes():
     from .sweep import _SweepConsts
+    return ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 7
+            + [ctypes.c_int] * 4
+            + [ctypes.POINTER(_SweepConsts), ctypes.c_void_p])
 
-    fn = lib.dynims_sweep_segment
-    fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 7
-                   + [ctypes.c_int] * 4
-                   + [ctypes.POINTER(_SweepConsts), ctypes.c_void_p])
+
+def _decode_argtypes():
+    # (q_bf16, kv_bf16, q, k, v, lengths, out, B, H, KV, S, hd, window,
+    #  stream)
+    return ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+            + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+
+
+def _flash_argtypes():
+    # (bf16, q, k, v, out, B, Sq, Skv, H, KV, hd, causal, window, stream)
+    return ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+            + [ctypes.c_void_p])
+
+
+@dataclasses.dataclass(frozen=True)
+class LibrarySpec:
+    """How one source is built and the C function its library exports."""
+
+    flags: Tuple[str, ...]
+    symbol: str
+    # gives the function's ctypes argument types; called at load, so a
+    # wrapper's structs import lazily
+    argtypes: Callable[[], list]
+
+
+LIBRARIES: Dict[str, LibrarySpec] = {
+    "sweep.cu": LibrarySpec(NVCC_FLAGS, "dynims_sweep_segment",
+                            _sweep_argtypes),
+    "decode_attention.cu": LibrarySpec(
+        ATTENTION_FLAGS, "dynims_decode_attention", _decode_argtypes),
+    "flash_attention.cu": LibrarySpec(
+        ATTENTION_FLAGS, "dynims_flash_attention", _flash_argtypes),
+}
+
+
+def _declare(lib: ctypes.CDLL, spec: LibrarySpec) -> None:
+    fn = getattr(lib, spec.symbol)
+    fn.argtypes = spec.argtypes()
     fn.restype = ctypes.c_int
 
 
 @functools.lru_cache(maxsize=None)
 def load_library(source: str = "sweep.cu") -> Library:
-    """Build ``csrc/<source>`` if needed and load it (once per process)."""
+    """Build ``csrc/<source>`` if needed and load it (once per process).
+
+    Sources are independent, so several may build at once from threads
+    (``nvcc`` runs in a subprocess).
+    """
+    if source not in LIBRARIES:
+        raise KeyError(f"no library is declared for {source!r}; known: "
+                       f"{sorted(LIBRARIES)}")
+    spec = LIBRARIES[source]
     src = _CSRC / source
     digest = hashlib.sha1(src.read_bytes()
-                          + repr(NVCC_FLAGS).encode()).hexdigest()[:16]
+                          + repr(spec.flags).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{src.stem}-{digest}.so"
     build_s, log = 0.0, ""
     if not out.exists():
@@ -78,7 +132,7 @@ def load_library(source: str = "sweep.cu") -> Library:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+        proc = subprocess.run([_nvcc(), *spec.flags, "-o", tmp, str(src)],
                               capture_output=True, text=True)
         build_s = time.perf_counter() - t0
         log = proc.stdout + proc.stderr
@@ -87,5 +141,5 @@ def load_library(source: str = "sweep.cu") -> Library:
             raise RuntimeError(f"nvcc failed on {src.name}:\n{log}")
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
-    _declare(lib)
+    _declare(lib, spec)
     return Library(lib=lib, path=out, build_s=build_s, log=log)

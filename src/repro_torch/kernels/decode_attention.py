@@ -1,0 +1,135 @@
+"""Decode attention: the CUDA kernel's wrapper and its plain version.
+
+Replaces the TPU kernel ``_decode_kernel`` of
+``repro/kernels/decode_attention/kernel.py`` (wrapper
+``decode_attention``).  One query token per (sequence, head) attends
+keys ``[0, len_b)`` of a ``(B, S, KV, hd)`` cache -- with a window, only
+``k >= len_b - window`` -- and the output comes back in q's type.  Query
+head ``h`` reads kv head ``h // (H // KV)``.
+
+* :func:`decode_attention` dispatches on where ``q`` lies: CPU tensors
+  take :func:`decode_attention_plain`; CUDA tensors launch the kernel in
+  ``csrc/decode_attention.cu`` (built at first use by
+  :mod:`repro_torch.kernels._build`) or raise.  Nothing falls back.
+* :func:`decode_attention_plain` is ``decode_attention_ref`` of the JAX
+  package in float32, except that cache rows outside the kept range are
+  zeroed before use: the kernel never reads them, so a NaN written there
+  reaches neither output.  A sequence with no kept key gets zeros, as
+  the TPU kernel gives.
+* :data:`LAUNCHES` counts kernel launches, and only those.
+
+Types: q in float32 or bfloat16, both caches in float32 or bfloat16
+(mixed is the serving path's normal case: float32 activations over a
+bfloat16 cache), lengths int32.  Head dims 16, 32, 64 and 128, at most 16
+query heads per kv head.  Any cache length ``S``: the kernel masks the
+ragged last tile itself.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+HEAD_DIMS = (16, 32, 64, 128)
+MAX_GROUP = 16
+
+# Kernel launches since import (or since a caller reset it).
+LAUNCHES = 0
+
+
+def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                           window: int = 0) -> torch.Tensor:
+    """The plain PyTorch version of the kernel, on any device."""
+    b, h, hd = q.shape
+    s, kvh = k_cache.shape[1], k_cache.shape[2]
+    g = h // kvh
+    k_pos = torch.arange(s, device=q.device)
+    lens = lengths.to(device=q.device, dtype=torch.int64)[:, None]
+    valid = k_pos[None, :] < lens                               # (B, S)
+    if window:
+        valid &= k_pos[None, :] >= lens - window
+    keep = valid[:, :, None, None]
+    kf = torch.where(keep, k_cache.float(), 0.0)
+    vf = torch.where(keep, v_cache.float(), 0.0)
+    qg = q.reshape(b, kvh, g, hd).float()
+    logits = torch.einsum("bkgd,bskd->bkgs", qg, kf) / (hd ** 0.5)
+    logits = torch.where(valid[:, None, None], logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", w, vf)
+    return o.reshape(b, h, hd).to(q.dtype)
+
+
+def _check(q, k_cache, v_cache, lengths) -> None:
+    """Shapes, types and layout the kernel takes; raises on anything else."""
+    if q.ndim != 3 or k_cache.ndim != 4:
+        raise ValueError(f"q must be (B, H, hd) and caches (B, S, KV, hd); "
+                         f"got {tuple(q.shape)} and {tuple(k_cache.shape)}")
+    b, h, hd = q.shape
+    _, s, kvh, hd_k = k_cache.shape
+    if v_cache.shape != k_cache.shape or k_cache.shape[0] != b or hd_k != hd:
+        raise ValueError(f"cache shapes {tuple(k_cache.shape)}, "
+                         f"{tuple(v_cache.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    if tuple(lengths.shape) != (b,) or lengths.dtype != torch.int32:
+        raise ValueError(f"lengths must be int32 of shape ({b},); got "
+                         f"{lengths.dtype} of shape {tuple(lengths.shape)}")
+    if hd not in HEAD_DIMS or h % kvh or h // kvh > MAX_GROUP:
+        raise ValueError(f"the kernel takes hd in {HEAD_DIMS} and H a "
+                         f"multiple of KV with H/KV <= {MAX_GROUP}; got "
+                         f"hd={hd}, H={h}, KV={kvh}")
+    floats = (torch.float32, torch.bfloat16)
+    if q.dtype not in floats or k_cache.dtype not in floats \
+            or v_cache.dtype != k_cache.dtype:
+        raise ValueError(f"q and caches must be float32 or bfloat16 (caches "
+                         f"alike); got {q.dtype}, {k_cache.dtype}, "
+                         f"{v_cache.dtype}")
+    for name, x in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if x.device != q.device or not x.is_contiguous() \
+                or x.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous, 16-byte aligned "
+                             f"and on {q.device}")
+    if lengths.device != q.device:
+        raise ValueError(f"lengths is on {lengths.device}, q on {q.device}")
+
+
+def _launch(q, k_cache, v_cache, lengths, window: int) -> torch.Tensor:
+    from ._build import load_library
+
+    _check(q, k_cache, v_cache, lengths)
+    q = q.contiguous()
+    lengths = lengths.contiguous()
+    b, h, hd = q.shape
+    _, s, kvh, _ = k_cache.shape
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    lib = load_library("decode_attention.cu").lib
+    rc = lib.dynims_decode_attention(
+        int(q.dtype == torch.bfloat16), int(k_cache.dtype == torch.bfloat16),
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), b, h, kvh, s, hd, int(window),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"decode attention kernel launch failed: CUDA "
+                           f"error {rc}")
+    global LAUNCHES
+    LAUNCHES += 1
+    return out
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                     window: int = 0) -> torch.Tensor:
+    """q (B, H, hd), caches (B, S, KV, hd), lengths (B,) -> (B, H, hd).
+
+    CPU tensors run :func:`decode_attention_plain`; CUDA tensors launch
+    the kernel.  Any other device raises.
+    """
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, lengths,
+                                      window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention runs on cpu or cuda, not "
+                         f"{q.device}")
+    return _launch(q, k_cache, v_cache, lengths, window)

@@ -1,0 +1,6 @@
+"""The dense decoder of the port: layers, attention, forward and decode."""
+
+from .decode import DecodeState, decode_step, init_state, prefill
+from .transformer import Model
+
+__all__ = ["DecodeState", "Model", "decode_step", "init_state", "prefill"]

@@ -1,0 +1,71 @@
+"""Common layers: RMSNorm, rotary embeddings, the SwiGLU MLP, embed/unembed.
+
+The port of ``repro/models/layers.py`` for the dense family.  Every
+product accumulates in float32 and every norm and rotation runs in
+float32, as the JAX package's ``preferred_element_type=F32`` and
+``astype(F32)`` do; results are cast back to the activation type where
+the reference casts them.  Weights keep the JAX layouts (``wi``/``wg``
+``(d, f)``, ``wo`` ``(f, d)``, ``tokens`` ``(Vp, d)``).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+F32 = torch.float32
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` accumulated and returned in float32 (``w`` is (in, out))."""
+    return torch.matmul(x.to(F32), w.to(F32))
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in float32, back in x's type (layers.py ``apply_norm``)."""
+    xf = x.to(F32)
+    ms = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.to(F32)).to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=F32, device=device) / half
+    return 1.0 / (torch.tensor(theta, dtype=F32, device=device) ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Split-halves rotary embedding in float32.
+
+    x (..., S, H, hd); positions broadcastable to (..., S).
+    """
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)          # (hd/2,)
+    angles = positions[..., :, None].to(F32) * freqs       # (..., S, hd/2)
+    angles = angles[..., None, :]                          # (..., S, 1, hd/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.to(F32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu_mlp(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
+               wo: torch.Tensor) -> torch.Tensor:
+    """silu(x wg) * (x wi) in float32, cast to x's type before ``wo``."""
+    h = matmul_f32(x, wi)
+    g = matmul_f32(x, wg)
+    h = F.silu(g) * h
+    return matmul_f32(h.to(x.dtype), wo).to(x.dtype)
+
+
+def embed_tokens(tokens_table: torch.Tensor, ids: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    return tokens_table[ids].to(dtype)
+
+
+def unembed(tokens_table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Tied readout over the padded vocabulary, float32 logits."""
+    return matmul_f32(x, tokens_table.t())

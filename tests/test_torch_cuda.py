@@ -1,11 +1,14 @@
-"""The sweep kernel on the card, held against its plain PyTorch version.
+"""The CUDA kernels on the card, held against their plain PyTorch versions.
 
 Marked ``cuda``: each test skips, with its reason, where no CUDA card is
 present (a CUDA kernel has no CPU mode).  On a machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-``chip_smoke.py`` makes the same comparison at the lab benchmark's size.
+``chip_smoke.py`` makes the same comparisons at the main path's sizes.
+Tolerances of the attention kernels are those of
+``tests/test_kernels.py``: 2e-5 in float32, 3e-2 (decode) and 2e-2
+(flash) in bfloat16.
 """
 
 import numpy as np
@@ -13,6 +16,8 @@ import pytest
 import torch
 
 from repro_torch.core.traces import GiB, fleet_demand_traces
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import sweep as ks
 from repro_torch.lab import fused_sweep as fs
 from repro_torch.lab.scenarios import get_scenario
@@ -26,7 +31,8 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the sweep kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -68,3 +74,64 @@ def test_run_sweep_on_the_card_matches_the_cpu(card):
     b = run_sweep(spec, gains, device="cpu")
     assert stats_mismatches(a.stats, b.stats, n_samples=64 * 200) == []
     assert a.best() == b.best()
+
+
+def _randn(card, shape, dtype, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=card).to(dtype)
+
+
+@pytest.mark.parametrize("case", [(4, 512, 8, 2, 64, 0),
+                                  (3, 1000, 8, 4, 64, 200)], ids=str)
+@pytest.mark.parametrize("qdt,kdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.bfloat16)],
+                         ids=["f32", "bf16", "f32-over-bf16"])
+def test_decode_kernel_matches_plain_version(card, case, qdt, kdt):
+    b, s, h, kv, hd, window = case
+    q = _randn(card, (b, h, hd), qdt, 1)
+    kc = _randn(card, (b, s, kv, hd), kdt, 2)
+    vc = _randn(card, (b, s, kv, hd), kdt, 3)
+    lens = torch.tensor([1, s, s // 2 + 3][:b] + [s - 7] * (b - 3),
+                        dtype=torch.int32, device=card)
+    before = da.LAUNCHES
+    out = da.decode_attention(q, kc, vc, lens, window=window)
+    assert da.LAUNCHES == before + 1
+    ref = da.decode_attention_plain(q, kc, vc, lens, window=window)
+    torch.cuda.synchronize()
+    tol = 3e-2 if torch.bfloat16 in (qdt, kdt) else 2e-5
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def test_decode_kernel_never_reads_past_length(card):
+    b, s, h, kv, hd = 2, 256, 4, 2, 64
+    q = _randn(card, (b, h, hd), torch.float32, 4)
+    kc = _randn(card, (b, s, kv, hd), torch.float32, 5)
+    vc = _randn(card, (b, s, kv, hd), torch.float32, 6)
+    lens = torch.tensor([100, 17], dtype=torch.int32, device=card)
+    out1 = da.decode_attention(q, kc, vc, lens)
+    dead = (torch.arange(s, device=card)[None] >= lens[:, None])[..., None,
+                                                                  None]
+    out2 = da.decode_attention(q, kc.masked_fill(dead, float("nan")),
+                               vc.masked_fill(dead, float("nan")), lens)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out2).all()) and torch.equal(out1, out2)
+
+
+@pytest.mark.parametrize("case", [(2, 256, 256, 4, 2, 64, True, 0),
+                                  (2, 192, 192, 4, 2, 64, True, 48)],
+                         ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernel_matches_plain_version(card, case, dtype):
+    b, sq, skv, h, kv, hd, causal, window = case
+    q = _randn(card, (b, sq, h, hd), dtype, 7)
+    k = _randn(card, (b, skv, kv, hd), dtype, 8)
+    v = _randn(card, (b, skv, kv, hd), dtype, 9)
+    before = fa.LAUNCHES
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.LAUNCHES == before + 1
+    ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)

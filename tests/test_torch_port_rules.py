@@ -6,8 +6,12 @@
 * The numpy copies have not drifted: every scenario the port copies
   builds demand and node memory equal byte for byte to the JAX
   package's, and the presets equal the JAX package's presets.
+* The config copies equal the JAX configs field by field.
 * Entry points run on CUDA unless asked for the CPU, and raise without
-  a card; a CUDA tensor never reaches the plain version.
+  a card; a CUDA tensor never reaches the plain version, and a CPU
+  tensor never launches a kernel.
+* Each kernel library is built with its own flags and declarations;
+  the sweep's flags, on which its bit parity rests, stay as they were.
 """
 
 import ast
@@ -20,13 +24,21 @@ import torch
 
 import repro.lab as jlab
 from repro.configs import dynims as jd
+from repro.configs import get_config as jax_config
 from repro_torch.configs import dynims as td
+from repro_torch.configs import get_config
 from repro_torch.convert import gainset_from_numpy
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import sweep as ks
 from repro_torch.lab import fused_sweep as fs
 from repro_torch.lab import scenarios as tsc
 from repro_torch.lab import sweep as tsw
 from repro_torch.lab import tune as ttu
+from repro_torch.launch import profile_serve as tprofile
+from repro_torch.launch import serve as tserve
+from repro_torch.models import Model
+from repro_torch.serving import ServingConfig, ServingEngine
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -93,6 +105,49 @@ def test_entry_points_raise_without_cuda_when_no_device_given(monkeypatch):
             call()
 
 
+def test_serving_entry_points_raise_without_cuda(monkeypatch):
+    cfg = get_config("llama3.2-1b-smoke")
+    cpu_model = Model(cfg, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: Model(cfg),
+        lambda: ServingEngine(cpu_model, ServingConfig()),
+        lambda: tserve.main(["--requests", "1"]),
+        lambda: tprofile.main(["--steps", "1"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    with pytest.raises(ValueError, match="lies on cpu"):
+        ServingEngine(cpu_model, ServingConfig(), device="meta")
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "llama3.2-1b-smoke"])
+def test_config_copies_equal_the_jax_configs(arch):
+    port, ref = get_config(arch), jax_config(arch)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert port.padded_vocab == ref.padded_vocab
+    assert port.n_params() == ref.n_params()
+
+
+def test_unported_archs_raise_naming_the_roadmap():
+    with pytest.raises(KeyError, match="ROADMAP A5"):
+        get_config("hymba-1.5b")
+
+
+def test_cpu_tensors_never_launch_the_attention_kernels():
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((2, 4, 32), generator=g)
+    kc = torch.randn((2, 40, 2, 32), generator=g)
+    before = (da.LAUNCHES, fa.LAUNCHES)
+    da.decode_attention(q, kc, kc, torch.tensor([3, 40], dtype=torch.int32))
+    x = torch.randn((1, 20, 4, 32), generator=g)
+    fa.flash_attention(x, x[:, :, :2], x[:, :, 2:])
+    Model(get_config("llama3.2-1b-smoke"), device="cpu")(
+        torch.zeros((1, 5), dtype=torch.long))
+    assert (da.LAUNCHES, fa.LAUNCHES) == before
+
+
 class _OnCuda:
     """Stands in for a CUDA tensor: dispatch reads only ``.device``."""
 
@@ -116,6 +171,27 @@ def test_cuda_tensors_launch_the_kernel_and_never_the_plain_version(
     with pytest.raises(ValueError, match="cpu or cuda"):
         ks.sweep_segment(meta, None, None, None, None, t0=0, con=None,
                          names=())
+
+
+def test_each_library_has_its_flags_and_declarations():
+    """The sweep keeps exactly the flags (and so the library hash) it
+    was measured with; the attention libraries drop only -fmad=false,
+    and every declared symbol is exported by its source."""
+    from repro_torch.kernels import _build
+    assert _build.NVCC_FLAGS == (
+        "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+    assert _build.LIBRARIES["sweep.cu"].flags is _build.NVCC_FLAGS
+    for name, spec in _build.LIBRARIES.items():
+        src = (REPO / "src/repro_torch/csrc" / name).read_text()
+        assert f'extern "C" int {spec.symbol}(' in src
+        assert len(spec.argtypes()) == src[src.index(spec.symbol):].split(
+            ")")[0].count(",") + 1
+        if name != "sweep.cu":
+            assert spec.flags == tuple(
+                f for f in _build.NVCC_FLAGS if f != "-fmad=false")
+    with pytest.raises(KeyError, match="no library"):
+        _build.load_library("nothing.cu")
 
 
 def test_kernel_layout_and_build_flags():
