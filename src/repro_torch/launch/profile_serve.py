@@ -1,12 +1,14 @@
 """Where a serving step's time goes on the card: one profiler window.
 
-    python -m repro_torch.launch.profile_serve [--steps 20] [--warm 20]
+    python -m repro_torch.launch.profile_serve
 
-Sets up the serving workload of ``chip_smoke.py`` phase 7 (llama3.2-1b
-at full width, float32 weights from seed 0, bfloat16 cache, 8 slots of
-1024 tokens, 16 requests of 256-token prompts), runs ``--warm`` engine
-steps so all 8 slots are busy, times ``--steps`` steps on the host clock
-(each step ends on its argmax sync), then profiles as many more with
+Sets up the serving workload ``FULL_WIDTH`` of
+:mod:`repro_torch.launch.serve`, which ``chip_smoke.py`` phase 7 serves
+(llama3.2-1b at full width, float32 weights from seed 0, bfloat16 cache,
+8 slots of 1024 tokens, 16 requests of 256-token prompts), runs
+``WARM`` engine steps so all 8 slots are busy, times ``STEPS`` steps on
+the host clock (each step ends on its argmax sync), then profiles as
+many more with
 ``torch.profiler`` and prints, per step: the host-clock time without
 and with the profiler, the device's busy time (the sum of the
 kernels' and copies' device times; one stream, so they do not
@@ -18,19 +20,15 @@ nonzero.
 
 from __future__ import annotations
 
-import argparse
 import subprocess
 import sys
 import time
-from typing import Optional, Sequence
 
-import numpy as np
 import torch
 
-from ..configs import get_config
-from ..device import resolve_device
-from ..models import Model
-from ..serving import ServingConfig, ServingEngine
+from .serve import FULL_WIDTH, build_engine
+
+STEPS, WARM = 20, 20
 
 
 def device_us(evt) -> float:
@@ -47,28 +45,17 @@ def on_device(evt) -> bool:
     return device_us(evt) > 0 and not evt.key.startswith("aten::")
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--steps", type=int, default=20)
-    ap.add_argument("--warm", type=int, default=20)
-    args = ap.parse_args(argv)
-    dev = resolve_device(None)             # the card; raises without one
+def main() -> None:
+    eng = build_engine(**FULL_WIDTH)       # the card; raises without one
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    cfg = get_config("llama3.2-1b")
-    model = Model(cfg, seed=0, device=dev)
-    eng = ServingEngine(model, ServingConfig(max_batch=8, max_len=1024,
-                                             block_tokens=16), device=dev)
-    rng = np.random.default_rng(0)
-    for _ in range(16):
-        eng.submit(rng.integers(0, cfg.vocab_size, 256), max_new_tokens=32)
-    for _ in range(args.warm):
+    for _ in range(WARM):
         eng.step()
     torch.cuda.synchronize()
     busy_slots = sum(not s.free for s in eng.slots)
     t0 = time.perf_counter()
-    for _ in range(args.steps):
+    for _ in range(STEPS):
         eng.step()
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
@@ -77,16 +64,17 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.steps):
+        for _ in range(STEPS):
             eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     table = [e for e in prof.key_averages() if on_device(e)]
     busy = sum(device_us(e) for e in table) / 1e3          # ms
     launches = sum(e.count for e in table)
-    n = args.steps
+    n = STEPS
     wall_ms = wall * 1e3
-    print(f"{smi}; {busy_slots} of 8 slots busy; {n} steps profiled")
+    print(f"{smi}; {busy_slots} of {eng.cfg.max_batch} slots busy; {n} "
+          f"steps profiled")
     print(f"per step: host clock {plain_ms / n:.3f} ms ({wall_ms / n:.3f} "
           f"ms under the profiler), device busy {busy / n:.3f} ms, idle "
           f"share {1 - busy / plain_ms:.3f}, {launches / n:.1f} kernels "

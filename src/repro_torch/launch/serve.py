@@ -32,28 +32,39 @@ def device_name(device: torch.device) -> str:
     return str(device)
 
 
-def serve(arch: str = "llama3.2-1b-smoke", *, requests: int = 12,
-          prompt_len: int = 16, max_new: int = 16, max_batch: int = 4,
-          max_len: int = 128, block_tokens: int = 16, burst: bool = False,
-          seed: int = 0, cache_dtype: str = "bfloat16",
-          device: DeviceLike = None) -> dict:
-    """Serve ``requests`` synthetic prompts; returns the run's report.
+# The full-width workload: served by ``chip_smoke.py`` (phase 7, with
+# the burst) and profiled by ``repro_torch.launch.profile_serve``.
+FULL_WIDTH = dict(arch="llama3.2-1b", requests=16, prompt_len=256,
+                  max_new=32, max_batch=8, max_len=1024, seed=0)
+
+
+def build_engine(arch: str = "llama3.2-1b-smoke", *, requests: int = 12,
+                 prompt_len: int = 16, max_new: int = 16, max_batch: int = 4,
+                 max_len: int = 128, seed: int = 0,
+                 device: DeviceLike = None) -> ServingEngine:
+    """The model drawn from ``seed`` and an engine (``ServingConfig``'s
+    block size and cache type) with ``requests`` synthetic prompts queued."""
+    dev = resolve_device(device)
+    cfg = get_config(arch)
+    model = Model(cfg, seed=seed, device=dev)
+    engine = ServingEngine(model, ServingConfig(max_batch=max_batch,
+                                                max_len=max_len), device=dev)
+    rng = np.random.default_rng(seed)
+    for _ in range(requests):
+        engine.submit(rng.integers(0, cfg.vocab_size, prompt_len),
+                      max_new_tokens=max_new)
+    return engine
+
+
+def serve(*, burst: bool = False, **workload) -> dict:
+    """Serve the prompts of :func:`build_engine` (``workload`` is its
+    keywords) until drained; returns the run's report.
 
     The report holds the engine, its finished requests, the wall time of
     the serving loop (host clock, ending on the last step's host sync),
     the tokens generated and the device's name.
     """
-    dev = resolve_device(device)
-    cfg = get_config(arch)
-    model = Model(cfg, seed=seed, device=dev)
-    engine = ServingEngine(model, ServingConfig(
-        max_batch=max_batch, max_len=max_len, block_tokens=block_tokens,
-        cache_dtype=cache_dtype), device=dev)
-    rng = np.random.default_rng(seed)
-    for _ in range(requests):
-        engine.submit(rng.integers(0, cfg.vocab_size, prompt_len),
-                      max_new_tokens=max_new)
-
+    engine = build_engine(**workload)
     t0 = time.perf_counter()
     if burst:
         for _ in range(10):
@@ -78,9 +89,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
-    ap.add_argument("--block-tokens", type=int, default=16)
-    ap.add_argument("--cache-dtype", default="bfloat16",
-                    choices=("bfloat16", "float32"))
     ap.add_argument("--burst", action="store_true",
                     help="shrink the KV pool to 25%% after 10 steps, "
                          "restore it 5 steps later")
@@ -89,12 +97,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     help="default: the CUDA card (raises without one)")
     args = ap.parse_args(argv)
 
-    report = serve(args.arch, requests=args.requests,
+    report = serve(arch=args.arch, requests=args.requests,
                    prompt_len=args.prompt_len, max_new=args.max_new,
                    max_batch=args.max_batch, max_len=args.max_len,
-                   block_tokens=args.block_tokens, burst=args.burst,
-                   seed=args.seed, cache_dtype=args.cache_dtype,
-                   device=args.device)
+                   burst=args.burst, seed=args.seed, device=args.device)
     stats = report["engine"].stats()
     dt = report["seconds"]
     print(f"served {len(report['finished'])} requests, {report['tokens']} "

@@ -113,7 +113,7 @@ def test_serving_entry_points_raise_without_cuda(monkeypatch):
         lambda: Model(cfg),
         lambda: ServingEngine(cpu_model, ServingConfig()),
         lambda: tserve.main(["--requests", "1"]),
-        lambda: tprofile.main(["--steps", "1"]),
+        tprofile.main,
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -219,9 +219,9 @@ def test_pool_copy_matches_the_jax_pool():
 
 def test_serve_cli_on_the_cpu(capsys):
     report = serve.main(["--device", "cpu", "--requests", "5",
-                         "--prompt-len", "12", "--max-new", "6",
+                         "--prompt-len", "40", "--max-new", "6",
                          "--max-batch", "3", "--max-len", "64",
-                         "--block-tokens", "4", "--burst"])
+                         "--burst"])
     stats = report["engine"].stats()
     assert len(report["finished"]) == 5 and report["tokens"] == 30
     assert stats["preemptions"] >= 1 and stats["logits_finite"]
