@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Builds the three kernels from ``src/repro_torch/csrc/`` (one ``nvcc``
-each, all at once) and drives the port's two main paths on the card:
+Builds the four kernels from ``src/repro_torch/csrc/`` (one ``nvcc``
+each, all at once) and drives the port's three main paths on the card:
 
 * the sweep (phases 1-5): the sweep kernel against its plain PyTorch
   version, then ``run_sweep``, ``sweep_demand`` and ``tune_gains`` at
@@ -16,7 +16,13 @@ each, all at once) and drives the port's two main paths on the card:
   continuous-batching engine through a pool burst, forward (flash)
   against decode (decode attention), mixed progress against isolated
   serving, then the kernels' times beside their bounds, their plain
-  versions and PyTorch's ``scaled_dot_product_attention``.
+  versions and PyTorch's ``scaled_dot_product_attention``;
+* serving hymba-1.5b at full width (phases 10-13): the scan kernel
+  against its plain version bit for bit, and both attention kernels at
+  hymba's heads and window; the engine through the same burst; forward
+  (flash and scan) against decode past the 1024-token window, mixed
+  progress against isolated serving; then the scan kernel's time beside
+  its bound and its plain version.
 
 Every phase prints a line; any failed check raises and the exit code is
 nonzero.  The last line is a JSON object naming the device; the one
@@ -51,6 +57,7 @@ from repro_torch.core.traces import GiB, fleet_demand_traces  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as kd  # noqa: E402
 from repro_torch.kernels import flash_attention as kf  # noqa: E402
+from repro_torch.kernels import ssm_scan as kscan  # noqa: E402
 from repro_torch.kernels import sweep as ks  # noqa: E402
 from repro_torch.lab import fused_sweep as fs  # noqa: E402
 from repro_torch.lab.scenarios import get_scenario  # noqa: E402
@@ -58,7 +65,8 @@ from repro_torch.lab.score import stats_mismatches  # noqa: E402
 from repro_torch.lab.sweep import (plan_specialization, run_sweep,  # noqa
                                    sweep_demand)
 from repro_torch.lab.tune import grid_gains, tune_gains  # noqa: E402
-from repro_torch.launch.serve import FULL_WIDTH, serve  # noqa: E402
+from repro_torch.launch.serve import (FULL_WIDTH,  # noqa: E402
+                                      FULL_WIDTH_HYMBA, serve)
 from repro_torch.models import decode as D  # noqa: E402
 from repro_torch.serving import ServingConfig, ServingEngine  # noqa: E402
 
@@ -295,7 +303,6 @@ def phase5(demand):
 # ---- serving llama3.2-1b: the attention kernels ------------------------
 
 ARCH = FULL_WIDTH["arch"]
-N_LAYERS = get_config(ARCH).n_layers
 # (b, s, h, kv, hd, window): tests/test_kernels.py's DECODE_CASES, then a
 # cache length that is a multiple of no tile, at the model's heads.
 DECODE_CASES = [(4, 512, 8, 2, 64, 0), (2, 1024, 4, 4, 32, 0),
@@ -328,37 +335,67 @@ def max_err(got, want, tol, tag):
     return float((got.float() - want.float()).abs().max())
 
 
+def check_decode(case, lens, gen, errs):
+    """Decode kernel against plain at one case, for each pair of types."""
+    b, s, h, kv, hd, window = case
+    for qdt, kdt in ((F32, F32), (BF16, BF16), (F32, BF16)):
+        q = randn((b, h, hd), qdt, gen)
+        kc, vc = randn((b, s, kv, hd), kdt, gen), \
+            randn((b, s, kv, hd), kdt, gen)
+        if lens is None:
+            lo = window + 1 if window else 1
+            lens_b = torch.randint(lo, s, (b,), generator=gen,
+                                   device=CUDA).tolist()
+        else:
+            lens_b = lens
+        lens_b = torch.tensor(lens_b, dtype=torch.int32, device=CUDA)
+        before = kd.LAUNCHES
+        out = kd.decode_attention(q, kc, vc, lens_b, window=window)
+        torch.cuda.synchronize()
+        check(kd.LAUNCHES == before + 1, "decode kernel did not launch")
+        ref = kd.decode_attention_plain(q, kc, vc, lens_b, window=window)
+        # both sides compute in f32 from the same cache values, so
+        # the output's type sets the tolerance
+        tol = 3e-2 if qdt == BF16 else 2e-5
+        tag = (f"decode b{b} S{s} H{h}/KV{kv} hd{hd} w{window} "
+               f"q={str(qdt)[6:]} cache={str(kdt)[6:]}")
+        err = max_err(out, ref, tol, tag)
+        key = "f32" if tol == 2e-5 else "bf16"
+        errs["decode"][key] = max(errs["decode"].get(key, 0.0), err)
+        log(f"  {tag}: max_abs_err={err:.3e} ok")
+
+
+def check_flash(case, gen, errs):
+    """Flash kernel against plain at one case, in f32 and in bf16."""
+    b, sq, skv, h, kv, hd, causal, window = case
+    for dt in (F32, BF16):
+        q = randn((b, sq, h, hd), dt, gen)
+        k, v = randn((b, skv, kv, hd), dt, gen), \
+            randn((b, skv, kv, hd), dt, gen)
+        before = kf.LAUNCHES
+        out = kf.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        check(kf.LAUNCHES == before + 1, "flash kernel did not launch")
+        ref = kf.flash_attention_plain(q, k, v, causal=causal,
+                                       window=window)
+        tol = 2e-2 if dt == BF16 else 2e-5
+        tag = (f"flash b{b} Sq{sq} Skv{skv} H{h}/KV{kv} hd{hd} "
+               f"causal={causal} w{window} {str(dt)[6:]}")
+        err = max_err(out, ref, tol, tag)
+        key = "f32" if dt == F32 else "bf16"
+        errs["flash"][key] = max(errs["flash"].get(key, 0.0), err)
+        log(f"  {tag}: max_abs_err={err:.3e} ok")
+
+
 def phase6():
     log("phase 6: attention kernels vs plain on the card (tolerance by "
         "the output's type: 2e-5 f32, 3e-2 decode / 2e-2 flash bf16)")
     gen = torch.Generator(device=CUDA).manual_seed(6)
     errs = {"decode": {}, "flash": {}}
-    for b, s, h, kv, hd, window in DECODE_CASES:
-        for qdt, kdt in ((F32, F32), (BF16, BF16), (F32, BF16)):
-            q = randn((b, h, hd), qdt, gen)
-            kc, vc = randn((b, s, kv, hd), kdt, gen), \
-                randn((b, s, kv, hd), kdt, gen)
-            if s == 1000:                        # len 1 and len S included
-                lens = [1, s, 333, s - 1, 17]
-            else:
-                lo = window + 1 if window else 1
-                lens = torch.randint(lo, s, (b,), generator=gen,
-                                     device=CUDA).tolist()
-            lens = torch.tensor(lens, dtype=torch.int32, device=CUDA)
-            before = kd.LAUNCHES
-            out = kd.decode_attention(q, kc, vc, lens, window=window)
-            torch.cuda.synchronize()
-            check(kd.LAUNCHES == before + 1, "decode kernel did not launch")
-            ref = kd.decode_attention_plain(q, kc, vc, lens, window=window)
-            # both sides compute in f32 from the same cache values, so
-            # the output's type sets the tolerance
-            tol = 3e-2 if qdt == BF16 else 2e-5
-            tag = (f"decode b{b} S{s} H{h}/KV{kv} hd{hd} w{window} "
-                   f"q={str(qdt)[6:]} cache={str(kdt)[6:]}")
-            err = max_err(out, ref, tol, tag)
-            key = "f32" if tol == 2e-5 else "bf16"
-            errs["decode"][key] = max(errs["decode"].get(key, 0.0), err)
-            log(f"  {tag}: max_abs_err={err:.3e} ok")
+    for case in DECODE_CASES:
+        s = case[1]                              # len 1 and len S included
+        check_decode(case, [1, s, 333, s - 1, 17] if s == 1000 else None,
+                     gen, errs)
     for window in (0, 40):                       # NaN past len_b (and
         for kdt in (F32, BF16):                  # before the window)
             b, s, h, kv, hd = 2, 256, 4, 2, 64
@@ -380,35 +417,22 @@ def phase6():
                   f"decode read a poisoned key (window {window}, {kdt})")
     log("  poisoned cache (NaN past len_b, and before the window): output "
         "unchanged and finite, f32 and bf16 caches")
-    for b, sq, skv, h, kv, hd, causal, window in FLASH_CASES:
-        for dt in (F32, BF16):
-            q = randn((b, sq, h, hd), dt, gen)
-            k, v = randn((b, skv, kv, hd), dt, gen), \
-                randn((b, skv, kv, hd), dt, gen)
-            before = kf.LAUNCHES
-            out = kf.flash_attention(q, k, v, causal=causal, window=window)
-            torch.cuda.synchronize()
-            check(kf.LAUNCHES == before + 1, "flash kernel did not launch")
-            ref = kf.flash_attention_plain(q, k, v, causal=causal,
-                                           window=window)
-            tol = 2e-2 if dt == BF16 else 2e-5
-            tag = (f"flash b{b} Sq{sq} Skv{skv} H{h}/KV{kv} hd{hd} "
-                   f"causal={causal} w{window} {str(dt)[6:]}")
-            err = max_err(out, ref, tol, tag)
-            key = "f32" if dt == F32 else "bf16"
-            errs["flash"][key] = max(errs["flash"].get(key, 0.0), err)
-            log(f"  {tag}: max_abs_err={err:.3e} ok")
+    for case in FLASH_CASES:
+        check_flash(case, gen, errs)
     return errs
 
 
-def phase7(smi):
-    w = FULL_WIDTH
-    log(f"phase 7: serve {ARCH} at full width (16 layers, d 2048, 32/8 "
-        f"heads, d_ff 8192, vocab 128256; f32 weights, seed {w['seed']}; "
-        f"bf16 cache), {w['requests']} requests x {w['prompt_len']}-token "
-        f"prompts x {w['max_new']} new tokens, max_batch {w['max_batch']}, "
-        f"max_len {w['max_len']}, block 16, pool to 25% after 10 steps, "
-        f"restored 5 steps later")
+def serve_full_width(phase, w, smi):
+    """Serve workload ``w`` through the burst; returns the engine, the
+    decode kernel's launches while serving, and the serving numbers."""
+    cfg = get_config(w["arch"])
+    log(f"phase {phase}: serve {w['arch']} at full width ({cfg.n_layers} "
+        f"layers, d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; f32 weights, seed "
+        f"{w['seed']}; bf16 cache), {w['requests']} requests x "
+        f"{w['prompt_len']}-token prompts x {w['max_new']} new tokens, "
+        f"max_batch {w['max_batch']}, max_len {w['max_len']}, block 16, "
+        f"pool to 25% after 10 steps, restored 5 steps later")
     kd.LAUNCHES = 0                        # the serving path starts here
     report = serve(**w, burst=True)
     launches = kd.LAUNCHES
@@ -421,13 +445,13 @@ def phase7(smi):
           f"not drained: {st}")
     check(st["preemptions"] >= 1, f"the burst preempted nothing: {st}")
     check(st["logits_finite"], "non-finite logits")
-    check(launches == st["decode_steps"] * N_LAYERS,
+    check(launches == st["decode_steps"] * cfg.n_layers,
           f"decode kernel launched {launches} times for "
-          f"{st['decode_steps']} steps x {N_LAYERS} layers")
+          f"{st['decode_steps']} steps x {cfg.n_layers} layers")
     log(f"  drained {len(fin)}/{w['requests']}, {report['tokens']} tokens, "
         f"{st['preemptions']} preemption(s), {st['steps']} steps "
         f"({st['decode_steps']} with an active slot); decode kernel "
-        f"launches {launches} = steps x {N_LAYERS}; logits finite")
+        f"launches {launches} = steps x {cfg.n_layers}; logits finite")
     log(f"  {report['tokens'] / dt:.1f} tok/s, {st['steps'] / dt:.2f} "
         f"steps/s ({dt:.3f} s, host clock) on {smi}")
     return eng, launches, {"tok_s": report["tokens"] / dt,
@@ -436,27 +460,44 @@ def phase7(smi):
                            "preemptions": st["preemptions"]}
 
 
-def phase8(model):
-    log("phase 8: forward (flash) against decode (decode attention) at "
-        "full width, 2 x 256 tokens, f32 cache; mixed progress")
-    gen = torch.Generator(device=CUDA).manual_seed(8)
-    tokens = torch.randint(0, model.cfg.vocab_size, (2, 256), generator=gen,
-                           device=CUDA)
-    kf.LAUNCHES = 0                        # the forward path starts here
+def forward_decode_rel(model, tokens):
+    """Max |forward - decode| over max |forward| of the logits (decode
+    with an f32 cache), and the forward's launches of flash and scan."""
+    kf.LAUNCHES = kscan.LAUNCHES = 0       # the forward path starts here
     fwd = model(tokens)
-    launches = kf.LAUNCHES
-    check(launches == N_LAYERS, f"forward launched the flash kernel "
-          f"{launches} times for {N_LAYERS} layers")
-    state = D.init_state(model, 2, 256, cache_dtype="float32")
+    launches = {"flash": kf.LAUNCHES, "scan": kscan.LAUNCHES}
+    check(bool(torch.isfinite(fwd).all()), "non-finite forward logits")
+    b, s = tokens.shape
+    state = D.init_state(model, b, s, cache_dtype="float32")
     dec = torch.cat([D.decode_step(model, state, tokens[:, t:t + 1])
-                     for t in range(256)], dim=1)
-    rel = float((fwd - dec).abs().max() / fwd.abs().max())
-    check(bool(torch.isfinite(fwd).all()) and rel < 5e-3,
-          f"forward and decode differ by {rel:.3e} relative (bound 5e-3)")
-    log(f"  forward vs decode: max relative diff {rel:.3e} (bound 5e-3)")
+                     for t in range(s)], dim=1)
+    return float((fwd - dec).abs().max() / fwd.abs().max()), launches
 
-    rng = np.random.default_rng(8)
-    prompts = [rng.integers(0, model.cfg.vocab_size, n) for n in (5, 9, 3)]
+
+def forward_against_decode(phase, model, batch, seq):
+    """Forward (flash, and scan in a hybrid) against decode (decode
+    attention) on ``batch`` x ``seq`` tokens with an f32 cache, then
+    mixed progress against isolated serving.  Returns the forward's
+    launches of the flash and scan kernels."""
+    cfg = model.cfg
+    hybrid = cfg.family == "hybrid"
+    log(f"phase {phase}: forward ({'flash + scan' if hybrid else 'flash'}) "
+        f"against decode (decode attention) at full width, {batch} x {seq} "
+        f"tokens, f32 cache; mixed progress")
+    gen = torch.Generator(device=CUDA).manual_seed(phase)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                           device=CUDA)
+    rel, launches = forward_decode_rel(model, tokens)
+    want = {"flash": cfg.n_layers, "scan": cfg.n_layers if hybrid else 0}
+    check(launches == want, f"forward launched {launches} for "
+          f"{cfg.n_layers} layers, expected {want}")
+    check(rel < 5e-3, f"forward and decode differ by {rel:.3e} relative "
+          f"(bound 5e-3)")
+    log(f"  forward launches {launches}; forward vs decode: max relative "
+        f"diff {rel:.3e} (bound 5e-3)")
+
+    rng = np.random.default_rng(phase)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 9, 3)]
 
     def run(prompt_list):
         eng = ServingEngine(model, ServingConfig(
@@ -571,6 +612,140 @@ def phase9(state, scfg):
     return out
 
 
+# ---- serving hymba-1.5b: the scan kernel --------------------------------
+
+HYMBA = get_config(FULL_WIDTH_HYMBA["arch"])
+# (b, s, c, n): tests/test_kernels.py's SSM_CASES, one step, then a few
+# hundred steps at hymba's C = 3200, N = 16, and a ragged C x N
+SCAN_CASES = [(2, 256, 128, 16), (1, 128, 256, 8), (3, 64, 128, 4),
+              (2, 1, 3200, 16), (2, 300, 3200, 16), (2, 37, 5, 3)]
+SCAN_TIMED = (2, 4096)           # (B, S) of the timed scan: one layer of a
+#                                  2 x 4096 forward at C = 3200, N = 16
+# hymba's heads (25/5 of 64) with its window of 1024, past it, with a
+# ragged length; and global layers' full attention
+HYMBA_DECODE = [((4, 1500, 25, 5, 64, 1024), [1, 1025, 1500, 1337]),
+                ((2, 1100, 25, 5, 64, 0), [1100, 777])]
+HYMBA_FLASH = [(1, 1100, 1100, 25, 5, 64, True, 1024),
+               (1, 1088, 1088, 25, 5, 64, True, 0)]
+
+
+def scan_inputs(b, s, c, n, dtype, gen):
+    decay = (torch.rand((b, s, c, n), generator=gen, device=CUDA) * 0.7
+             + 0.3).to(dtype)
+    drive = (randn((b, s, c, n), F32, gen) * 0.2).to(dtype)
+    return decay, drive, randn((b, c, n), F32, gen)
+
+
+def phase10():
+    log("phase 10: the scan kernel vs plain on the card (f32 bit for bit, "
+        "bf16 inputs within 1e-5); attention kernels at hymba's heads "
+        "(25/5 of 64) and window 1024")
+    gen = torch.Generator(device=CUDA).manual_seed(10)
+    worst = 0.0
+    for case in SCAN_CASES:
+        for dt in (F32, BF16):
+            decay, drive, h0 = scan_inputs(*case, dt, gen)
+            before = kscan.LAUNCHES
+            out = kscan.ssm_scan(decay, drive, h0)
+            torch.cuda.synchronize()
+            check(kscan.LAUNCHES == before + 1, "scan kernel did not launch")
+            ref = kscan.ssm_scan_plain(decay, drive, h0)
+            tag = f"scan {'x'.join(map(str, case))} {str(dt)[6:]}"
+            same = torch.equal(out, ref)
+            if dt == F32:
+                check(same, f"{tag}: not bit-identical")
+            err = max_err(out, ref, 1e-5, tag)
+            worst = max(worst, err)
+            log(f"  {tag}: bit-identical={same} max_abs_err={err:.3e}")
+    decay, drive, h0 = scan_inputs(2, 300, 3200, 16, F32, gen)
+    whole = kscan.ssm_scan(decay, drive, h0)
+    first = kscan.ssm_scan(decay[:, :123], drive[:, :123], h0)
+    second = kscan.ssm_scan(decay[:, 123:], drive[:, 123:], first[:, -1])
+    torch.cuda.synchronize()
+    check(torch.equal(torch.cat([first, second], dim=1), whole),
+          "two calls carrying h0 differ from one call")
+    log("  two calls, the first's last h carried as h0 == one call over "
+        "the whole sequence, bit for bit")
+    errs = {"decode": {}, "flash": {}}
+    for case, lens in HYMBA_DECODE:
+        check_decode(case, lens, gen, errs)
+    for case in HYMBA_FLASH:
+        check_flash(case, gen, errs)
+    return worst, errs
+
+
+def mamba_paper_init(model, seed):
+    """Give every Mamba branch the A and dt of the Mamba paper's init
+    (S4D-real A = -(1, ..., N) per channel; dt log-uniform in [1e-3,
+    1e-1] per channel through ``dt_bias``), in place.
+
+    The JAX init kinds (``a_log`` ones, ``dt_bias`` zeros) make A and dt
+    the same for every channel, and dt one scalar per token, so
+    ``y + x * d_skip = x * (1 + dt * B.C) + ...`` cancels in every
+    channel at once where ``dt * B.C`` nears -1.  The weightless RMS
+    fusion then scales that token's rounding up to unit size, and 32
+    layers compound it: forward and decode, which round differently,
+    drift apart by ~1e-2 however right both are.
+    """
+    gen = torch.Generator(device=CUDA).manual_seed(seed)
+    lo, hi = np.log(1e-3), np.log(1e-1)
+    with torch.no_grad():
+        for layer in model.layers:
+            p = layer.mamba
+            inner, n = p.a_log.shape
+            p.a_log.copy_(torch.log(torch.arange(1, n + 1, device=CUDA,
+                                                 dtype=F32)).expand(inner, n))
+            dt = torch.exp(torch.rand(inner, generator=gen, device=CUDA)
+                           * (hi - lo) + lo)
+            p.dt_bias.copy_(dt + torch.log(-torch.expm1(-dt)))   # softplus^-1
+
+
+def phase12(model):
+    """Forward against decode at 1 x 1088 tokens, past the window, so the
+    local layers really window.  Returns the gated run's launches and the
+    served (JAX-init) model's forward-vs-decode difference."""
+    gen = torch.Generator(device=CUDA).manual_seed(120)
+    tokens = torch.randint(0, model.cfg.vocab_size, (1, 1088), generator=gen,
+                           device=CUDA)
+    rel_jax_init, _ = forward_decode_rel(model, tokens)
+    log(f"phase 12 (not gated): the served model, JAX init of a_log/dt_bias: "
+        f"forward vs decode max relative diff {rel_jax_init:.3e} at 1 x 1088 "
+        f"tokens")
+    mamba_paper_init(model, 12)
+    return forward_against_decode(12, model, 1, 1088), rel_jax_init
+
+
+def phase13():
+    b, s = SCAN_TIMED
+    c, n = HYMBA.ssm_expand * HYMBA.d_model, HYMBA.ssm_state
+    log(f"phase 13: scan kernel times on the card (CUDA events, median of "
+        f"warm runs, L2 flushed before each; 3.35 TB/s, f32 67 TFLOP/s), "
+        f"{b} x {s} x {c} x {n} f32")
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=CUDA)
+    gen = torch.Generator(device=CUDA).manual_seed(13)
+    decay, drive, h0 = scan_inputs(b, s, c, n, F32, gen)
+    n_el = decay.numel()
+    # each input read once, each output written once; 2 operations each
+    n_bytes = (decay.numel() + drive.numel() + h0.numel() + n_el) * 4
+    bound_ms, by = bound(n_bytes, 2 * n_el, PEAK_F32_S)
+    ms = cuda_ms(lambda: kscan.ssm_scan(decay, drive, h0), reps=7,
+                 flush=flush)
+    plain = cuda_ms(lambda: kscan.ssm_scan_plain(decay, drive, h0), reps=3,
+                    warm=1, flush=flush)
+    got = kscan.ssm_scan(decay, drive, h0)
+    ref = kscan.ssm_scan_plain(decay, drive, h0)
+    err = float((got - ref).abs().max())
+    check(torch.equal(got, ref), f"timed scan differs from plain by {err}")
+    tag = f"B{b} x S{s} x C{c} x N{n} f32"
+    log(f"  scan {tag}: kernel {ms:.4f} ms ({n_bytes / ms / 1e6:.1f} GB/s), "
+        f"plain {plain:.3f} ms, bound {bound_ms:.4f} ms by {by} "
+        f"({n_bytes / 1e9:.3f} GB), {bound_ms / ms:.1%} of bound; library "
+        f"none; kernel vs plain max |diff| {err:.2e}")
+    return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound_ms,
+                bound_by=by, shape=tag, max_abs_err=err,
+                share_of_bound=bound_ms / ms)
+
+
 def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -619,8 +794,8 @@ def main() -> None:
     }
 
     errs = phase6()
-    eng, n_decode, served = phase7(smi)
-    n_flash = phase8(eng.model)
+    eng, n_decode, served = serve_full_width(7, FULL_WIDTH, smi)
+    n_flash = forward_against_decode(8, eng.model, 2, 256)["flash"]
     launches = {"decode": n_decode, "flash": n_flash}
     log(f"main path: decode attention launched {n_decode} times (phase 7), "
         f"flash attention {n_flash} times (phase 8's forward)")
@@ -655,9 +830,48 @@ def main() -> None:
     }
     serving = {k: served[k] for k in ("tok_s", "steps_s", "seconds",
                                       "steps", "preemptions")}
-    log("serving: " + json.dumps(serving))
+    log(f"serving {ARCH}: " + json.dumps(serving))
+
+    scan_err, hymba_errs = phase10()
+    eng, n_decode_h, served_h = serve_full_width(11, FULL_WIDTH_HYMBA, smi)
+    n_fwd, rel_jax_init = phase12(eng.model)
+    log(f"main path: decode attention launched {n_decode_h} times (phase "
+        f"11), flash attention {n_fwd['flash']} and the scan "
+        f"{n_fwd['scan']} times (phase 12's forward)")
+    check(min(n_decode_h, *n_fwd.values()) > 0,
+          "the hybrid serving path skipped a kernel")
+    del eng                                # free the serving state
+    torch.cuda.empty_cache()
+    sc = phase13()
+    for name, d in (("decode", decode), ("flash", flash)):
+        d["max_abs_err"] = max(d["max_abs_err"], *hymba_errs[name].values())
+        d["max_abs_err_f32"] = max(d["max_abs_err_f32"],
+                                   hymba_errs[name]["f32"])
+    decode["launches"] = n_decode + n_decode_h
+    decode["launches_by_path"] = {f"{ARCH} serving (phase 7)": n_decode,
+                                  f"{HYMBA.name} serving (phase 11)":
+                                  n_decode_h}
+    flash["launches"] = n_flash + n_fwd["flash"]
+    flash["launches_by_path"] = {f"{ARCH} forward (phase 8)": n_flash,
+                                 f"{HYMBA.name} forward (phase 12)":
+                                 n_fwd["flash"]}
+    scan = {
+        "name": "ssm_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan/kernel.py:25",
+        "launches": n_fwd["scan"],
+        "launches_by_path": {f"{HYMBA.name} forward (phase 12)":
+                             n_fwd["scan"]},
+        "max_abs_err": max(scan_err, sc["max_abs_err"]),
+        **{k: sc[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "share_of_bound", "shape")},
+    }
+    serving_h = {k: served_h[k] for k in ("tok_s", "steps_s", "seconds",
+                                          "steps", "preemptions")}
+    serving_h["forward_vs_decode_jax_init"] = rel_jax_init
+    log(f"serving {HYMBA.name}: " + json.dumps(serving_h))
     print(smi)
-    print(json.dumps({"kernels": [kernel, decode, flash]}))
+    print(json.dumps({"kernels": [kernel, decode, flash, scan]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

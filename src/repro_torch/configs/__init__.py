@@ -2,8 +2,9 @@
 
 ``dynims`` holds paper Table I and the ScenarioLab presets.
 :func:`get_config` resolves ``--arch <id>`` for the architectures the
-port serves so far: ``llama3.2-1b`` and its ``-smoke`` reduction.  The
-other architectures of the JAX package come with their families
+port serves so far, each with its ``-smoke`` reduction: ``llama3.2-1b``
+(dense) and ``hymba-1.5b`` (hybrid: attention and Mamba in parallel).
+The other architectures of the JAX package come with their families
 (ROADMAP A5).
 """
 
@@ -11,9 +12,10 @@ from __future__ import annotations
 
 from .base import (ArchConfig, DECODE_32K, InputShape, LONG_500K,
                    PREFILL_32K, SHAPES, TRAIN_4K)
+from .hymba_15b import ARCH as _HYMBA_15B
 from .llama32_1b import ARCH as _LLAMA32_1B
 
-_ARCHS = {_LLAMA32_1B.name: _LLAMA32_1B}
+_ARCHS = {a.name: a for a in (_LLAMA32_1B, _HYMBA_15B)}
 
 ARCH_IDS = list(_ARCHS)
 

@@ -3,8 +3,8 @@
 The controller's gains -- :class:`GainSet` and :class:`ControllerParams`
 -- cross over as plain numpy arrays and floats (``dataclasses.asdict``
 or a field-by-field dict).  A model's parameter pytree crosses over as
-``jax.tree.map(np.asarray, params)``, stacked layers under
-``["layers"]["flat"]``, into the port's :class:`Model`
+``jax.tree.map(np.asarray, params)``, its layers stacked flat or in the
+grouped local:global stack, into the port's :class:`Model`
 (:func:`model_params_from_numpy`).  Both packages then compute on
 identical numbers while neither imports the other.
 """
@@ -12,7 +12,7 @@ identical numbers while neither imports the other.
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+from typing import Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -45,42 +45,97 @@ def params_from_dict(d: Mapping[str, object]) -> ControllerParams:
     return ControllerParams(**dict(d))
 
 
+def _index(tree, *idx):
+    """Every array of a nested dict at index ``idx`` of its leading axes."""
+    if isinstance(tree, Mapping):
+        return {k: _index(v, *idx) for k, v in tree.items()}
+    return np.asarray(tree)[idx]
+
+
+def _stacked(tree: Mapping) -> int:
+    """The length of a stack's leading axis (that of its first array)."""
+    while isinstance(tree, Mapping):
+        tree = next(iter(tree.values()))
+    return len(tree)
+
+
+def _layer_trees(layers: Mapping, cfg: ArchConfig) -> List[Mapping]:
+    """The JAX stack's per-layer trees, in the order of the port's layers.
+
+    ``["flat"]`` gives layer i at index i; the grouped local:global stack
+    of ``_windowed_stack_schema`` (period p, n_groups = L // p) gives
+    ``["groups"]["locals"][g][j]`` -> layer g * p + j,
+    ``["groups"]["glob"][g]`` -> layer g * p + p - 1 and ``["tail"][t]`` ->
+    layer n_groups * p + t.
+    """
+    p = cfg.global_every
+    grouped = bool(cfg.sliding_window and p) and cfg.n_layers >= p
+    if set(layers) - {"flat", "groups", "tail"} \
+            or grouped != ("groups" in layers):
+        raise ValueError(f"{cfg.name} stacks its layers "
+                         f"{'grouped' if grouped else 'flat'}; the tree "
+                         f"holds {sorted(layers)}")
+    if not grouped:
+        return [_index(layers["flat"], i)
+                for i in range(_stacked(layers["flat"]))]
+    groups = layers["groups"]
+    out = []
+    for g in range(_stacked(groups["glob"])):
+        out += [_index(groups["locals"], g, j) for j in range(p - 1)]
+        out.append(_index(groups["glob"], g))
+    if "tail" in layers:
+        out += [_index(layers["tail"], t)
+                for t in range(_stacked(layers["tail"]))]
+    return out
+
+
+def _named(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Dotted names of a nested dict's arrays, as the port names its
+    parameters: a norm's ``scale`` is the norm itself, JAX's ``embed``
+    holds the model's ``tokens`` and ``unembed``."""
+    out = {}
+    for k, v in tree.items():
+        name = prefix + k
+        if isinstance(v, Mapping):
+            out.update(_named(v, "" if k == "embed" else name + "."))
+        else:
+            out[prefix[:-1] if k == "scale" else name] = np.asarray(v)
+    return out
+
+
 def model_params_from_numpy(tree: Mapping, cfg: ArchConfig, *,
                             device: DeviceLike = None) -> Model:
     """A :class:`Model` holding the JAX parameter pytree's numbers.
 
-    The JAX layouts carry over unchanged: ``wq`` (d, H, hd),
+    The JAX names and layouts carry over unchanged: ``wq`` (d, H, hd),
     ``wk``/``wv`` (d, KV, hd), attention ``wo`` (H, hd, d), ``wi``/``wg``
-    (d, f), MLP ``wo`` (f, d), ``tokens`` (Vp, d); layer ``i`` takes
-    index ``i`` of the stack's leading axis.  The model's type is the
-    arrays' type.  Raises on a missing, extra or misshapen array.
+    (d, f), MLP ``wo`` (f, d), the Mamba leaves of ``mamba_schema``,
+    ``tokens`` (Vp, d) and, untied, ``unembed`` (d, Vp).  The layer
+    stack, flat or grouped, maps onto the port's flat layers
+    (:func:`_layer_trees`).  The model's type is the arrays' type.
+    Raises on a missing, extra or misshapen array.
     """
-    stack = tree["layers"]["flat"]
     dtype = torch.from_numpy(
         np.empty(0, np.asarray(tree["embed"]["tokens"]).dtype)).dtype
     model = Model(cfg, dtype=dtype, device=device, init=False)
-    pairs = [(model.tokens, tree["embed"]["tokens"]),
-             (model.final_norm, tree["final_norm"]["scale"])]
-    for i, layer in enumerate(model.layers):
-        pairs += [(layer.attn_norm, stack["attn_norm"]["scale"][i]),
-                  (layer.mlp_norm, stack["mlp_norm"]["scale"][i])]
-        pairs += [(getattr(layer.attn, n), stack["attn"][n][i])
-                  for n in ("wq", "wk", "wv", "wo")]
-        pairs += [(getattr(layer.mlp, n), stack["mlp"][n][i])
-                  for n in ("wi", "wg", "wo")]
-    if len(stack["attn_norm"]["scale"]) != cfg.n_layers:
-        raise ValueError(f"the tree stacks {len(stack['attn_norm']['scale'])}"
-                         f" layers, {cfg.name} has {cfg.n_layers}")
-    extra = set(stack["attn"]) - {"wq", "wk", "wv", "wo"} \
-        | set(stack["mlp"]) - {"wi", "wg", "wo"}
-    if extra:
-        raise ValueError(f"parameters the port does not carry: "
-                         f"{sorted(extra)}")
+    layers = _layer_trees(tree["layers"], cfg)
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"the tree stacks {len(layers)} layers, {cfg.name} "
+                         f"has {cfg.n_layers}")
+    arrays = _named({k: v for k, v in tree.items() if k != "layers"})
+    for i, layer in enumerate(layers):
+        arrays.update(_named(layer, f"layers.{i}."))
+    params = dict(model.named_parameters())
+    missing, extra = set(params) - set(arrays), set(arrays) - set(params)
+    if missing or extra:
+        raise ValueError(f"parameters missing from the tree: "
+                         f"{sorted(missing)}; parameters the port does not "
+                         f"carry: {sorted(extra)}")
     with torch.no_grad():
-        for param, arr in pairs:
-            src = torch.from_numpy(np.array(arr))
+        for name, param in params.items():
+            src = torch.from_numpy(np.array(arrays[name]))
             if tuple(src.shape) != tuple(param.shape):
-                raise ValueError(f"shape {tuple(src.shape)} where the port "
-                                 f"has {tuple(param.shape)}")
+                raise ValueError(f"{name}: shape {tuple(src.shape)} where "
+                                 f"the port has {tuple(param.shape)}")
             param.copy_(src)
     return model

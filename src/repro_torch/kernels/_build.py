@@ -78,6 +78,12 @@ def _decode_argtypes():
             + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
+def _ssm_argtypes():
+    # (bf16, decay, drive, h0, out, B, S, C, N, stream)
+    return ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+            + [ctypes.c_void_p])
+
+
 def _flash_argtypes():
     # (bf16, q, k, v, out, B, Sq, Skv, H, KV, hd, causal, window, stream)
     return ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
@@ -102,6 +108,8 @@ LIBRARIES: Dict[str, LibrarySpec] = {
         ATTENTION_FLAGS, "dynims_decode_attention", _decode_argtypes),
     "flash_attention.cu": LibrarySpec(
         ATTENTION_FLAGS, "dynims_flash_attention", _flash_argtypes),
+    # the sweep's flags: the scan is held to its plain version bit for bit
+    "ssm_scan.cu": LibrarySpec(NVCC_FLAGS, "dynims_ssm_scan", _ssm_argtypes),
 }
 
 

@@ -1,14 +1,14 @@
 """Where a serving step's time goes on the card: one profiler window.
 
-    python -m repro_torch.launch.profile_serve
+    python -m repro_torch.launch.profile_serve [llama3.2-1b | hymba-1.5b]
 
-Sets up the serving workload ``FULL_WIDTH`` of
-:mod:`repro_torch.launch.serve`, which ``chip_smoke.py`` phase 7 serves
-(llama3.2-1b at full width, float32 weights from seed 0, bfloat16 cache,
-8 slots of 1024 tokens, 16 requests of 256-token prompts), runs
-``WARM`` engine steps so all 8 slots are busy, times ``STEPS`` steps on
-the host clock (each step ends on its argmax sync), then profiles as
-many more with
+Sets up one of the full-width serving workloads of
+:mod:`repro_torch.launch.serve` (``WORKLOADS``, llama3.2-1b by default),
+which ``chip_smoke.py`` serves in phases 7 and 11: the model at its
+published widths, float32 weights from seed 0, bfloat16 cache, 8 slots
+of 1024 tokens, 16 requests of 256-token prompts.  Runs ``WARM`` engine
+steps so all 8 slots are busy, times ``STEPS`` steps on the host clock
+(each step ends on its argmax sync), then profiles as many more with
 ``torch.profiler`` and prints, per step: the host-clock time without
 and with the profiler, the device's busy time (the sum of the
 kernels' and copies' device times; one stream, so they do not
@@ -20,13 +20,15 @@ nonzero.
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 import sys
 import time
+from typing import Sequence
 
 import torch
 
-from .serve import FULL_WIDTH, build_engine
+from .serve import WORKLOADS, build_engine
 
 STEPS, WARM = 20, 20
 
@@ -45,8 +47,12 @@ def on_device(evt) -> bool:
     return device_us(evt) > 0 and not evt.key.startswith("aten::")
 
 
-def main() -> None:
-    eng = build_engine(**FULL_WIDTH)       # the card; raises without one
+def main(argv: Sequence[str] = ()) -> None:
+    ap = argparse.ArgumentParser(prog="profile_serve")
+    ap.add_argument("arch", nargs="?", default="llama3.2-1b",
+                    choices=sorted(WORKLOADS))
+    arch = ap.parse_args(list(argv)).arch
+    eng = build_engine(**WORKLOADS[arch])  # the card; raises without one
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -73,8 +79,8 @@ def main() -> None:
     launches = sum(e.count for e in table)
     n = STEPS
     wall_ms = wall * 1e3
-    print(f"{smi}; {busy_slots} of {eng.cfg.max_batch} slots busy; {n} "
-          f"steps profiled")
+    print(f"{arch}: {smi}; {busy_slots} of {eng.cfg.max_batch} slots busy; "
+          f"{n} steps profiled")
     print(f"per step: host clock {plain_ms / n:.3f} ms ({wall_ms / n:.3f} "
           f"ms under the profiler), device busy {busy / n:.3f} ms, idle "
           f"share {1 - busy / plain_ms:.3f}, {launches / n:.1f} kernels "
@@ -88,4 +94,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -1,7 +1,8 @@
 """Serving entry point: continuous batching over a DynIMS-managed pool.
 
     python -m repro_torch.launch.serve --arch llama3.2-1b [--burst]
-    python -m repro_torch.launch.serve --arch llama3.2-1b-smoke --device cpu
+    python -m repro_torch.launch.serve --arch hymba-1.5b [--burst]
+    python -m repro_torch.launch.serve --arch hymba-1.5b-smoke --device cpu
 
 Serves synthetic prompts with weights drawn from ``--seed`` and prints
 tokens/s and steps/s beside the device's name, then the engine's
@@ -32,10 +33,13 @@ def device_name(device: torch.device) -> str:
     return str(device)
 
 
-# The full-width workload: served by ``chip_smoke.py`` (phase 7, with
-# the burst) and profiled by ``repro_torch.launch.profile_serve``.
+# The full-width workloads, one per served architecture: served by
+# ``chip_smoke.py`` with the burst (llama in phase 7, hymba in phase 11)
+# and profiled by ``repro_torch.launch.profile_serve``.
 FULL_WIDTH = dict(arch="llama3.2-1b", requests=16, prompt_len=256,
                   max_new=32, max_batch=8, max_len=1024, seed=0)
+FULL_WIDTH_HYMBA = dict(FULL_WIDTH, arch="hymba-1.5b")
+WORKLOADS = {w["arch"]: w for w in (FULL_WIDTH, FULL_WIDTH_HYMBA)}
 
 
 def build_engine(arch: str = "llama3.2-1b-smoke", *, requests: int = 12,

@@ -1,4 +1,5 @@
-"""The dense decoder of the port: layers, attention, forward and decode."""
+"""The decoders of the port (dense and hybrid): layers, attention, Mamba,
+forward and decode."""
 
 from .decode import DecodeState, decode_step, init_state, prefill
 from .transformer import Model

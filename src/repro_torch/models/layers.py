@@ -1,14 +1,17 @@
 """Common layers: RMSNorm, rotary embeddings, the SwiGLU MLP, embed/unembed.
 
-The port of ``repro/models/layers.py`` for the dense family.  Every
-product accumulates in float32 and every norm and rotation runs in
-float32, as the JAX package's ``preferred_element_type=F32`` and
-``astype(F32)`` do; results are cast back to the activation type where
-the reference casts them.  Weights keep the JAX layouts (``wi``/``wg``
-``(d, f)``, ``wo`` ``(f, d)``, ``tokens`` ``(Vp, d)``).
+The port of ``repro/models/layers.py`` for the dense and hybrid
+families.  Every product accumulates in float32 and every norm and
+rotation runs in float32, as the JAX package's
+``preferred_element_type=F32`` and ``astype(F32)`` do; results are cast
+back to the activation type where the reference casts them.  Weights
+keep the JAX layouts (``wi``/``wg`` ``(d, f)``, ``wo`` ``(f, d)``,
+``tokens`` ``(Vp, d)``, ``unembed`` ``(d, Vp)``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -66,6 +69,9 @@ def embed_tokens(tokens_table: torch.Tensor, ids: torch.Tensor,
     return tokens_table[ids].to(dtype)
 
 
-def unembed(tokens_table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Tied readout over the padded vocabulary, float32 logits."""
-    return matmul_f32(x, tokens_table.t())
+def unembed(tokens_table: torch.Tensor, x: torch.Tensor,
+            untied: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Readout over the padded vocabulary, float32 logits: through the
+    embedding table (tied) or through ``untied`` (d, Vp), JAX's
+    ``embed["unembed"]``."""
+    return matmul_f32(x, tokens_table.t() if untied is None else untied)

@@ -1,25 +1,28 @@
-"""The dense decoder: parameters, initialization and the parallel forward.
+"""The decoder: parameters, initialization and the parallel forward.
 
 The port of ``repro/models/transformer.py`` (``Model``, ``forward``,
-``_self_layer``) and of the init kinds of ``repro/models/params.py`` for
-the ``dense`` family with a flat layer stack -- the family of
-llama3.2-1b.  Other families and features (experts, the grouped local:
-global window schedule, QKV biases, untied embeddings, softcaps) raise
-``NotImplementedError``; they come with later slices (ROADMAP A5).
+``_self_layer``, ``_hybrid_layer``) and of the init kinds of
+``repro/models/params.py`` for two families: ``dense`` (llama3.2-1b)
+and ``hybrid`` (hymba-1.5b: attention and Mamba in parallel in every
+layer, fused by the mean of their RMS-normalized outputs).  Other
+families and features (experts, QKV biases, softcaps, layernorm, gelu)
+raise ``NotImplementedError``; they come with later slices (ROADMAP A5).
 
-Parameters keep the JAX package's names and layouts, one
-:class:`Layer` per entry of the JAX stack's leading axis, so
-:func:`repro_torch.convert.model_params_from_numpy` copies them
-tensor for tensor.  They are initialized from an explicit
-``torch.Generator`` seeded by ``seed`` on the model's device; the
-numbers differ from ``jax.random``'s, the kinds and scales do not.
-Nothing here trains: parameters carry no gradient.
+The layers form one flat ``nn.ModuleList``, each with its window from
+:func:`layer_windows`, where JAX nests the grouped local:global
+schedule into stacks (``_windowed_stack_schema``).  Parameters keep the
+JAX package's names and layouts, so
+:func:`repro_torch.convert.model_params_from_numpy` copies them tensor
+for tensor.  They are initialized from an explicit ``torch.Generator``
+seeded by ``seed`` on the model's device; the numbers differ from
+``jax.random``'s, the kinds and scales do not.  Nothing here trains:
+parameters carry no gradient.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -28,6 +31,9 @@ from ..configs.base import ArchConfig
 from ..device import DeviceLike, resolve_device
 from .attention import self_attention
 from .layers import embed_tokens, rms_norm, swiglu_mlp, unembed
+from .ssm import Mamba, mamba_apply
+
+F32 = torch.float32
 
 
 def init_tensor(shape: Tuple[int, ...], kind: str, gen: torch.Generator,
@@ -61,20 +67,16 @@ def init_tensor(shape: Tuple[int, ...], kind: str, gen: torch.Generator,
     return (draw * std).to(dtype)
 
 
-def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
-
-
 class Attention(nn.Module):
     """``wq`` (d, H, hd), ``wk``/``wv`` (d, KV, hd), ``wo`` (H, hd, d)."""
 
     def __init__(self, cfg: ArchConfig, make):
         super().__init__()
         d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        self.wq = _param(make((d, h, hd), "fan_in"))
-        self.wk = _param(make((d, kv, hd), "fan_in"))
-        self.wv = _param(make((d, kv, hd), "fan_in"))
-        self.wo = _param(make((h, hd, d), "fan_in"))
+        self.wq = make((d, h, hd), "fan_in")
+        self.wk = make((d, kv, hd), "fan_in")
+        self.wv = make((d, kv, hd), "fan_in")
+        self.wo = make((h, hd, d), "fan_in")
 
 
 class MLP(nn.Module):
@@ -83,20 +85,13 @@ class MLP(nn.Module):
     def __init__(self, cfg: ArchConfig, make):
         super().__init__()
         d, f = cfg.d_model, cfg.d_ff
-        self.wi = _param(make((d, f), "fan_in"))
-        self.wo = _param(make((f, d), "fan_in"))
-        self.wg = _param(make((d, f), "fan_in"))
+        self.wi = make((d, f), "fan_in")
+        self.wo = make((f, d), "fan_in")
+        self.wg = make((d, f), "fan_in")
 
 
-class Layer(nn.Module):
-    """One pre-norm decoder layer (``_self_layer``)."""
-
-    def __init__(self, cfg: ArchConfig, make):
-        super().__init__()
-        self.attn_norm = _param(make((cfg.d_model,), "ones"))
-        self.attn = Attention(cfg, make)
-        self.mlp_norm = _param(make((cfg.d_model,), "ones"))
-        self.mlp = MLP(cfg, make)
+class _Block(nn.Module):
+    """What every layer ends with: the pre-norm MLP."""
 
     def mlp_block(self, x: torch.Tensor) -> torch.Tensor:
         """x + MLP(norm(x))."""
@@ -104,14 +99,61 @@ class Layer(nn.Module):
         return x + swiglu_mlp(h, self.mlp.wi, self.mlp.wg, self.mlp.wo)
 
 
+class Layer(_Block):
+    """One pre-norm decoder layer (``_self_layer``)."""
+
+    def __init__(self, cfg: ArchConfig, make):
+        super().__init__()
+        self.attn_norm = make((cfg.d_model,), "ones")
+        self.attn = Attention(cfg, make)
+        self.mlp_norm = make((cfg.d_model,), "ones")
+        self.mlp = MLP(cfg, make)
+
+
+class HybridLayer(_Block):
+    """Attention and Mamba in parallel (``_hybrid_layer_schema``): ``norm``,
+    ``attn``, ``mamba``, ``mlp_norm``, ``mlp``."""
+
+    def __init__(self, cfg: ArchConfig, make):
+        super().__init__()
+        self.norm = make((cfg.d_model,), "ones")
+        self.attn = Attention(cfg, make)
+        self.mamba = Mamba(cfg, make)
+        self.mlp_norm = make((cfg.d_model,), "ones")
+        self.mlp = MLP(cfg, make)
+
+
+def rms(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Weightless RMS normalization (``transformer._rms``)."""
+    return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
+
+
+def fuse_branches(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """0.5 * (rms(a) + rms(m)) in float32: the hybrid layer's mean fusion."""
+    return 0.5 * (rms(a.to(F32)) + rms(m.to(F32)))
+
+
+def layer_windows(cfg: ArchConfig) -> List[int]:
+    """Each layer's attention window (0 = global), in stack order.
+
+    The schedule of ``_windowed_stack_schema``/``_run_windowed``: with a
+    window and a period p = ``global_every`` <= L, the first L // p
+    groups of p layers end in a global layer and the tail layers are
+    local; otherwise every layer takes ``sliding_window``.
+    """
+    w, p, n = int(cfg.sliding_window), cfg.global_every, cfg.n_layers
+    if not (w and p) or n < p:
+        return [w] * n
+    grouped = n // p * p
+    return [0 if i < grouped and i % p == p - 1 else w for i in range(n)]
+
+
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for any config feature the port does not carry yet."""
     unsupported = {
-        "family": cfg.family != "dense",
+        "family": cfg.family not in ("dense", "hybrid"),
         "experts": cfg.is_moe,
-        "grouped window schedule (global_every)": bool(cfg.global_every),
         "qkv_bias": cfg.qkv_bias,
-        "untied embeddings": not cfg.tie_embeddings,
         "attn_logit_softcap": bool(cfg.attn_logit_softcap),
         "norm": cfg.norm != "rmsnorm",
         "activation": cfg.act != "silu" or not cfg.mlp_gated,
@@ -119,12 +161,12 @@ def check_supported(cfg: ArchConfig) -> None:
     missing = [k for k, bad in unsupported.items() if bad]
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the dense llama family only; "
-            f"not ported: {missing} (ROADMAP A5)")
+            f"{cfg.name}: the port serves the dense and hybrid families "
+            f"only; not ported: {missing} (ROADMAP A5)")
 
 
 class Model(nn.Module):
-    """A dense decoder on one device.
+    """A dense or hybrid decoder on one device.
 
     ``device=None`` means the card, and raises without one;
     ``device="cpu"`` runs the kernels' plain versions.  ``init=False``
@@ -143,14 +185,19 @@ class Model(nn.Module):
         gen.manual_seed(seed)
 
         def make(shape, kind):
-            if not init:
-                return torch.empty(shape, dtype=dtype, device=dev)
-            return init_tensor(shape, kind, gen, dtype, dev)
+            t = (init_tensor(shape, kind, gen, dtype, dev) if init
+                 else torch.empty(shape, dtype=dtype, device=dev))
+            return nn.Parameter(t, requires_grad=False)
 
-        self.tokens = _param(make((cfg.padded_vocab, cfg.d_model), "small"))
-        self.layers = nn.ModuleList(Layer(cfg, make)
+        self.tokens = make((cfg.padded_vocab, cfg.d_model), "small")
+        kind = HybridLayer if cfg.family == "hybrid" else Layer
+        self.layers = nn.ModuleList(kind(cfg, make)
                                     for _ in range(cfg.n_layers))
-        self.final_norm = _param(make((cfg.d_model,), "ones"))
+        self.windows = layer_windows(cfg)
+        self.final_norm = make((cfg.d_model,), "ones")
+        # the untied readout (d, Vp), ``embed["unembed"]`` in JAX
+        self.unembed = (None if cfg.tie_embeddings
+                        else make((cfg.d_model, cfg.padded_vocab), "fan_in"))
 
     @property
     def dtype(self) -> torch.dtype:
@@ -161,18 +208,28 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.tokens.device
 
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Final norm and readout: (..., d) -> float32 (..., padded_vocab)."""
+        return unembed(self.tokens, rms_norm(x, self.final_norm),
+                       self.unembed)
+
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (B, S) -> logits (B, S, padded_vocab), float32.
 
         Self-attention of every layer runs the flash kernel (B2) over
-        positions ``arange(S)``.
+        positions ``arange(S)`` with the layer's window; a hybrid layer's
+        Mamba branch runs the scan kernel (B4) over the whole sequence.
         """
         cfg = self.cfg
-        window = int(cfg.sliding_window)
         x = embed_tokens(self.tokens, tokens, self.dtype)
-        for layer in self.layers:
-            h = rms_norm(x, layer.attn_norm)
-            x = x + self_attention(layer.attn, h, cfg, window)
+        for layer, window in zip(self.layers, self.windows):
+            if cfg.family == "hybrid":
+                h = rms_norm(x, layer.norm)
+                a = self_attention(layer.attn, h, cfg, window)
+                m = mamba_apply(layer.mamba, h, cfg)
+                x = x + fuse_branches(a, m).to(x.dtype)
+            else:
+                h = rms_norm(x, layer.attn_norm)
+                x = x + self_attention(layer.attn, h, cfg, window)
             x = layer.mlp_block(x)
-        x = rms_norm(x, self.final_norm)
-        return unembed(self.tokens, x)
+        return self.logits(x)

@@ -161,9 +161,9 @@ class ServingEngine:
             self.queue.pop(0)
             slot.request = req
             slot.ingested = 0
-            # Position back to 0; cache contents need no clearing, they
-            # are masked by position.
-            self.state.pos[i] = 0
+            # Position and recurrent state back to their start
+            # (``_reset_slot_state``); the cache is masked by position.
+            self.state.reset_slot(i)
 
     def _next_tokens(self):
         """Pick the token each active slot feeds this step."""

@@ -8,22 +8,26 @@ present (a CUDA kernel has no CPU mode).  On a machine with the card:
 ``chip_smoke.py`` makes the same comparisons at the main path's sizes.
 Tolerances of the attention kernels are those of
 ``tests/test_kernels.py``: 2e-5 in float32, 3e-2 (decode) and 2e-2
-(flash) in bfloat16.
+(flash) in bfloat16.  The sweep without the cache and the scan are
+held bit for bit.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core.traces import GiB, fleet_demand_traces
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ssm_scan as ks_scan
 from repro_torch.kernels import sweep as ks
 from repro_torch.lab import fused_sweep as fs
 from repro_torch.lab.scenarios import get_scenario
 from repro_torch.lab.score import stats_mismatches
 from repro_torch.lab.sweep import plan_specialization, run_sweep
 from repro_torch.lab.tune import grid_gains
+from repro_torch.models import Model, decode as D
 
 pytestmark = pytest.mark.cuda
 
@@ -135,3 +139,50 @@ def test_flash_kernel_matches_plain_version(card, case, dtype):
     torch.cuda.synchronize()
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("case", [(2, 256, 128, 16), (1, 128, 256, 8),
+                                  (3, 64, 128, 4), (2, 1, 3200, 16),
+                                  (1, 300, 3200, 16), (2, 37, 5, 3)],
+                         ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_scan_kernel_is_bit_identical_to_plain_version(card, case, dtype):
+    b, s, c, n = case
+    decay = torch.rand((b, s, c, n), device=card,
+                       generator=torch.Generator(device=card).manual_seed(10)
+                       ).mul(0.7).add(0.3).to(dtype)
+    drive = _randn(card, (b, s, c, n), dtype, 11).mul(0.2)
+    h0 = _randn(card, (b, c, n), torch.float32, 12)
+    before = ks_scan.LAUNCHES
+    out = ks_scan.ssm_scan(decay, drive, h0)
+    assert ks_scan.LAUNCHES == before + 1
+    ref = ks_scan.ssm_scan_plain(decay, drive, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+def test_scan_kernel_carries_h0_across_calls(card):
+    decay = torch.full((1, 128, 128, 8), 0.99, device=card)
+    drive = torch.full((1, 128, 128, 8), 0.01, device=card)
+    h0 = torch.ones((1, 128, 8), device=card)
+    whole = ks_scan.ssm_scan(decay, drive, h0)
+    first = ks_scan.ssm_scan(decay[:, :50], drive[:, :50], h0)
+    second = ks_scan.ssm_scan(decay[:, 50:], drive[:, 50:], first[:, -1])
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([first, second], dim=1), whole)
+
+
+def test_hybrid_forward_launches_the_scan_once_per_layer(card):
+    cfg = get_config("hymba-1.5b-smoke")
+    model = Model(cfg, seed=0, device=card)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), device=card)
+    before = (ks_scan.LAUNCHES, fa.LAUNCHES)
+    fwd = model(tokens)
+    assert (ks_scan.LAUNCHES - before[0], fa.LAUNCHES - before[1]) == \
+        (cfg.n_layers, cfg.n_layers)
+    state = D.init_state(model, 2, 64, cache_dtype="float32")
+    dec = torch.cat([D.decode_step(model, state, tokens[:, t:t + 1])
+                     for t in range(40)], dim=1)
+    rel = float((fwd - dec).abs().max() / fwd.abs().max())
+    assert bool(torch.isfinite(fwd).all()) and rel < 5e-3

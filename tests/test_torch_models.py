@@ -186,8 +186,8 @@ def test_init_kinds_and_scales():
 
 @pytest.mark.parametrize("change", [
     {"family": "moe", "n_experts": 4, "experts_per_token": 2},
-    {"qkv_bias": True}, {"tie_embeddings": False},
-    {"attn_logit_softcap": 30.0}, {"sliding_window": 8, "global_every": 2},
+    {"qkv_bias": True}, {"act": "gelu", "mlp_gated": False},
+    {"attn_logit_softcap": 30.0}, {"norm": "layernorm"},
 ])
 def test_unported_features_raise(change):
     cfg = dataclasses.replace(get_config(ARCH), **change)

@@ -132,7 +132,7 @@ def test_config_copies_equal_the_jax_configs(arch):
 
 def test_unported_archs_raise_naming_the_roadmap():
     with pytest.raises(KeyError, match="ROADMAP A5"):
-        get_config("hymba-1.5b")
+        get_config("xlstm-125m")
 
 
 def test_cpu_tensors_never_launch_the_attention_kernels():
@@ -175,19 +175,22 @@ def test_cuda_tensors_launch_the_kernel_and_never_the_plain_version(
 
 def test_each_library_has_its_flags_and_declarations():
     """The sweep keeps exactly the flags (and so the library hash) it
-    was measured with; the attention libraries drop only -fmad=false,
-    and every declared symbol is exported by its source."""
+    was measured with, and the scan, held bit for bit too, shares them;
+    the attention libraries drop only -fmad=false, and every declared
+    symbol is exported by its source."""
     from repro_torch.kernels import _build
     assert _build.NVCC_FLAGS == (
         "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
         "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-    assert _build.LIBRARIES["sweep.cu"].flags is _build.NVCC_FLAGS
+    exact = ("sweep.cu", "ssm_scan.cu")
+    for name in exact:
+        assert _build.LIBRARIES[name].flags is _build.NVCC_FLAGS
     for name, spec in _build.LIBRARIES.items():
         src = (REPO / "src/repro_torch/csrc" / name).read_text()
         assert f'extern "C" int {spec.symbol}(' in src
         assert len(spec.argtypes()) == src[src.index(spec.symbol):].split(
             ")")[0].count(",") + 1
-        if name != "sweep.cu":
+        if name not in exact:
             assert spec.flags == tuple(
                 f for f in _build.NVCC_FLAGS if f != "-fmad=false")
     with pytest.raises(KeyError, match="no library"):
