@@ -16,7 +16,8 @@ each, all at once) and drives the port's three main paths on the card:
   continuous-batching engine through a pool burst, forward (flash)
   against decode (decode attention), mixed progress against isolated
   serving, then the kernels' times beside their bounds, their plain
-  versions and PyTorch's ``scaled_dot_product_attention``;
+  versions and PyTorch's ``scaled_dot_product_attention`` (flash
+  attention in bf16 and in f32, and at the main path's f32 shapes);
 * serving hymba-1.5b at full width (phases 10-13): the scan kernel
   against its plain version bit for bit, and both attention kernels at
   hymba's heads and window; the engine through the same burst; forward
@@ -68,6 +69,7 @@ from repro_torch.lab.tune import grid_gains, tune_gains  # noqa: E402
 from repro_torch.launch.serve import (FULL_WIDTH,  # noqa: E402
                                       FULL_WIDTH_HYMBA, serve)
 from repro_torch.models import decode as D  # noqa: E402
+from repro_torch.models.transformer import layer_windows  # noqa: E402
 from repro_torch.serving import ServingConfig, ServingEngine  # noqa: E402
 
 CUDA = torch.device("cuda")
@@ -78,6 +80,7 @@ CACHE = get_scenario("spark-iterative-cache").cache
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 PEAK_BF16_S = 989e12                     # dense, tensor cores
+PEAK_TF32_S = 495e12                     # dense, tensor cores
 # Operations per (lane, node, interval) update of the paper-law step in
 # csrc/sweep.cu, counted from its source: every add, multiply, divide,
 # compare, select, min/max and the code's conversion.  A multiply-add
@@ -309,18 +312,27 @@ DECODE_CASES = [(4, 512, 8, 2, 64, 0), (2, 1024, 4, 4, 32, 0),
                 (3, 512, 8, 4, 64, 200), (1, 256, 2, 1, 128, 0),
                 (5, 1000, 32, 8, 64, 0)]
 # (b, sq, skv, h, kv, hd, causal, window): tests/test_kernels.py's
-# FLASH_CASES, then ragged lengths at the model's heads.
+# FLASH_CASES, then ragged lengths at the model's heads, then head dims
+# 16 and 128 at an Sq that is a multiple of neither 64 nor 16, causal,
+# windowed and non-causal with Sq < Skv.
 FLASH_CASES = [(2, 256, 256, 4, 2, 64, True, 0),
                (1, 128, 128, 4, 4, 32, True, 0),
                (2, 128, 256, 4, 1, 64, False, 0),
                (1, 256, 256, 8, 2, 64, True, 64),
                (1, 512, 512, 2, 2, 128, True, 0),
                (2, 192, 192, 4, 2, 64, True, 48),
-               (2, 300, 300, 32, 8, 64, True, 0)]
+               (2, 300, 300, 32, 8, 64, True, 0),
+               (2, 77, 77, 4, 2, 16, True, 0),
+               (1, 77, 333, 8, 2, 128, False, 0),
+               (2, 200, 200, 4, 1, 128, True, 40),
+               (1, 61, 300, 4, 4, 16, False, 0),
+               (1, 100, 300, 2, 1, 32, False, 50)]
 F32, BF16 = torch.float32, torch.bfloat16
 # (B, S) of one decode_32k layer: 128 x 32768, 8.6 GB of bf16 K/V
 DECODE_LONG = (DECODE_32K.global_batch, DECODE_32K.seq_len)
 FLASH_TIMED = (2, 4096)          # (B, S) of the timed causal forward
+FLASH_MAIN_LLAMA = (2, 256)      # (B, S) of phase 8's forward
+FLASH_MAIN_HYMBA = (1, 1088)     # (B, S) of phase 12's forward
 
 
 def randn(shape, dtype, gen):
@@ -560,9 +572,65 @@ def time_decode(tag, q, kc, vc, lens, flush):
                 bound_by=by, shape=tag, max_abs_err=err)
 
 
+def kept_pairs(sq, skv, causal, window):
+    """(query, key) pairs the mask keeps over positions arange(Sq/Skv)."""
+    i = torch.arange(sq, dtype=torch.int64)
+    hi = torch.clamp(i + 1, max=skv) if causal else torch.full_like(i, skv)
+    lo = torch.clamp(i - window + 1, min=0) if window else torch.zeros_like(i)
+    return int((hi - lo).clamp(min=0).sum())
+
+
+def time_flash(b, s, h, kv, hd, dtype, window, gen, flush):
+    """B2 at one causal (B, S) self-attention shape: kernel, plain, SDPA.
+
+    The bound counts 4 * hd operations per kept (query, key) pair at the
+    rate of the kernel's route (bf16 tensor cores; f32 as 3xTF32, three
+    TF32 products for each, so a third of the TF32 rate), and q, k, v
+    read and the output written once.  f32 rows also print the bound of
+    the CUDA cores' f32 rate.
+    """
+    q = randn((b, s, h, hd), dtype, gen)
+    k, v = randn((b, s, kv, hd), dtype, gen), randn((b, s, kv, hd), dtype,
+                                                    gen)
+    n_ops = 4 * b * h * kept_pairs(s, s, True, window) * hd
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bound_ms, by = bound(n_bytes, n_ops, PEAK_BF16_S if dtype == BF16
+                         else PEAK_TF32_S / 3)
+    run = lambda: kf.flash_attention(q, k, v, window=window)  # noqa: E731
+    plain_run = lambda: kf.flash_attention_plain(  # noqa: E731
+        q, k, v, window=window)
+    ms = cuda_ms(run, reps=7, flush=flush)
+    plain = cuda_ms(plain_run, reps=3, warm=1, flush=flush)
+    tol = 2e-2 if dtype == BF16 else 2e-5
+    tag = (f"B{b} x S{s} x H{h}/KV{kv} x hd{hd} {str(dtype)[6:]} causal"
+           + (f" window {window}" if window else ""))
+    got = run()
+    err = max_err(got, plain_run(), tol, f"flash {tag}")
+    mask = kf.make_mask(torch.arange(s, device=CUDA),
+                        torch.arange(s, device=CUDA), causal=True,
+                        window=window)
+    lib_kw = dict(attn_mask=mask) if window else dict(is_causal=True)
+    lib_out = sdpa(q, k, v, **lib_kw)
+    diff = float((lib_out.float() - got.float()).abs().max())
+    lib = cuda_ms(lambda: sdpa(q, k, v, **lib_kw), reps=7, flush=flush)
+    extra = ""
+    if dtype == F32:
+        cores_ms, _ = bound(n_bytes, n_ops, PEAK_F32_S)
+        extra = f" (f32 CUDA cores: {cores_ms:.4f} ms)"
+    log(f"  flash {tag}: kernel {ms:.4f} ms ({n_ops / ms / 1e9:.2f} "
+        f"TFLOP/s), plain {plain:.3f} ms, SDPA {lib:.4f} ms, bound "
+        f"{bound_ms:.4f} ms by {by}{extra}, {bound_ms / ms:.1%} of bound; "
+        f"kernel vs plain max |diff| {err:.2e}; SDPA vs kernel max |diff| "
+        f"{diff:.2e}")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound_ms,
+                bound_by=by, shape=tag, max_abs_err=err,
+                tflop_s=n_ops / ms / 1e9)
+
+
 def phase9(state, scfg):
     log("phase 9: times on the card (CUDA events, median of warm runs, L2 "
-        "flushed before each; bf16 peak 989 TFLOP/s, f32 67, 3.35 TB/s)")
+        "flushed before each; peaks 989 TFLOP/s bf16 and 495 TF32 on the "
+        "tensor cores, 67 f32 on the CUDA cores, 3.35 TB/s)")
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=CUDA)
     gen = torch.Generator(device=CUDA).manual_seed(9)
     cfg = get_config(ARCH)
@@ -586,29 +654,19 @@ def phase9(state, scfg):
     del kc, vc
     torch.cuda.empty_cache()
     b, s = FLASH_TIMED
-    q = randn((b, s, h, hd), BF16, gen)
-    k, v = randn((b, s, kv, hd), BF16, gen), randn((b, s, kv, hd), BF16, gen)
-    n_pairs = b * h * s * (s + 1) // 2               # causal (query, key)
-    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2
-    bound_ms, by = bound(n_bytes, 4 * n_pairs * hd, PEAK_BF16_S)
-    ms = cuda_ms(lambda: kf.flash_attention(q, k, v), reps=7, flush=flush)
-    plain = cuda_ms(lambda: kf.flash_attention_plain(q, k, v), reps=3,
-                    warm=1, flush=flush)
-    tag = f"B{b} x S{s} x H{h}/KV{kv} x hd{hd} bf16 causal"
-    got = kf.flash_attention(q, k, v)
-    err = max_err(got, kf.flash_attention_plain(q, k, v), 2e-2,
-                  f"flash {tag}")
-    lib_out = sdpa(q, k, v, is_causal=True)
-    diff = float((lib_out.float() - got.float()).abs().max())
-    lib = cuda_ms(lambda: sdpa(q, k, v, is_causal=True), reps=7,
-                  flush=flush)
-    log(f"  flash {tag}: kernel {ms:.4f} ms ({4 * n_pairs * hd / ms / 1e9:.2f}"
-        f" TFLOP/s), plain {plain:.3f} ms, SDPA {lib:.4f} ms, bound "
-        f"{bound_ms:.4f} ms by {by}; kernel vs plain max |diff| {err:.2e}; "
-        f"SDPA vs kernel max |diff| {diff:.2e}")
-    out["flash"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                        bound_ms=bound_ms, bound_by=by, shape=tag,
-                        max_abs_err=err)
+    out["flash"] = time_flash(b, s, h, kv, hd, BF16, 0, gen, flush)
+    out["flash_f32"] = time_flash(b, s, h, kv, hd, F32, 0, gen, flush)
+    out["flash_main"] = []
+    for arch, (b, s) in ((ARCH, FLASH_MAIN_LLAMA),
+                         (FULL_WIDTH_HYMBA["arch"], FLASH_MAIN_HYMBA)):
+        c = get_config(arch)
+        windows = layer_windows(c)
+        for window in sorted(set(windows), reverse=True):
+            row = time_flash(b, s, c.n_heads, c.n_kv_heads, c.head_dim, F32,
+                             window, gen, flush)
+            row["launches_per_forward"] = windows.count(window)
+            row["model"] = arch
+            out["flash_main"].append(row)
     return out
 
 
@@ -622,11 +680,16 @@ SCAN_CASES = [(2, 256, 128, 16), (1, 128, 256, 8), (3, 64, 128, 4),
 SCAN_TIMED = (2, 4096)           # (B, S) of the timed scan: one layer of a
 #                                  2 x 4096 forward at C = 3200, N = 16
 # hymba's heads (25/5 of 64) with its window of 1024, past it, with a
-# ragged length; and global layers' full attention
+# ragged length; and global layers' full attention; flash also at head
+# dims 16 and 128, Sq 77, and non-causal with Sq < Skv
 HYMBA_DECODE = [((4, 1500, 25, 5, 64, 1024), [1, 1025, 1500, 1337]),
                 ((2, 1100, 25, 5, 64, 0), [1100, 777])]
 HYMBA_FLASH = [(1, 1100, 1100, 25, 5, 64, True, 1024),
-               (1, 1088, 1088, 25, 5, 64, True, 0)]
+               (1, 1088, 1088, 25, 5, 64, True, 0),
+               (2, 77, 77, 25, 5, 16, True, 50),
+               (1, 1100, 1100, 25, 5, 128, True, 1024),
+               (1, 77, 300, 25, 5, 128, False, 0),
+               (1, 300, 1100, 25, 5, 16, False, 0)]
 
 
 def scan_inputs(b, s, c, n, dtype, gen):
@@ -762,7 +825,8 @@ def main() -> None:
         log(f"  {name}: nvcc {lib.build_s:.2f}s -> "
             f"{os.path.relpath(lib.path)}")
         for line in lib.log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line \
+                    or "entry function" in line:
                 log("    ptxas: " + line.strip())
 
     demand = fleet_demand_traces(N_NODES, N_STEPS, 0.1, seed=0)
@@ -818,15 +882,22 @@ def main() -> None:
                                "library_ms", "shape")},
         "decode_32k": dec32,
     }
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "shape", "max_abs_err", "tflop_s")
     flash = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
         "launches": launches["flash"],
         "max_abs_err": max(*errs["flash"].values(), fl["max_abs_err"]),
-        "max_abs_err_f32": errs["flash"]["f32"],
-        **{k: fl[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                              "library_ms", "shape")},
+        "max_abs_err_f32": max(errs["flash"]["f32"],
+                               t["flash_f32"]["max_abs_err"],
+                               *(r["max_abs_err"] for r in t["flash_main"])),
+        **{k: fl[k] for k in timed if k != "max_abs_err"},
+        "f32": {k: t["flash_f32"][k] for k in timed},
+        "main_path_shapes": [
+            {k: r[k] for k in timed + ("model", "launches_per_forward")}
+            for r in t["flash_main"]],
     }
     serving = {k: served[k] for k in ("tok_s", "steps_s", "seconds",
                                       "steps", "preemptions")}

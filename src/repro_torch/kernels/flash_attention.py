@@ -17,7 +17,9 @@ float32, out in q's type.  Query head ``h`` reads kv head
 * :data:`LAUNCHES` counts kernel launches, and only those.
 
 q, k and v share one type, float32 or bfloat16; head dims 16, 32, 64, 128;
-any ``Sq`` and ``Skv`` (the kernel masks ragged tiles itself).
+any ``Sq`` and ``Skv`` (the kernel masks ragged tiles itself); ``B`` and
+``H`` at most 65535.  The kernel runs bf16 on the tensor cores and f32
+as 3xTF32 on them, near f32 accuracy.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
+MAX_GRID = 65535          # B and H are the grid's z and y: at most 65535
 
 # Kernel launches since import (or since a caller reset it).
 LAUNCHES = 0
@@ -82,6 +85,9 @@ def _check(q, k, v) -> None:
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"k/v on {k.device}/{v.device}, q on {q.device}")
+    if b > MAX_GRID or h > MAX_GRID:
+        raise ValueError(f"the kernel's grid takes B and H up to {MAX_GRID}"
+                         f"; got B={b}, H={h}")
 
 
 def _launch(q, k, v, causal: bool, window: int) -> torch.Tensor:

@@ -196,3 +196,7 @@ def test_flash_wrapper_rejects_mixed_types_and_head_dims():
         fa._check(q, q.bfloat16(), q)
     with pytest.raises(ValueError):
         fa._check(q[..., :24], q[..., :24], q[..., :24])
+    wide = q[:, :, :1].expand(fa.MAX_GRID + 1, 8, 1, 64)  # past the grid
+    with pytest.raises(ValueError, match="grid"):
+        fa._check(wide, wide, wide)
+    fa._check(wide[:fa.MAX_GRID], wide[:fa.MAX_GRID], wide[:fa.MAX_GRID])

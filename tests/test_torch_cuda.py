@@ -123,7 +123,14 @@ def test_decode_kernel_never_reads_past_length(card):
 
 
 @pytest.mark.parametrize("case", [(2, 256, 256, 4, 2, 64, True, 0),
-                                  (2, 192, 192, 4, 2, 64, True, 48)],
+                                  (2, 192, 192, 4, 2, 64, True, 48),
+                                  (2, 77, 77, 4, 2, 16, True, 0),
+                                  (1, 77, 333, 8, 2, 128, False, 0),
+                                  (2, 200, 200, 4, 1, 128, True, 40),
+                                  (1, 61, 300, 4, 4, 16, False, 0),
+                                  (1, 100, 300, 2, 1, 32, False, 50),
+                                  (2, 77, 77, 25, 5, 16, True, 50),
+                                  (1, 77, 300, 25, 5, 128, False, 0)],
                          ids=str)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
