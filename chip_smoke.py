@@ -306,11 +306,24 @@ def phase5(demand):
 # ---- serving llama3.2-1b: the attention kernels ------------------------
 
 ARCH = FULL_WIDTH["arch"]
-# (b, s, h, kv, hd, window): tests/test_kernels.py's DECODE_CASES, then a
-# cache length that is a multiple of no tile, at the model's heads.
-DECODE_CASES = [(4, 512, 8, 2, 64, 0), (2, 1024, 4, 4, 32, 0),
-                (3, 512, 8, 4, 64, 200), (1, 256, 2, 1, 128, 0),
-                (5, 1000, 32, 8, 64, 0)]
+# ((b, s, h, kv, hd, window), lengths or None for random ones in
+# [window + 1, s)): tests/test_kernels.py's DECODE_CASES; a cache length
+# that is a multiple of no tile at the model's heads, with len 1 and len
+# S; one (sequence, kv head) pair over 4000 keys, split the most; 320
+# pairs, which fill the card with one split each; head dims 16 and 128
+# with len 0 and 1 in one batch; windows that start mid-tile (677, 50);
+# 16 and 12 query heads per kv head (two head sets of warps).
+DECODE_CASES = [((4, 512, 8, 2, 64, 0), None), ((2, 1024, 4, 4, 32, 0), None),
+                ((3, 512, 8, 4, 64, 200), None),
+                ((1, 256, 2, 1, 128, 0), None),
+                ((5, 1000, 32, 8, 64, 0), [1, 1000, 333, 999, 17]),
+                ((1, 4000, 4, 1, 64, 0), [4000]),
+                ((40, 300, 32, 8, 64, 0), None),
+                ((4, 700, 8, 2, 16, 0), [0, 1, 700, 333]),
+                ((4, 900, 16, 4, 128, 0), [0, 1, 900, 555]),
+                ((3, 777, 8, 2, 64, 100), [777, 0, 150]),
+                ((2, 500, 16, 1, 64, 0), [500, 37]),
+                ((2, 300, 24, 2, 32, 50), [300, 1])]
 # (b, sq, skv, h, kv, hd, causal, window): tests/test_kernels.py's
 # FLASH_CASES, then ragged lengths at the model's heads, then head dims
 # 16 and 128 at an Sq that is a multiple of neither 64 nor 16, causal,
@@ -347,9 +360,16 @@ def max_err(got, want, tol, tag):
     return float((got.float() - want.float()).abs().max())
 
 
+def decode_splits(b, s, h, kv):
+    """The split count the decode wrapper picks on this card."""
+    return kd.choose_splits(b, kv, s, h // kv, kd.sm_count(CUDA.index or 0))
+
+
 def check_decode(case, lens, gen, errs):
-    """Decode kernel against plain at one case, for each pair of types."""
+    """Decode kernel against plain at one case, for each pair of types;
+    a second call on the same inputs must give the same bits."""
     b, s, h, kv, hd, window = case
+    splits = decode_splits(b, s, h, kv)
     for qdt, kdt in ((F32, F32), (BF16, BF16), (F32, BF16)):
         q = randn((b, h, hd), qdt, gen)
         kc, vc = randn((b, s, kv, hd), kdt, gen), \
@@ -365,16 +385,18 @@ def check_decode(case, lens, gen, errs):
         out = kd.decode_attention(q, kc, vc, lens_b, window=window)
         torch.cuda.synchronize()
         check(kd.LAUNCHES == before + 1, "decode kernel did not launch")
+        again = kd.decode_attention(q, kc, vc, lens_b, window=window)
         ref = kd.decode_attention_plain(q, kc, vc, lens_b, window=window)
         # both sides compute in f32 from the same cache values, so
         # the output's type sets the tolerance
         tol = 3e-2 if qdt == BF16 else 2e-5
         tag = (f"decode b{b} S{s} H{h}/KV{kv} hd{hd} w{window} "
-               f"q={str(qdt)[6:]} cache={str(kdt)[6:]}")
+               f"q={str(qdt)[6:]} cache={str(kdt)[6:]} splits {splits}")
+        check(torch.equal(out, again), f"{tag}: two calls differ")
         err = max_err(out, ref, tol, tag)
         key = "f32" if tol == 2e-5 else "bf16"
         errs["decode"][key] = max(errs["decode"].get(key, 0.0), err)
-        log(f"  {tag}: max_abs_err={err:.3e} ok")
+        log(f"  {tag}: max_abs_err={err:.3e} ok, bit-identical twice")
 
 
 def check_flash(case, gen, errs):
@@ -404,17 +426,17 @@ def phase6():
         "the output's type: 2e-5 f32, 3e-2 decode / 2e-2 flash bf16)")
     gen = torch.Generator(device=CUDA).manual_seed(6)
     errs = {"decode": {}, "flash": {}}
-    for case in DECODE_CASES:
-        s = case[1]                              # len 1 and len S included
-        check_decode(case, [1, s, 333, s - 1, 17] if s == 1000 else None,
-                     gen, errs)
-    for window in (0, 40):                       # NaN past len_b (and
-        for kdt in (F32, BF16):                  # before the window)
-            b, s, h, kv, hd = 2, 256, 4, 2, 64
+    for case, lens in DECODE_CASES:
+        check_decode(case, lens, gen, errs)
+    b, s, h, kv, hd = 2, 1024, 4, 2, 64          # NaN past len_b (and
+    splits = decode_splits(b, s, h, kv)          # before the window)
+    check(splits > 1, f"the poisoned cache runs {splits} split(s)")
+    for window in (0, 600):                      # the 700-key sequence
+        for kdt in (F32, BF16):                  # runs in 2 parts
             q = randn((b, h, hd), F32, gen)
             kc, vc = randn((b, s, kv, hd), kdt, gen), \
                 randn((b, s, kv, hd), kdt, gen)
-            lens = torch.tensor([100, 17], dtype=torch.int32, device=CUDA)
+            lens = torch.tensor([700, 17], dtype=torch.int32, device=CUDA)
             pos = torch.arange(s, device=CUDA)[None]
             dead = pos >= lens[:, None]
             if window:
@@ -427,8 +449,9 @@ def phase6():
             torch.cuda.synchronize()
             check(bool(torch.isfinite(p).all()) and torch.equal(a, p),
                   f"decode read a poisoned key (window {window}, {kdt})")
-    log("  poisoned cache (NaN past len_b, and before the window): output "
-        "unchanged and finite, f32 and bf16 caches")
+    log(f"  poisoned cache (NaN past len_b, and before the window; "
+        f"{splits} splits, 2 parts used for the 700-key sequence): output "
+        f"unchanged and finite, f32 and bf16 caches")
     for case in FLASH_CASES:
         check_flash(case, gen, errs)
     return errs
@@ -541,35 +564,45 @@ def bound(n_bytes, n_ops, peak_ops):
                                  else "operations")
 
 
-def time_decode(tag, q, kc, vc, lens, flush):
+def time_decode(tag, q, kc, vc, lens, flush, window=0):
+    """B3 at one shape: kernel, plain, SDPA.  The bound counts the kept
+    keys' K and V read once, q read and the output written once."""
     b, h, hd = q.shape
-    kv = kc.shape[2]
-    kept = lens.clamp(max=kc.shape[1]).long()
-    n_keys = int(kept.sum())
+    s, kv = kc.shape[1], kc.shape[2]
+    hi = lens.clamp(min=0, max=s).long()
+    lo = (hi - window).clamp(min=0) if window else torch.zeros_like(hi)
+    n_keys = int((hi - lo).sum())
     n_bytes = (n_keys * kv * hd * 2 * kc.element_size()
                + 2 * q.numel() * q.element_size() + lens.numel() * 4)
     bound_ms, by = bound(n_bytes, 4 * n_keys * h * hd, PEAK_F32_S)
-    ms = cuda_ms(lambda: kd.decode_attention(q, kc, vc, lens), reps=7,
-                 flush=flush)
-    plain = cuda_ms(lambda: kd.decode_attention_plain(q, kc, vc, lens),
-                    reps=3, warm=1, flush=flush)
-    got = kd.decode_attention(q, kc, vc, lens)
-    err = max_err(got, kd.decode_attention_plain(q, kc, vc, lens),
-                  3e-2 if q.dtype == BF16 else 2e-5, f"decode {tag}")
+    run = lambda: kd.decode_attention(  # noqa: E731
+        q, kc, vc, lens, window=window)
+    plain_run = lambda: kd.decode_attention_plain(  # noqa: E731
+        q, kc, vc, lens, window=window)
+    ms = cuda_ms(run, reps=7, flush=flush)
+    plain = cuda_ms(plain_run, reps=3, warm=1, flush=flush)
+    got = run()
+    err = max_err(got, plain_run(), 3e-2 if q.dtype == BF16 else 2e-5,
+                  f"decode {tag}")
+    check(torch.equal(got, run()), f"decode {tag}: two calls differ")
+    splits = decode_splits(b, s, h, kv)
     qs = q.to(kc.dtype)[:, None]                     # (B, 1, H, hd)
-    mask = (torch.arange(kc.shape[1], device=CUDA)[None]
-            < kept[:, None])[:, None, None, :]       # (B, 1, 1, S)
+    pos = torch.arange(s, device=CUDA)[None]
+    mask = ((pos < hi[:, None])
+            & (pos >= lo[:, None]))[:, None, None, :]  # (B, 1, 1, S)
     lib_out = sdpa(qs, kc, vc, attn_mask=mask)[:, 0]
     check(bool(torch.isfinite(lib_out).all()), f"{tag}: SDPA non-finite")
     lib = cuda_ms(lambda: sdpa(qs, kc, vc, attn_mask=mask), reps=5,
                   flush=flush)
-    log(f"  decode {tag}: kernel {ms:.4f} ms, plain {plain:.3f} ms, SDPA "
-        f"{lib:.4f} ms, bound {bound_ms:.4f} ms by {by} ({n_bytes / 1e9:.3f}"
-        f" GB; {n_bytes / ms / 1e6:.1f} GB/s achieved); kernel vs plain max "
-        f"|diff| {err:.2e}; SDPA vs kernel max |diff| "
+    log(f"  decode {tag}: {splits} split(s), kernel {ms:.4f} ms, plain "
+        f"{plain:.3f} ms, SDPA {lib:.4f} ms, bound {bound_ms:.4f} ms by {by} "
+        f"({n_bytes / 1e9:.4f} GB; {n_bytes / ms / 1e6:.1f} GB/s achieved, "
+        f"{bound_ms / ms:.1%} of bound); kernel vs plain max |diff| "
+        f"{err:.2e}, bit-identical twice; SDPA vs kernel max |diff| "
         f"{float((lib_out.float() - got.float()).abs().max()):.2e}")
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound_ms,
-                bound_by=by, shape=tag, max_abs_err=err)
+                bound_by=by, shape=tag, max_abs_err=err, splits=splits,
+                gb_s=n_bytes / ms / 1e6)
 
 
 def kept_pairs(sq, skv, causal, window):
@@ -682,8 +715,16 @@ SCAN_TIMED = (2, 4096)           # (B, S) of the timed scan: one layer of a
 # hymba's heads (25/5 of 64) with its window of 1024, past it, with a
 # ragged length; and global layers' full attention; flash also at head
 # dims 16 and 128, Sq 77, and non-causal with Sq < Skv
+# decode also at one (sequence, kv head) pair over 4000 keys with the
+# window (its 1024 live keys split the most), at 320 pairs (one split),
+# at head dims 16 and 128 with len 0 and 1 in one batch, and with windows
+# that start mid-tile (313, 476)
 HYMBA_DECODE = [((4, 1500, 25, 5, 64, 1024), [1, 1025, 1500, 1337]),
-                ((2, 1100, 25, 5, 64, 0), [1100, 777])]
+                ((2, 1100, 25, 5, 64, 0), [1100, 777]),
+                ((1, 4000, 5, 1, 64, 1024), [3337]),
+                ((64, 1100, 25, 5, 64, 1024), None),
+                ((3, 700, 25, 5, 16, 1024), [0, 1, 700]),
+                ((3, 1500, 25, 5, 128, 1024), [0, 1, 1500])]
 HYMBA_FLASH = [(1, 1100, 1100, 25, 5, 64, True, 1024),
                (1, 1088, 1088, 25, 5, 64, True, 0),
                (2, 77, 77, 25, 5, 16, True, 50),
@@ -778,14 +819,31 @@ def phase12(model):
     return forward_against_decode(12, model, 1, 1088), rel_jax_init
 
 
-def phase13():
+def phase13(state, scfg):
+    """The decode kernel at hymba's engine shape, on phase 11's final
+    cache and lengths, then the scan kernel at one layer of a 2 x 4096
+    forward.  Returns the two rows."""
     b, s = SCAN_TIMED
     c, n = HYMBA.ssm_expand * HYMBA.d_model, HYMBA.ssm_state
-    log(f"phase 13: scan kernel times on the card (CUDA events, median of "
-        f"warm runs, L2 flushed before each; 3.35 TB/s, f32 67 TFLOP/s), "
-        f"{b} x {s} x {c} x {n} f32")
+    log(f"phase 13: decode and scan kernel times on the card (CUDA events, "
+        f"median of warm runs, L2 flushed before each; 3.35 TB/s, f32 67 "
+        f"TFLOP/s); decode at hymba's engine shape, scan at {b} x {s} x {c}"
+        f" x {n} f32")
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=CUDA)
     gen = torch.Generator(device=CUDA).manual_seed(13)
+    h, kv, hd = HYMBA.n_heads, HYMBA.n_kv_heads, HYMBA.head_dim
+    window = max(layer_windows(HYMBA))
+    lens = (state.pos + 1).clamp(max=scfg.max_len).to(torch.int32)
+    q = randn((scfg.max_batch, h, hd), F32, gen)
+    # max_len 1024 <= the window, so a local layer keeps every key as a
+    # global one does: this one row stands for both kinds of layer
+    dec = time_decode(
+        f"hymba engine B{scfg.max_batch} x S{scfg.max_len} x H{h}/KV{kv} x "
+        f"hd{hd}, q f32, bf16 cache, window {window} (keeps every key at "
+        f"max_len {scfg.max_len}: local and global layers alike), lengths "
+        f"{lens.tolist()}", q, state.k[0], state.v[0], lens, flush,
+        window=window)
+    del state
     decay, drive, h0 = scan_inputs(b, s, c, n, F32, gen)
     n_el = decay.numel()
     # each input read once, each output written once; 2 operations each
@@ -804,9 +862,9 @@ def phase13():
         f"plain {plain:.3f} ms, bound {bound_ms:.4f} ms by {by} "
         f"({n_bytes / 1e9:.3f} GB), {bound_ms / ms:.1%} of bound; library "
         f"none; kernel vs plain max |diff| {err:.2e}")
-    return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound_ms,
-                bound_by=by, shape=tag, max_abs_err=err,
-                share_of_bound=bound_ms / ms)
+    return dec, dict(ms=ms, plain_ms=plain, library_ms=None,
+                     bound_ms=bound_ms, bound_by=by, shape=tag,
+                     max_abs_err=err, share_of_bound=bound_ms / ms)
 
 
 def main() -> None:
@@ -879,7 +937,7 @@ def main() -> None:
                            dec32["max_abs_err"]),
         "max_abs_err_f32": max(errs["decode"]["f32"], dec["max_abs_err"]),
         **{k: dec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                               "library_ms", "shape")},
+                               "library_ms", "shape", "splits", "gb_s")},
         "decode_32k": dec32,
     }
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -911,13 +969,18 @@ def main() -> None:
         f"{n_fwd['scan']} times (phase 12's forward)")
     check(min(n_decode_h, *n_fwd.values()) > 0,
           "the hybrid serving path skipped a kernel")
-    del eng                                # free the serving state
+    state, scfg = eng.state, eng.cfg
+    del eng                                # free the weights
     torch.cuda.empty_cache()
-    sc = phase13()
+    dec_h, sc = phase13(state, scfg)
+    del state
+    decode["hymba_engine"] = dec_h
     for name, d in (("decode", decode), ("flash", flash)):
         d["max_abs_err"] = max(d["max_abs_err"], *hymba_errs[name].values())
         d["max_abs_err_f32"] = max(d["max_abs_err_f32"],
                                    hymba_errs[name]["f32"])
+    decode["max_abs_err_f32"] = max(decode["max_abs_err_f32"],
+                                    dec_h["max_abs_err"])
     decode["launches"] = n_decode + n_decode_h
     decode["launches_by_path"] = {f"{ARCH} serving (phase 7)": n_decode,
                                   f"{HYMBA.name} serving (phase 11)":

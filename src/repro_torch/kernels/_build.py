@@ -72,10 +72,10 @@ def _sweep_argtypes():
 
 
 def _decode_argtypes():
-    # (q_bf16, kv_bf16, q, k, v, lengths, out, B, H, KV, S, hd, window,
-    #  stream)
-    return ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
-            + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    # (q_bf16, kv_bf16, q, k, v, lengths, out, workspace, counters, B, H,
+    #  KV, S, hd, window, splits, stream)
+    return ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
+            + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
 
 def _ssm_argtypes():

@@ -16,7 +16,18 @@ head ``h`` reads kv head ``h // (H // KV)``.
   zeroed before use: the kernel never reads them, so a NaN written there
   reaches neither output.  A sequence with no kept key gets zeros, as
   the TPU kernel gives.
-* :data:`LAUNCHES` counts kernel launches, and only those.
+* :data:`LAUNCHES` counts kernel launches, and only those: one per
+  call, however many blocks share a sequence's keys.
+
+Split-KV: when ``B * KV`` blocks cannot fill the card,
+:func:`choose_splits` (from the shapes and the SM count, never from the
+lengths, which stay on the card) lets several blocks share each
+(sequence, kv head)'s live keys; each writes a float32 partial to a
+workspace allocated here, and the last block of each pair to finish
+merges them in split order, so the output's bits do not depend on the
+blocks' timing.  That block finds itself through a per-device counter
+buffer, zeroed once here and left zeroed by the kernel; launches that
+share it must run on one stream.
 
 Types: q in float32 or bfloat16, both caches in float32 or bfloat16
 (mixed is the serving path's normal case: float32 activations over a
@@ -27,14 +38,24 @@ ragged last tile itself.
 
 from __future__ import annotations
 
+import functools
+from typing import Dict
+
 import torch
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 16
+MAX_GRID = 65535          # B and the split count are the grid's y and z
+# Blocks of the kernel one SM holds (registers bound it); the split
+# count aims at this many blocks per SM.
+BLOCKS_PER_SM = 2
 
 # Kernel launches since import (or since a caller reset it).
 LAUNCHES = 0
+# Per device: the (sequence, kv head) counters the kernel's last block of
+# each pair takes its merge ticket from.
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -60,6 +81,40 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return o.reshape(b, h, hd).to(q.dtype)
 
 
+def tile_keys(group: int) -> int:
+    """Keys per K/V tile of the kernel at ``group`` query heads per kv head.
+
+    Up to 8 heads, the block's 8 warps each take 8 keys of a tile; above
+    8, two sets of 4 warps split the heads, so a tile holds 32 keys.
+    """
+    return 64 if group <= 8 else 32
+
+
+def choose_splits(batch: int, kv_heads: int, seq_len: int, group: int,
+                  sm_count: int) -> int:
+    """How many blocks may share one (sequence, kv head)'s keys.
+
+    From the shapes alone, never from the lengths (they stay on the
+    card): 1 when ``batch * kv_heads`` blocks already fill the card at
+    :data:`BLOCKS_PER_SM`, else as many as fit in one wave of resident
+    blocks, at most one per tile of the cache.  The kernel then uses
+    fewer for a sequence whose live keys are short (parts of at least 8
+    tiles), so a short sequence pays for no merge.
+    """
+    pairs = batch * kv_heads
+    target = BLOCKS_PER_SM * sm_count
+    if pairs >= target:
+        return 1
+    tiles = -(-seq_len // tile_keys(group))
+    return max(1, min(target // pairs, tiles))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The card's number of SMs (cached per device index)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _check(q, k_cache, v_cache, lengths) -> None:
     """Shapes, types and layout the kernel takes; raises on anything else."""
     if q.ndim != 3 or k_cache.ndim != 4:
@@ -78,6 +133,9 @@ def _check(q, k_cache, v_cache, lengths) -> None:
         raise ValueError(f"the kernel takes hd in {HEAD_DIMS} and H a "
                          f"multiple of KV with H/KV <= {MAX_GROUP}; got "
                          f"hd={hd}, H={h}, KV={kvh}")
+    if b > MAX_GRID:
+        raise ValueError(f"the kernel's grid takes B up to {MAX_GRID}; "
+                         f"got B={b}")
     floats = (torch.float32, torch.bfloat16)
     if q.dtype not in floats or k_cache.dtype not in floats \
             or v_cache.dtype != k_cache.dtype:
@@ -93,6 +151,15 @@ def _check(q, k_cache, v_cache, lengths) -> None:
         raise ValueError(f"lengths is on {lengths.device}, q on {q.device}")
 
 
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """The device's merge counters, zeroed once; the kernel leaves them 0."""
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
+
+
 def _launch(q, k_cache, v_cache, lengths, window: int) -> torch.Tensor:
     from ._build import load_library
 
@@ -104,12 +171,20 @@ def _launch(q, k_cache, v_cache, lengths, window: int) -> torch.Tensor:
     out = torch.empty_like(q)
     if b == 0:
         return out
+    splits = choose_splits(b, kvh, s, h // kvh, sm_count(q.device.index))
+    ws = counters = None
+    if splits > 1:                 # one f32 partial (acc, m, l) per block
+        ws = torch.empty(b * kvh * splits * (h // kvh) * (hd + 2),
+                         dtype=torch.float32, device=q.device)
+        counters = _counters(q.device, b * kvh)
     lib = load_library("decode_attention.cu").lib
     rc = lib.dynims_decode_attention(
         int(q.dtype == torch.bfloat16), int(k_cache.dtype == torch.bfloat16),
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), b, h, kvh, s, hd, int(window),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        lengths.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(),
+        None if counters is None else counters.data_ptr(), b, h, kvh, s, hd,
+        int(window), splits, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode attention kernel launch failed: CUDA "
                            f"error {rc}")

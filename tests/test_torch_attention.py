@@ -171,12 +171,21 @@ def test_cuda_tensors_launch_the_kernel_and_never_the_plain_version(
         call(mod, torch.empty((1, 1, 1, 1), device="meta"))
 
 
-@pytest.mark.parametrize("bad", ["hd", "group", "lengths", "mixed_cache"])
+@pytest.mark.parametrize("bad", ["hd", "group", "lengths", "mixed_cache",
+                                 "grid"])
 def test_decode_wrapper_rejects_what_the_kernel_cannot_take(bad):
     q = torch.zeros((2, 4, 64))
     k = torch.zeros((2, 16, 2, 64))
     v = torch.zeros((2, 16, 2, 64))
     lens = torch.ones(2, dtype=torch.int32)
+    if bad == "grid":                 # B past the grid's z (65535)
+        b = da.MAX_GRID + 1
+        q = q[:1].expand(b, 4, 64)
+        k = v = k[:1].expand(b, 16, 2, 64)
+        lens = torch.ones(b, dtype=torch.int32)
+        with pytest.raises(ValueError, match="grid"):
+            da._check(q, k, v, lens)
+        return
     if bad == "hd":
         q, k, v = q[..., :48], k[..., :48].contiguous(), v[..., :48]
     elif bad == "group":

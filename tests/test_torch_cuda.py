@@ -85,39 +85,67 @@ def _randn(card, shape, dtype, seed):
     return torch.randn(shape, generator=g, device=card).to(dtype)
 
 
-@pytest.mark.parametrize("case", [(4, 512, 8, 2, 64, 0),
-                                  (3, 1000, 8, 4, 64, 200)], ids=str)
+# ((b, s, h, kv, hd, window), lengths or None for [1, S, S/2 + 3, S - 7,
+# ...]): the first two as before; one (sequence, kv head) pair split the
+# most; 320 pairs, one split each; head dims 16 and 128 with len 0 and 1
+# in one batch; windows that start mid-tile; 16 query heads per kv head
+# (two head sets of warps); hymba's 25/5 heads with its window.
+DECODE_CARD_CASES = [((4, 512, 8, 2, 64, 0), None),
+                     ((3, 1000, 8, 4, 64, 200), None),
+                     ((1, 4000, 4, 1, 64, 0), [4000]),
+                     ((40, 300, 32, 8, 64, 0), None),
+                     ((4, 700, 8, 2, 16, 0), [0, 1, 700, 333]),
+                     ((4, 900, 16, 4, 128, 0), [0, 1, 900, 555]),
+                     ((3, 777, 8, 2, 64, 100), [777, 0, 150]),
+                     ((2, 500, 16, 1, 64, 0), [500, 37]),
+                     ((4, 1500, 25, 5, 64, 1024), [1, 1025, 1500, 1337])]
+
+
+@pytest.mark.parametrize("case,lens", DECODE_CARD_CASES, ids=str)
 @pytest.mark.parametrize("qdt,kdt", [(torch.float32, torch.float32),
                                      (torch.bfloat16, torch.bfloat16),
                                      (torch.float32, torch.bfloat16)],
                          ids=["f32", "bf16", "f32-over-bf16"])
-def test_decode_kernel_matches_plain_version(card, case, qdt, kdt):
+def test_decode_kernel_matches_plain_version(card, case, lens, qdt, kdt):
     b, s, h, kv, hd, window = case
     q = _randn(card, (b, h, hd), qdt, 1)
     kc = _randn(card, (b, s, kv, hd), kdt, 2)
     vc = _randn(card, (b, s, kv, hd), kdt, 3)
-    lens = torch.tensor([1, s, s // 2 + 3][:b] + [s - 7] * (b - 3),
-                        dtype=torch.int32, device=card)
+    if lens is None:
+        lens = [1, s, s // 2 + 3][:b] + [s - 7] * (b - 3)
+    lens = torch.tensor(lens, dtype=torch.int32, device=card)
     before = da.LAUNCHES
     out = da.decode_attention(q, kc, vc, lens, window=window)
     assert da.LAUNCHES == before + 1
     ref = da.decode_attention_plain(q, kc, vc, lens, window=window)
     torch.cuda.synchronize()
-    tol = 3e-2 if torch.bfloat16 in (qdt, kdt) else 2e-5
+    tol = 3e-2 if qdt == torch.bfloat16 else 2e-5
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    # the partials merge in a fixed order: the same bits on every call
+    assert torch.equal(out, da.decode_attention(q, kc, vc, lens,
+                                                window=window))
 
 
-def test_decode_kernel_never_reads_past_length(card):
-    b, s, h, kv, hd = 2, 256, 4, 2, 64
+@pytest.mark.parametrize("window", [0, 600])   # the 700-key sequence
+@pytest.mark.parametrize("kdt", [torch.float32, torch.bfloat16],  # runs
+                         ids=["f32", "bf16"])                     # in 2 parts
+def test_decode_kernel_never_reads_past_length(card, window, kdt):
+    b, s, h, kv, hd = 2, 1024, 4, 2, 64
+    assert da.choose_splits(b, kv, s, h // kv,
+                            da.sm_count(card.index or 0)) > 1
     q = _randn(card, (b, h, hd), torch.float32, 4)
-    kc = _randn(card, (b, s, kv, hd), torch.float32, 5)
-    vc = _randn(card, (b, s, kv, hd), torch.float32, 6)
-    lens = torch.tensor([100, 17], dtype=torch.int32, device=card)
-    out1 = da.decode_attention(q, kc, vc, lens)
-    dead = (torch.arange(s, device=card)[None] >= lens[:, None])[..., None,
-                                                                  None]
+    kc = _randn(card, (b, s, kv, hd), kdt, 5)
+    vc = _randn(card, (b, s, kv, hd), kdt, 6)
+    lens = torch.tensor([700, 17], dtype=torch.int32, device=card)
+    out1 = da.decode_attention(q, kc, vc, lens, window=window)
+    pos = torch.arange(s, device=card)[None]
+    dead = pos >= lens[:, None]
+    if window:
+        dead |= pos < lens[:, None] - window
+    dead = dead[..., None, None]
     out2 = da.decode_attention(q, kc.masked_fill(dead, float("nan")),
-                               vc.masked_fill(dead, float("nan")), lens)
+                               vc.masked_fill(dead, float("nan")), lens,
+                               window=window)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(out2).all()) and torch.equal(out1, out2)
 
