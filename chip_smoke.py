@@ -7,10 +7,14 @@ Builds the four kernels from ``src/repro_torch/csrc/`` (one ``nvcc``
 each, all at once) and drives the port's three main paths on the card:
 
 * the sweep (phases 1-5): the sweep kernel against its plain PyTorch
-  version, then ``run_sweep``, ``sweep_demand`` and ``tune_gains`` at
-  the lab benchmark's fleet size (4096 nodes x 1000 intervals x 64
-  gains) and the registry scenarios' declared sizes, checked against
-  the port's own CPU run and the checked-in presets, then its times;
+  version (state, the per-lane p99 histogram, and the p99 against the
+  bisection over the plain loop's codes), then ``run_sweep``,
+  ``sweep_demand`` and ``tune_gains`` at the lab benchmark's fleet size
+  (4096 nodes x 1000 intervals x 64 gains) and the registry scenarios'
+  declared sizes, checked against the port's own CPU run and the
+  checked-in presets, then its times: the kernel, also under full
+  contention and, with the cache, with the float64 power skipped, the
+  finalize, and ``fused_sweep_demand`` end to end;
 * serving llama3.2-1b at full width (phases 6-9): the decode- and
   flash-attention kernels against their plain versions, the
   continuous-batching engine through a pool burst, forward (flash)
@@ -35,8 +39,11 @@ package.  Without a card it exits nonzero before printing a result.
 """
 
 import concurrent.futures
+import ctypes
+import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -62,12 +69,16 @@ from repro_torch.kernels import ssm_scan as kscan  # noqa: E402
 from repro_torch.kernels import sweep as ks  # noqa: E402
 from repro_torch.lab import fused_sweep as fs  # noqa: E402
 from repro_torch.lab.scenarios import get_scenario  # noqa: E402
-from repro_torch.lab.score import stats_mismatches  # noqa: E402
-from repro_torch.lab.sweep import (plan_specialization, run_sweep,  # noqa
+from repro_torch.lab.score import (quantile_from_codes,  # noqa: E402
+                                   quantile_from_hist, stats_mismatches)
+from repro_torch.lab.sweep import (DEFAULT_CHUNK,  # noqa: E402
+                                   plan_specialization, run_sweep,
                                    sweep_demand)
 from repro_torch.lab.tune import grid_gains, tune_gains  # noqa: E402
 from repro_torch.launch.serve import (FULL_WIDTH,  # noqa: E402
                                       FULL_WIDTH_HYMBA, serve)
+from repro_torch.launch.time_sweep import (device_ms,  # noqa: E402
+                                           time_fused_sweep)
 from repro_torch.models import decode as D  # noqa: E402
 from repro_torch.models.transformer import layer_windows  # noqa: E402
 from repro_torch.serving import ServingConfig, ServingEngine  # noqa: E402
@@ -81,12 +92,17 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 PEAK_BF16_S = 989e12                     # dense, tensor cores
 PEAK_TF32_S = 495e12                     # dense, tensor cores
+PEAK_F64_S = 34e12                       # float64 outside the tensor cores
 # Operations per (lane, node, interval) update of the paper-law step in
 # csrc/sweep.cu, counted from its source: every add, multiply, divide,
-# compare, select, min/max and the code's conversion.  A multiply-add
-# rounded through float64 counts as two, each float64 log2/exp2 as one,
-# and all at the float32 rate, so the bound stays a lower bound.
-OPS_PER_UPDATE = {"cache-off": 32, "cache-on": 85}
+# compare, select, min/max, the code's conversion and the histogram's
+# add.  A multiply-add rounded through float64 counts as two, each
+# float64 log2/exp2 as one, and all at the float32 rate, so the bound
+# stays a lower bound.
+OPS_PER_UPDATE = {"cache-off": 33, "cache-on": 86}
+# The two float64 transcendentals of the cache-on count; phase 5 also
+# states a bound with their SASS instructions at the float64 rate.
+F64_CALLS_PER_UPDATE = 2
 
 
 def log(msg: str) -> None:
@@ -138,7 +154,25 @@ def segment_inputs(demand, gains, cache, precision, n_dead=0,
                               cache, precision, CUDA)
     alive = fs._alive(len(gains), len(gains) - n_dead, CUDA)
     state0 = fs._init_state(lp, rows, dtn[0].float(), con, names)
-    return (state0, dtn, lp, rows, alive), dict(t0=0, con=con, names=names)
+    return ((state0, fs._zero_hist(lp), dtn, lp, rows, alive),
+            dict(t0=0, con=con, names=names))
+
+
+def plain_codes(args, kw):
+    """The (T, L, N) codes of the plain version's fused_step loop."""
+    state0, _, dtn, lp, rows, _ = args
+    con, names = kw["con"], kw["names"]
+    ix = {n: i for i, n in enumerate(names)}
+    k = ks._Lifted(con, CUDA)
+    cols = lp[:, :, None]
+    wf0 = ks.warm_fraction0(cols, rows, con)[1] if con.has_cache else None
+    st = tuple(state0.unbind(0))
+    codes = torch.empty((dtn.shape[0],) + tuple(state0.shape[1:]),
+                        dtype=torch.uint16, device=CUDA)
+    for i in range(dtn.shape[0]):
+        st, codes[i] = ks.fused_step(st, dtn[i].float(), kw["t0"] + i, cols,
+                                     rows, wf0, con, names, ix, k)
+    return codes
 
 
 def compare_planes(names, got, want):
@@ -161,42 +195,60 @@ def compare_planes(names, got, want):
 
 def phase1(demand):
     log("phase 1: kernel vs plain on the card, 4096 nodes x 1000 "
-        "intervals x 64 gains")
+        "intervals x 64 gains (state, p99 histogram, p99)")
     variants = [("paper", None, "f32", 1.0), ("generic", None, "f32", 1.0),
                 ("paper", CACHE, "f32", 1.0), ("generic", CACHE, "f32", 1.0),
                 ("paper", None, "bf16", 1.0), ("generic", CACHE, "bf16", 1.0),
                 ("paper", None, "f32", 0.8)]
-    worst_abs = 0.0
+    worst_abs, bins_on = 0.0, 0
+    n_total = N_STEPS * N_NODES
     for law, cache, precision, occ in variants:
         args, kw = segment_inputs(demand, gains_64(law), cache, precision,
                                   n_dead=5, occupancy=occ)
         before = ks.LAUNCHES
-        sk, ck = ks.sweep_segment(*args, **kw)
+        sk, hk = ks.sweep_segment(*args, **kw)
         torch.cuda.synchronize()
         check(ks.LAUNCHES == before + 1, "the kernel did not launch")
-        sp, cp = ks.sweep_segment_plain(*args, **kw)
+        sp, hp = ks.sweep_segment_plain(*args, **kw)
         torch.cuda.synchronize()
         max_abs, max_rel = compare_planes(kw["names"], sk, sp)
-        code_diff = (ck.to(torch.int32) - cp.to(torch.int32)).abs()
-        n_codes = int((code_diff != 0).sum())
-        dead_ok = (int(ck[:, -5:].to(torch.int32).abs().sum()) == 0
-                   and torch.equal(sk[:, -5:], args[0][:, -5:]))
+        n_bins = int((hk != hp).sum())
+        live = hk.shape[0] - 5
+        dead_ok = (int(hk[live:].abs().sum()) == 0
+                   and torch.equal(sk[:, live:], args[0][:, live:]))
+        counts_ok = hk[:live].sum(1).tolist() == [n_total] * live
+        p99_hist = quantile_from_hist(hk[:live], 0.99, n_total)
+        p99_codes = quantile_from_codes(plain_codes(args, kw)[:, :live],
+                                        0.99, n_total, lane_dim=1)
+        n_p99 = int((p99_hist != p99_codes).sum())
         tag = (f"{law:7s} {'cache-on' if cache else 'cache-off':9s} "
                f"{precision:4s} occ={occ}")
-        log(f"  {tag}: bit-identical={torch.equal(sk, sp) and n_codes == 0}"
+        log(f"  {tag}: bit-identical={torch.equal(sk, sp) and n_bins == 0}"
             f" max_abs={max_abs:.3e} max_rel={max_rel:.3e} "
-            f"codes_differing={n_codes} max_code_diff="
-            f"{int(code_diff.max())} dead_lanes_ok={dead_ok}")
-        check(dead_ok, f"{tag}: dead lanes wrote codes or moved state")
+            f"hist_bins_differing={n_bins} p99_lanes_differing_from_codes="
+            f"{n_p99} of {live} counts_ok={counts_ok} dead_lanes_ok="
+            f"{dead_ok}")
+        check(dead_ok, f"{tag}: dead lanes counted codes or moved state")
+        check(counts_ok, f"{tag}: a live lane did not count T x N updates")
         check(bool(torch.isfinite(sk).all()), f"{tag}: non-finite state")
         if cache is None:
-            check(torch.equal(sk, sp) and n_codes == 0,
+            check(torch.equal(sk, sp) and n_bins == 0,
                   f"{tag}: cache-off kernel is not bit-identical")
+            check(n_p99 == 0, f"{tag}: the histogram's p99 differs from "
+                  f"the bisection over the plain loop's codes")
         else:
+            # the float64 power may move a rare code across a bin edge,
+            # which moves one count between two bins: at most one such
+            # update per lane on average, and the p99 holds
             check(max_rel <= 1e-6, f"{tag}: cache-on state off by "
                   f"{max_rel:.3e} relative (bound 1e-6)")
+            check(n_bins <= live, f"{tag}: {n_bins} histogram bins differ "
+                  f"(bound {live}, one per live lane)")
+            check(n_p99 == 0, f"{tag}: the histogram's p99 differs from "
+                  f"the bisection over the plain loop's codes")
+            bins_on = max(bins_on, n_bins)
         worst_abs = max(worst_abs, max_abs)
-    return worst_abs
+    return worst_abs, bins_on
 
 
 def assert_same(tag, card, cpu, n_samples):
@@ -274,34 +326,141 @@ def phase4():
                   f"winner {r.score!r} vs preset {want!r}")
 
 
-def phase5(demand):
-    log("phase 5: times on the card (CUDA events, median of 5 warm runs)")
+def sweep_resources(lib):
+    """Registers, static shared memory and resident blocks per SM of
+    every template instance of the sweep kernel, from the runtime."""
+    fn = lib.dynims_sweep_resources
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rows = {}
+    for law, occ, cache in ((1, 1, 0), (1, 0, 0), (0, 1, 0), (0, 0, 0),
+                            (1, 1, 1), (0, 1, 1)):
+        for bf16 in (0, 1):
+            out = (ctypes.c_int * 3)()
+            rc = fn(law, occ, cache, bf16, ctypes.addressof(out))
+            check(rc == 0, f"cudaFuncGetAttributes failed: {rc}")
+            tag = (f"{'paper' if law else 'generic'} "
+                   f"{'unit-occ' if occ else 'occ'} "
+                   f"{'cache-on' if cache else 'cache-off'} "
+                   f"{'bf16' if bf16 else 'f32'}")
+            rows[tag] = dict(registers=out[0], smem_bytes=out[1],
+                             blocks_per_sm=out[2], warps_per_sm=out[2] * 4)
+            log(f"    {tag}: {out[0]} registers, {out[1]} B shared, "
+                f"{out[2]} blocks ({out[2] * 4} warps) per SM")
+    return rows
+
+
+def sass_f64_ops(lib_path):
+    """float64 operations per update of the cache-on paper-law f32
+    instance, counted in its SASS (cuobjdump): DFMA as two, every other
+    float64 arithmetic, compare and conversion instruction and each
+    MUFU.*64H as one, divided by the copies of the step that the SASS
+    holds (one F2F.F32.F64 each: the power's one rounding to float32).
+    A static count, so an upper estimate of what an update executes: it
+    includes the rarely taken special-case paths of exp2 and log2.
+    Returns (operations per update, step copies, instruction counts)."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], check=True,
+                          capture_output=True, text=True).stdout
+    want = "sweep_kernelILb1ELb1ELb1ELb0EE"
+    body = next(f for f in sass.split("Function : ")[1:]
+                if want in f.split("\n", 1)[0])
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)", body)
+    n = {"DFMA": 0, "D other": 0, "MUFU 64H": 0, "F2F f64": 0, "CALL": 0}
+    copies = sum(op.startswith("F2F.F32.F64") for op in ops)
+    check(copies > 0, "no float64 power in the cache-on instance's SASS")
+    for op in ops:
+        if op.startswith("DFMA"):
+            n["DFMA"] += 1
+        elif op[:4] in ("DADD", "DMUL", "DSET", "DMNM", "DMIN", "DMAX"):
+            n["D other"] += 1
+        elif op.startswith("MUFU") and op.endswith("64H"):
+            n["MUFU 64H"] += 1
+        elif op.startswith(("F2F", "I2F", "F2I")) and "64" in op \
+                and ".S64" not in op and ".U64" not in op:
+            n["F2F f64"] += 1
+        elif op.startswith("CALL"):
+            n["CALL"] += 1
+    flops = 2 * n["DFMA"] + n["D other"] + n["MUFU 64H"] + n["F2F f64"]
+    return flops / copies, copies, n
+
+
+def equal_demand(demand):
+    """Every node sees node 0's demand: each warp adds to one bin."""
+    return np.repeat(demand[:1], demand.shape[0], axis=0)
+
+
+def phase5(demand, sweep_lib):
+    log("phase 5: times on the card (CUDA events, median of 7 warm runs; "
+        "end to end on the host clock, median of 15, the two chunkings in "
+        "turns)")
     out = {}
     n_upd = N_NODES * N_STEPS * 64
+    flat = equal_demand(demand)
     for tag, cache in (("cache-off", None), ("cache-on", CACHE)):
         args, kw = segment_inputs(demand, gains_64("paper"), cache, "f32")
+        eq_args, _ = segment_inputs(flat, gains_64("paper"), cache, "f32")
         ms = cuda_ms(lambda: ks.sweep_segment(*args, **kw), reps=7)
+        equal_ms = cuda_ms(lambda: ks.sweep_segment(*eq_args, **kw), reps=7)
         plain = cuda_ms(lambda: ks.sweep_segment_plain(*args, **kw), reps=5,
                         warm=1)
-        state, codes = ks.sweep_segment(*args, **kw)
-        fin = cuda_ms(lambda: fs._finalize_lanes(state, codes, args[2],
-                                                 kw["con"], kw["names"],
-                                                 N_STEPS))
-        state_bytes = 2 * state.numel() * 4
-        n_bytes = (codes.numel() * 2 + args[1].numel() * 4 + state_bytes
-                   + args[2].numel() * 4 + args[3].numel() * 4
-                   + args[4].numel() * 4)
+        state, hist = ks.sweep_segment(*args, **kw)
+
+        def finalize():
+            fs._finalize_lanes(state, hist, args[3], kw["con"], kw["names"],
+                               N_STEPS)
+        fin = cuda_ms(finalize)
+        fin_device = device_ms(finalize)
+        n_bytes = (args[2].numel() * 4 + args[3].numel() * 4
+                   + args[4].numel() * 4 + args[5].numel() * 4
+                   + 2 * state.numel() * 4 + hist.numel() * 4)
         t_bytes = n_bytes / PEAK_BYTES_S * 1e3
         t_ops = n_upd * OPS_PER_UPDATE[tag] / PEAK_F32_S * 1e3
-        out[tag] = dict(ms=ms, plain_ms=plain, finalize_ms=fin,
-                        bound_ms=max(t_bytes, t_ops),
-                        bound_by="bytes" if t_bytes >= t_ops
-                        else "operations")
-        log(f"  {tag}: kernel {ms:.4f} ms ({n_upd / ms * 1e3:.3e} updates/s)"
-            f", plain {plain:.1f} ms, _finalize_lanes {fin:.4f} ms, bound "
-            f"{out[tag]['bound_ms']:.4f} ms by {out[tag]['bound_by']} "
-            f"(bytes {t_bytes:.4f} ms, ops {t_ops:.4f} ms)")
+        e2e, e2e32 = time_fused_sweep(demand, cache, (None, 32))
+        r = dict(ms=ms, all_nodes_equal_ms=equal_ms, plain_ms=plain,
+                 finalize_ms=fin, finalize_device_ms=fin_device,
+                 bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 bytes=n_bytes, kernel_plus_finalize_ms=ms + fin,
+                 fused_sweep_demand=e2e, fused_sweep_demand_chunk32=e2e32)
+        log(f"  {tag}: kernel {ms:.4f} ms ({n_upd / ms * 1e3:.3e} "
+            f"updates/s; {equal_ms:.4f} ms with every node's demand equal, "
+            f"one bin per warp and interval), plain {plain:.1f} ms, "
+            f"_finalize_lanes {fin:.4f} ms ({fin_device:.4f} ms of it on the "
+            f"device), kernel + finalize {ms + fin:.4f} ms; bound "
+            f"{r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']} (bytes {t_bytes:.4f} ms for "
+            f"{n_bytes / 1e6:.2f} MB, ops {t_ops:.4f} ms at "
+            f"{OPS_PER_UPDATE[tag]} per update)")
+        if cache is not None:
+            f64, copies, n = sass_f64_ops(sweep_lib.path)
+            t_f64 = n_upd * ((OPS_PER_UPDATE[tag] - F64_CALLS_PER_UPDATE)
+                             / PEAK_F32_S + f64 / PEAK_F64_S) * 1e3
+            # the power's exponent at 1 skips the float64 exp2/log2
+            linear = dict(kw, con=dataclasses.replace(kw["con"], hit_exp=1.0))
+            no_pow = cuda_ms(lambda: ks.sweep_segment(*args, **linear),
+                             reps=7)
+            r.update(f64_ops_per_update_static=f64, sass_f64=n,
+                     sass_step_copies=copies,
+                     bound_f64_static_ms=max(t_bytes, t_f64),
+                     power_skipped_ms=no_pow)
+            log(f"    float64 power, static SASS count (an upper estimate: "
+                f"it holds exp2/log2's rarely taken special paths): {n} in "
+                f"{copies} copies of the step -> {f64:.1f} float64 "
+                f"operations per update; bound with them at "
+                f"{PEAK_F64_S / 1e12:.0f} TFLOP/s: "
+                f"{r['bound_f64_static_ms']:.4f} ms")
+            log(f"    the same kernel with the power skipped (hit_exp = 1, "
+                f"no float64): {no_pow:.4f} ms")
+        for key, e in ((f"{DEFAULT_CHUNK} lanes a launch", e2e),
+                       ("32 lanes a launch", e2e32)):
+            log(f"    fused_sweep_demand ({key}): {e['ms']:.3f} ms (min "
+                f"{e['min_ms']:.3f}, max {e['max_ms']:.3f}), "
+                f"{e['updates_s']:.4e} updates/s")
+        out[tag] = r
     return out
+
 
 # ---- serving llama3.2-1b: the attention kernels ------------------------
 
@@ -886,9 +1045,12 @@ def main() -> None:
             if "registers" in line or "spill" in line \
                     or "entry function" in line:
                 log("    ptxas: " + line.strip())
+    log("  sweep.cu instances (cudaFuncGetAttributes, occupancy at 128 "
+        "threads a block):")
+    resources = sweep_resources(libs["sweep.cu"].lib)
 
     demand = fleet_demand_traces(N_NODES, N_STEPS, 0.1, seed=0)
-    max_abs = phase1(demand)
+    max_abs, bins_on = phase1(demand)
 
     ks.LAUNCHES = 0                        # the main path starts here
     phase2(demand)
@@ -898,20 +1060,24 @@ def main() -> None:
     log(f"main path: sweep kernel launched {launches} times")
     check(launches > 0, "the main path never launched the sweep kernel")
 
-    t = phase5(demand)
+    t = phase5(demand, libs["sweep.cu"])
     off, on = t["cache-off"], t["cache-on"]
+    timed = ("ms", "all_nodes_equal_ms", "plain_ms", "bound_ms",
+             "bound_by", "finalize_ms", "finalize_device_ms",
+             "kernel_plus_finalize_ms", "fused_sweep_demand",
+             "fused_sweep_demand_chunk32")
     kernel = {
         "name": "sweep_segment", "route": "cuda",
         "source": "src/repro_torch/csrc/sweep.cu",
         "replaces": "src/repro/lab/pallas_sweep.py:305",
         "launches": launches, "max_abs_err": max_abs,
-        "ms": off["ms"], "plain_ms": off["plain_ms"],
-        "bound_ms": off["bound_ms"], "bound_by": off["bound_by"],
-        "library_ms": None,
-        "cache_on": {"ms": on["ms"], "plain_ms": on["plain_ms"],
-                     "bound_ms": on["bound_ms"], "bound_by": on["bound_by"]},
-        "finalize_ms": {"cache-off": off["finalize_ms"],
-                        "cache-on": on["finalize_ms"]},
+        **{k: off[k] for k in timed}, "library_ms": None,
+        "cache_on": {**{k: on[k] for k in timed},
+                     **{k: on[k] for k in (
+                         "bound_f64_static_ms", "f64_ops_per_update_static",
+                         "sass_step_copies", "power_skipped_ms")},
+                     "hist_bins_differing": bins_on},
+        "instances": resources,
         "shape": "4096 nodes x 1000 intervals x 64 gains, f32, paper law",
     }
 

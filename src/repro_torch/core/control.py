@@ -94,9 +94,17 @@ def control_step(
 
 
 def f32(x: Scalar, device: torch.device) -> torch.Tensor:
-    """``x`` as a float32 tensor on ``device`` (scalars become 0-d)."""
+    """``x`` as a float32 tensor on ``device`` (scalars become 0-d).
+
+    A scalar is filled in on the device, rounded to float32 as numpy
+    rounds it: a copy from host memory would wait for the device's
+    queue to drain, and the sweep's finalize makes a dozen of them.
+    """
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32)
+    if np.ndim(x) == 0:
+        return torch.full((), float(np.float32(x)), dtype=torch.float32,
+                          device=device)
     return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
 

@@ -66,6 +66,8 @@ def _nvcc() -> str:
 
 def _sweep_argtypes():
     from .sweep import _SweepConsts
+    # (paper_law, unit_occupancy, has_cache, bf16, demand, lp, np_rows,
+    #  alive, state_in, state_out, hist, T, L, N, t0, consts, stream)
     return ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 7
             + [ctypes.c_int] * 4
             + [ctypes.POINTER(_SweepConsts), ctypes.c_void_p])

@@ -5,9 +5,11 @@ Replaces the TPU kernel ``_sweep_kernel`` of
 is ``_fused_step``).  One call advances every (gain lane, node) closed
 loop over a demand segment ``[t0, t0 + T)``: Eq. 1 with the optional
 feedforward, asymmetric gain and deadband, the CacheLoop carry, the
-Kahan / count / max accumulators, and one ``uint16`` utilization code
-per (t, lane, node).  It returns the ``(S, L, N)`` float32 state and the
-``(T, L, N)`` codes.
+Kahan / count / max accumulators, and each lane's p99 histogram, which
+counts every update's ``uint16`` utilization code as ``code >> 4`` in
+:data:`~repro_torch.lab.score.HIST_BINS` int32 bins.  It returns the
+``(S, L, N)`` float32 state and the ``(L, HIST_BINS)`` histogram; both
+are accumulators, handed in and returned anew, never updated in place.
 
 * :func:`sweep_segment` dispatches on where the tensors lie: CPU
   tensors take :func:`sweep_segment_plain`; CUDA tensors launch the
@@ -15,16 +17,19 @@ per (t, lane, node).  It returns the ``(S, L, N)`` float32 state and the
   :mod:`repro_torch.kernels._build`) or raise.  Nothing falls back.
 * :func:`sweep_segment_plain` is a Python loop over t of
   :func:`fused_step`, which mirrors the reference's ``_fused_step`` op
-  for op in float32.
+  for op in float32, and bins each interval's codes with
+  :func:`~repro_torch.lab.score.hist_add`.
 * :data:`LAUNCHES` counts kernel launches, and only those.
 
-**On the card.**  One thread owns one (lane, node) loop and keeps all
-S state values in registers for the whole segment: state is read from
-``(S, L, N)`` once and written once.  Each step reads ``demand[t, n]``
-(coalesced along n; every lane rereads the same row, which stays in
-L2) and writes ``codes[t, l, n]`` (coalesced along n).  The code stream
--- 2 bytes per update -- is the only large traffic, so the kernel is
-bound by bytes without the cache and by operations with it.  The TPU
+**On the card.**  A thread owns the (lane, node) loops of two nodes (one
+with the cache) and keeps their state in registers for the whole
+segment: state is read from ``(S, L, N)`` once and written once.  Each
+step reads ``demand[t, n]`` (coalesced along n, loaded a few intervals
+ahead; every lane rereads the same row, which stays in L2) and adds one
+to its lane's histogram in shared memory; a block (one lane, 256 nodes,
+or 128 with the cache) adds its histogram to the lane's row in device
+memory once, at exit.  So the kernel moves only the demand, the state
+and 16 KB of histogram per lane, and is bound by operations.  The TPU
 grid's sequential time axis becomes the loop inside the thread, since
 Hopper blocks carry no state to each other.  The law/cache/bf16
 branches are template parameters, as they were trace-time branches.
@@ -35,12 +40,13 @@ The five multiply-adds the reference's XLA build contracts (the
 occupancy and feedforward terms, the error, the update, the sum of
 squares) are rounded once on both sides: hardware FMAs in the kernel,
 ``core.control.fma`` here.  The hit-curve power runs in float64 on
-both sides (:func:`_fast_pow`).  The cache-off path is bit-identical;
-the cache path is held at 1e-6 relative, the room left for the two
-float64 ``exp2``/``log2`` builds disagreeing across a float32 rounding
-boundary.  A lane whose ``alive`` is 0 writes zero codes and leaves
-its state unchanged (the reference skips whole 8-lane tiles; padding
-lanes never reach a result either way).
+both sides (:func:`_fast_pow`).  The cache-off path is bit-identical,
+histogram included (integer counts commute); the cache path is held at
+1e-6 relative, the room left for the two float64 ``exp2``/``log2``
+builds disagreeing across a float32 rounding boundary.  A lane whose
+``alive`` is 0 leaves its state and its histogram row unchanged (the
+reference skips whole 8-lane tiles; padding lanes never reach a result
+either way).
 """
 
 from __future__ import annotations
@@ -52,7 +58,8 @@ import numpy as np
 import torch
 
 from ..core.control import GiB, f32, fma, vectorized_step
-from ..lab.score import hpl_slowdown_curve, kahan_add, utilization_codes
+from ..lab.score import (HIST_BINS, hist_add, hpl_slowdown_curve, kahan_add,
+                          utilization_codes)
 
 # Rows of the packed per-lane parameter matrix (P, L).  The derived
 # rows (reciprocal, thresholds) are float32 host arithmetic.
@@ -149,7 +156,8 @@ def fused_step(state: Tuple[torch.Tensor, ...], d: torch.Tensor, t: int,
 
     ``cols[row]`` are lane parameters of shape (L, 1) and ``rows[row]``
     node constants of shape (N,).  Returns the new planes (in ``names``
-    order) and the interval's (L, N) ``uint16`` codes.
+    order) and the interval's (L, N) ``uint16`` codes, which the caller
+    bins into its histogram.
     """
     u = state[ix["u"]]
     if con.has_cache:
@@ -209,7 +217,8 @@ def fused_step(state: Tuple[torch.Tensor, ...], d: torch.Tensor, t: int,
     return tuple(out[n] for n in names), utilization_codes(r)
 
 
-def _check(state, demand_seg, lp, np_rows, alive, con, names) -> None:
+def _check(state, hist, demand_seg, lp, np_rows, alive, t0, con,
+           names) -> None:
     """Shapes, types and layout the kernel (and its plain version) take."""
     if names != state_names(con.paper_law, con.has_cache):
         raise ValueError(f"state planes {names} do not match the kernel's "
@@ -221,9 +230,13 @@ def _check(state, demand_seg, lp, np_rows, alive, con, names) -> None:
         raise ValueError(f"demand segment must be (T>=1, N); got "
                          f"{tuple(demand_seg.shape)}")
     t_seg, n_nodes = demand_seg.shape
+    if (t0 + t_seg) * n_nodes >= 2**31:
+        raise ValueError(f"{t0 + t_seg} intervals x {n_nodes} nodes can "
+                         f"overflow a lane's int32 histogram counts")
     n_lanes = lp.shape[-1]
     want = {
         "state": (state, (len(names), n_lanes, n_nodes), torch.float32),
+        "hist": (hist, (n_lanes, HIST_BINS), torch.int32),
         "lp": (lp, (N_PARAM_ROWS, n_lanes), torch.float32),
         "np_rows": (np_rows, (N_NODE_ROWS, n_nodes), torch.float32),
         "alive": (alive, (1, n_lanes), torch.float32),
@@ -241,25 +254,23 @@ def _check(state, demand_seg, lp, np_rows, alive, con, names) -> None:
                              f"{demand_seg.device}")
 
 
-def sweep_segment_plain(state, demand_seg, lp, np_rows, alive, *, t0: int,
-                        con, names: Tuple[str, ...]):
+def sweep_segment_plain(state, hist, demand_seg, lp, np_rows, alive, *,
+                        t0: int, con, names: Tuple[str, ...]):
     """The plain PyTorch version of the kernel, on any device."""
-    _check(state, demand_seg, lp, np_rows, alive, con, names)
+    _check(state, hist, demand_seg, lp, np_rows, alive, t0, con, names)
     ix = {n: i for i, n in enumerate(names)}
     k = _Lifted(con, state.device)
     cols = lp[:, :, None]
     wf0 = warm_fraction0(cols, np_rows, con)[1] if con.has_cache else None
-    t_seg = demand_seg.shape[0]
     st = tuple(state.unbind(0))
-    codes = torch.empty((t_seg,) + tuple(state.shape[1:]), dtype=torch.uint16,
-                        device=state.device)
-    for i in range(t_seg):
-        st, codes[i] = fused_step(st, demand_seg[i].float(), t0 + i, cols,
-                                  np_rows, wf0, con, names, ix, k)
-    live = (alive[0] > 0.5)[None, :, None]
-    out = torch.where(live, torch.stack(st), state)
-    codes.view(torch.int16).masked_fill_(~live, 0)
-    return out, codes
+    counts = torch.zeros_like(hist)
+    for i in range(demand_seg.shape[0]):
+        st, codes = fused_step(st, demand_seg[i].float(), t0 + i, cols,
+                               np_rows, wf0, con, names, ix, k)
+        hist_add(counts, codes)
+    live = alive[0] > 0.5
+    out = torch.where(live[None, :, None], torch.stack(st), state)
+    return out, torch.where(live[:, None], hist + counts, hist)
 
 
 class _SweepConsts(ctypes.Structure):
@@ -282,11 +293,11 @@ def _consts(con) -> _SweepConsts:
         c(con.access_b), c(con.cold_mix), c(con.warm_frac), pow_mode)
 
 
-def _launch(state, demand_seg, lp, np_rows, alive, *, t0: int, con,
+def _launch(state, hist, demand_seg, lp, np_rows, alive, *, t0: int, con,
             names: Tuple[str, ...]):
     from ._build import load_library
 
-    _check(state, demand_seg, lp, np_rows, alive, con, names)
+    _check(state, hist, demand_seg, lp, np_rows, alive, t0, con, names)
     t_seg, n_nodes = demand_seg.shape
     n_lanes = lp.shape[1]
     if n_lanes > 65535:
@@ -295,38 +306,39 @@ def _launch(state, demand_seg, lp, np_rows, alive, *, t0: int, con,
                                          state)]
     state_out = torch.empty(state.shape, dtype=torch.float32,
                             device=state.device)
-    codes = torch.empty((t_seg, n_lanes, n_nodes), dtype=torch.uint16,
-                        device=state.device)
+    hist_out = hist.clone(memory_format=torch.contiguous_format)
     consts = _consts(con)
     lib = load_library().lib
     rc = lib.dynims_sweep_segment(
         int(con.paper_law), int(con.unit_occupancy), int(con.has_cache),
         int(con.precision == "bf16"),
         *(x.data_ptr() for x in operands), state_out.data_ptr(),
-        codes.data_ptr(), t_seg, n_lanes, n_nodes, int(t0),
+        hist_out.data_ptr(), t_seg, n_lanes, n_nodes, int(t0),
         ctypes.byref(consts), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sweep kernel launch failed: CUDA error {rc}")
     global LAUNCHES
     LAUNCHES += 1
-    return state_out, codes
+    return state_out, hist_out
 
 
-def sweep_segment(state, demand_seg, lp, np_rows, alive, *, t0: int, con,
-                  names: Tuple[str, ...]):
-    """Advance every lane over ``demand_seg``; returns (state, codes).
+def sweep_segment(state, hist, demand_seg, lp, np_rows, alive, *, t0: int,
+                  con, names: Tuple[str, ...]):
+    """Advance every lane over ``demand_seg``; returns (state, hist).
 
-    ``state`` is (S, L, N) float32, ``demand_seg`` (T, N) float32 or
-    bfloat16 (per ``con.precision``), ``lp`` the (10, L) lane pack,
-    ``np_rows`` the (4, N) node pack and ``alive`` the (1, L) mask.
-    CPU tensors run :func:`sweep_segment_plain`; CUDA tensors launch
-    the kernel.  Any other device raises.
+    ``state`` is (S, L, N) float32, ``hist`` the (L, HIST_BINS) int32
+    counts so far (zeros at the horizon's start), ``demand_seg`` (T, N)
+    float32 or bfloat16 (per ``con.precision``), ``lp`` the (10, L)
+    lane pack, ``np_rows`` the (4, N) node pack and ``alive`` the
+    (1, L) mask; ``t0`` is the segment's first interval.  CPU tensors
+    run :func:`sweep_segment_plain`; CUDA tensors launch the kernel.
+    Any other device raises.
     """
     if state.device.type == "cpu":
-        return sweep_segment_plain(state, demand_seg, lp, np_rows, alive,
-                                   t0=t0, con=con, names=names)
+        return sweep_segment_plain(state, hist, demand_seg, lp, np_rows,
+                                   alive, t0=t0, con=con, names=names)
     if state.device.type != "cuda":
         raise ValueError(f"sweep_segment runs on cpu or cuda, not "
                          f"{state.device}")
-    return _launch(state, demand_seg, lp, np_rows, alive, t0=t0, con=con,
-                   names=names)
+    return _launch(state, hist, demand_seg, lp, np_rows, alive, t0=t0,
+                   con=con, names=names)

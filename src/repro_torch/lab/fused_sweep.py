@@ -3,22 +3,24 @@
 Counterpart of ``repro/lab/pallas_sweep.py``.  One launch of the sweep
 kernel (:func:`repro_torch.kernels.sweep.sweep_segment`) advances a
 block of gain lanes over a demand segment: the control law, the
-CacheLoop carry and the streamed Kahan / fixed-bin-quantile
-accumulators, over a stacked ``(S, L, N)`` state block.  Around the
-kernel, this module packs the operands on the host (numpy, as the
-reference does), seeds the state (:func:`_init_state`), folds it into
-per-lane stats (:func:`_finalize_lanes`, plain PyTorch on the device),
-and drives two programs:
+CacheLoop carry and the streamed Kahan / count / max accumulators, over
+a stacked ``(S, L, N)`` state block, and each lane's ``(HIST_BINS,)``
+code histogram, from which the p99 is read.  Around the kernel, this
+module packs the operands on the host (numpy, as the reference does),
+seeds the state (:func:`_init_state`), folds it into per-lane stats
+(:func:`_finalize_lanes`, plain PyTorch on the device), and drives two
+programs:
 
 * :func:`fused_sweep_demand` -- every gain over the full horizon, in
-  lane chunks bounded by the code budget, mixed law classes
-  partitioned;
+  lane chunks (:func:`~repro_torch.lab.sweep._resolve_chunk`), mixed
+  law classes partitioned;
 * :func:`halving_sweep` -- the whole successive-halving schedule on the
   device: at each horizon boundary the lanes are finalized, scored and
   ranked with a stable descending sort, and the survivors (plus the
   baseline lanes and dead padding) are gathered into a smaller block
-  with their prefix codes.  Every lane's loop is deterministic, so the
-  prefix accumulators equal a from-scratch run truncated there.
+  with their prefix state and histograms.  Every lane's loop is
+  deterministic, so the prefix accumulators equal a from-scratch run
+  truncated there.
 
 Numerics: state and accumulators stay float32; ``precision="bf16"``
 stores only the demand stream in bfloat16 (rounded to nearest even
@@ -43,8 +45,8 @@ from ..kernels.sweep import (N_NODE_ROWS, N_PARAM_ROWS, _DB, _FF, _INV_M,
                              _THR_OVER, _THR_SETTLE, _U_MAX, _U_MIN, _W,
                              state_names, sweep_segment, warm_fraction0)
 from .scenarios import CacheSpec
-from .score import (FleetStats, OVER_R0_EPS, SETTLE_TOL, default_score,
-                    finalize_fleet_stats, quantile_from_codes)
+from .score import (FleetStats, HIST_BINS, OVER_R0_EPS, SETTLE_TOL,
+                    default_score, finalize_fleet_stats, quantile_from_hist)
 from .sweep import GainSet, _resolve_chunk, paper_law_mask, \
     plan_specialization
 
@@ -161,37 +163,41 @@ def _init_state(lp: torch.Tensor, np_rows: torch.Tensor, d0: torch.Tensor,
     return torch.stack([planes[n] for n in names])
 
 
-def _finalize_lanes(state: torch.Tensor, codes: torch.Tensor,
+def _finalize_lanes(state: torch.Tensor, hist: torch.Tensor,
                     lp: torch.Tensor, con: _EngineConsts,
                     names: Tuple[str, ...], n_steps: int) -> FleetStats:
     """Per-lane :class:`FleetStats` from the stacked accumulators.
 
-    ``codes`` is the (T, L, N) prefix code history; every lane's p99 is
-    bisected out of its own codes.
+    ``hist`` is the (L, HIST_BINS) prefix code histogram; every lane's
+    p99 is read out of its own row.
     """
-    ix = {n: i for i, n in enumerate(names)}
+    planes = dict(zip(names, state.unbind(0)))
     n_nodes = state.shape[-1]
-    p99 = quantile_from_codes(codes, 0.99, n_steps * n_nodes, lane_dim=1)
+    p99 = quantile_from_hist(hist, 0.99, n_steps * n_nodes)
     cache_kw = {}
     if con.has_cache:
-        cache_kw = dict(hits_gib=state[ix["hs"]], evicted_gib=state[ix["es"]],
-                        app_time_s=state[ix["ts"]],
+        cache_kw = dict(hits_gib=planes["hs"], evicted_gib=planes["es"],
+                        app_time_s=planes["ts"],
                         accesses_gib=con.access_g * n_steps)
     return finalize_fleet_stats(
-        util_sum=state[ix["us"]], util_max=state[ix["mx"]],
-        caps_sum_gib=state[ix["cs"]], caps_sumsq_gib=state[ix["c2"]],
-        over_r0_count=state[ix["n_r0"]],
-        violation_count=state[ix["n_viol"]],
-        last_bad=state[ix["last_bad"]], p99_utilization=p99, r0=lp[_R0],
+        util_sum=planes["us"], util_max=planes["mx"],
+        caps_sum_gib=planes["cs"], caps_sumsq_gib=planes["c2"],
+        over_r0_count=planes["n_r0"], violation_count=planes["n_viol"],
+        last_bad=planes["last_bad"], p99_utilization=p99, r0=lp[_R0],
         n_intervals=n_steps, interval_s=con.interval_s, **cache_kw)
 
 
 def _stage(demand: np.ndarray, lanes: GainSet, node_memory,
            cache: Optional[CacheSpec], precision: str,
            device: torch.device):
-    """Demand (T, N), node pack and lane pack on ``device``."""
-    demand_tn = torch.from_numpy(
-        np.ascontiguousarray(demand.T, np.float32)).to(device)
+    """Demand (T, N), node pack and lane pack on ``device``.
+
+    The demand is cast to float32 on the host in its own (N, T) order and
+    transposed on the device: a transposing copy on the host costs more
+    than the sweep.
+    """
+    demand_tn = torch.from_numpy(np.ascontiguousarray(
+        demand, np.float32)).to(device).T.contiguous()
     if precision == "bf16":
         demand_tn = demand_tn.to(torch.bfloat16)
     n_nodes = demand.shape[0]
@@ -221,12 +227,17 @@ def _check_args(demand: np.ndarray, cache, occupancy: float,
     return demand
 
 
+def _zero_hist(lp: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((lp.shape[1], HIST_BINS), dtype=torch.int32,
+                       device=lp.device)
+
+
 def _sweep_program(demand_tn, np_rows, lp, alive, con, names) -> FleetStats:
     """One lane chunk over the full horizon, on the device."""
     state0 = _init_state(lp, np_rows, demand_tn[0].float(), con, names)
-    state, codes = sweep_segment(state0, demand_tn, lp, np_rows, alive, t0=0,
-                                 con=con, names=names)
-    return _finalize_lanes(state, codes, lp, con, names, demand_tn.shape[0])
+    state, hist = sweep_segment(state0, _zero_hist(lp), demand_tn, lp,
+                                np_rows, alive, t0=0, con=con, names=names)
+    return _finalize_lanes(state, hist, lp, con, names, demand_tn.shape[0])
 
 
 def fused_sweep_demand(
@@ -246,7 +257,7 @@ def fused_sweep_demand(
 
     Returns ``(G,)``-field stats as numpy.  Mixed law classes are
     partitioned and stitched back in gain order; gain lanes go in
-    chunks bounded by the code budget (``chunk`` overrides it), each
+    chunks of at most ``DEFAULT_CHUNK`` (``chunk`` overrides it), each
     padded up to :data:`LANE_TILE` lanes with dead lanes.
     ``precision="bf16"`` stores only the demand stream in bfloat16.
     """
@@ -270,8 +281,8 @@ def fused_sweep_demand(
             out[idx_slow] = b
             merged.append(out)
         return FleetStats(*merged)
-    n_nodes, n_steps = demand.shape
-    chunk = _resolve_chunk(chunk, len(gains), n_steps, n_nodes)
+    n_nodes = demand.shape[0]
+    chunk = _resolve_chunk(chunk, len(gains), n_nodes)
     chunk = -(-chunk // LANE_TILE) * LANE_TILE
     n_real = len(gains)
     gains = _pad_gains(gains, chunk)
@@ -285,9 +296,15 @@ def fused_sweep_demand(
                              lp[:, lo:lo + chunk].contiguous(),
                              alive[:, lo:lo + chunk].contiguous(), con, names)
               for lo in range(0, len(gains), chunk)]
-    return FleetStats(*(np.concatenate([getattr(c, f).cpu().numpy()
-                                        for c in chunks])[:n_real]
-                        for f in FleetStats._fields))
+    return FleetStats(*(np.concatenate(f)[:n_real]
+                        for f in zip(*map(_to_host, chunks))))
+
+
+def _to_host(stats: FleetStats) -> FleetStats:
+    """Every (L,) field to numpy in one copy (one sync, not fifteen)."""
+    host = torch.stack([x.view(torch.float32) for x in stats]).cpu().numpy()
+    return FleetStats(*(row.view(np.int32) if x.dtype == torch.int32
+                        else row for row, x in zip(host, stats)))
 
 
 # ---------------------------------------------------------------------------
@@ -333,24 +350,22 @@ def _halving_program(demand_tn, np_rows, lp, alive, con, names,
     padding last.  At each boundary: finalize prefix stats, score,
     rank the candidate lanes with a stable descending sort (ties go to
     the lower index, as ``jax.lax.top_k`` breaks them -- ``torch.topk``
-    does not), and gather survivors + baseline + padding, prefix codes
-    included, into the next lane block.
+    does not), and gather survivors + baseline + padding, prefix state
+    and histograms included, into the next lane block.
     """
     dev = lp.device
     state = _init_state(lp, np_rows, demand_tn[0].float(), con, names)
+    hist = _zero_hist(lp)
     orig = torch.arange(lp.shape[1], device=dev)
-    parts: List[torch.Tensor] = []
     t_prev = 0
     cand = n_cand
     for i, h in enumerate(horizons):
         if h > t_prev:
-            state, codes = sweep_segment(
-                state, demand_tn[t_prev:h], lp, np_rows, alive, t0=t_prev,
-                con=con, names=names)
-            parts.append(codes)
+            state, hist = sweep_segment(
+                state, hist, demand_tn[t_prev:h], lp, np_rows, alive,
+                t0=t_prev, con=con, names=names)
             t_prev = h
-        prefix = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
-        stats = _finalize_lanes(state, prefix, lp, con, names, h)
+        stats = _finalize_lanes(state, hist, lp, con, names, h)
         scores = objective(stats)
         if i == len(horizons) - 1:
             n_out = cand + n_base
@@ -364,10 +379,8 @@ def _halving_program(demand_tn, np_rows, lp, alive, con, names,
         if pad_n:
             sel = torch.cat([sel, sel[-1:].expand(pad_n)])
         state = state[:, sel, :]
+        hist = hist[sel]
         lp = lp[:, sel]
-        # uint16 has few PyTorch kernels; gather through an int16 view.
-        parts = [c.view(torch.int16)[:, sel, :].view(torch.uint16)
-                 for c in parts]
         orig = orig[sel]
         alive = _alive(k + n_base + pad_n, k + n_base, dev)
         cand = k
@@ -420,7 +433,7 @@ def halving_sweep(
     stats_dev, scores_dev, orig_dev = _halving_program(
         demand_tn, np_rows, lp, alive, con, names, horizons, keeps, n_cand,
         n_base, objective)
-    stats = FleetStats(*(x.cpu().numpy() for x in stats_dev))
+    stats = _to_host(stats_dev)
     scores = scores_dev.cpu().numpy()
     survivor_idx = orig_dev.cpu().numpy()
     elapsed = time.perf_counter() - t0

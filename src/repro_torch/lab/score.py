@@ -4,11 +4,15 @@ Counterpart of ``repro/lab/score.py`` on torch tensors.  The sweep
 engine never materializes a closed-loop history: per-node accumulators
 stream through the step (:func:`kahan_add`), utilization is quantized
 to ``uint16`` codes on a 65536-bin grid (:func:`utilization_codes`), and
-:func:`quantile_from_codes` bisects the p99 out of the implicit
-histogram with 12 count reductions.  :func:`finalize_fleet_stats` folds
-the accumulators into :class:`FleetStats`; here it folds the last
-(node) axis, so one call finalizes every gain lane at once where the
-JAX package vmaps over lanes.
+each gain lane counts its codes in a histogram of ``code >> 4``
+(:func:`hist_add`; the sweep kernel keeps it in shared memory), out of
+which :func:`quantile_from_hist` reads the p99 bisection's bracket with
+one prefix sum.  :func:`quantile_from_codes`, the bisection over the
+codes themselves, is what the histogram is held to.
+:func:`finalize_fleet_stats` folds the accumulators into
+:class:`FleetStats`; here it folds the last (node) axis, so one call
+finalizes every gain lane at once where the JAX package vmaps over
+lanes.
 
 The objectives (:func:`default_score`, :func:`runtime_score`,
 :func:`makespan_score`) take numpy or torch fields and compute in
@@ -48,6 +52,11 @@ _QUANT_SCALE = QUANT_BINS / (QUANT_RANGE[1] - QUANT_RANGE[0])
 # 2^16-bin code space to a 16-bin bracket (~5e-4 utilization worst
 # case); 16 recovers the exact (quantized) order statistic.
 QUANT_LEVELS = 12
+
+# The per-lane histogram counts code >> HIST_SHIFT: 4096 bins of 16
+# codes, the bracket the 12-level bisection ends on.
+HIST_SHIFT = 4
+HIST_BINS = QUANT_BINS >> HIST_SHIFT
 
 
 class FleetStats(NamedTuple):
@@ -152,6 +161,50 @@ def quantile_from_codes(codes: torch.Tensor, q: float, n_total: int,
     return out[0] if lane_dim is None else out
 
 
+def hist_add(hist: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Count ``codes >> HIST_SHIFT`` into ``hist`` in place; returns it.
+
+    ``hist`` is (L, HIST_BINS) int32 and ``codes`` (L, ...) ``uint16``:
+    row ``l`` of ``hist`` counts every code of lane ``l``.
+    """
+    idx = codes.reshape(codes.shape[0], -1).to(torch.int64) >> HIST_SHIFT
+    return hist.scatter_add_(1, idx, torch.ones_like(idx, dtype=torch.int32))
+
+
+def quantile_from_hist(hist: torch.Tensor, q: float, n_total: int,
+                       levels: int = QUANT_LEVELS) -> torch.Tensor:
+    """:func:`quantile_from_codes` per lane, from code histograms.
+
+    ``hist`` is (L, HIST_BINS) (or one (HIST_BINS,) row, for a 0-d
+    result) with ``n_total`` counts per lane.  It returns the bracket of
+    the same bisection, bit for bit: for ``levels <= 12`` every
+    threshold ``mid`` the bisection tests is 15 mod 16, so
+    ``count(code <= mid)`` is the prefix sum of the bins up to ``mid >>
+    HIST_SHIFT``, and the bisection goes left exactly when the first bin
+    whose prefix sum passes the target lies at or left of that bin.  So
+    its final bracket is the aligned block of ``2**(16 - levels)`` codes
+    holding that bin, which one prefix sum and one count find, without
+    the 12 dependent steps.  Deeper bisections need the codes
+    themselves.
+    """
+    if not 0 <= levels <= 12:
+        raise ValueError(f"a histogram of {HIST_BINS} bins resolves 0 to "
+                         f"12 bisection levels; got levels={levels}")
+    target = int(np.floor(q * (n_total - 1)))
+    rows = hist.reshape(-1, HIST_BINS)
+    # the first bin whose prefix count passes the target (the last bin
+    # when none does, where the bisection also ends)
+    first = (rows.cumsum(dim=1) <= target).sum(dim=1).clamp_max(HIST_BINS - 1)
+    # The bracket [lo, lo + 2**shift - 1] has its midpoint at code
+    # lo + 2**(shift - 1) (shift >= 4): an integer below 2**16, exact in
+    # float32 and scaled by a power of two, so this is the value
+    # quantile_from_codes computes, bit for bit.
+    shift = 16 - levels
+    mid = ((first >> (12 - levels)) << shift) + (1 << (shift - 1))
+    out = QUANT_RANGE[0] + mid.to(torch.float32) * (1.0 / _QUANT_SCALE)
+    return out[0] if hist.ndim == 1 else out
+
+
 def _fold(x: torch.Tensor) -> torch.Tensor:
     """Sum over the node axis in float64, rounded once to float32."""
     return x.sum(-1, dtype=torch.float64).to(torch.float32)
@@ -166,7 +219,7 @@ def finalize_fleet_stats(
     over_r0_count: torch.Tensor,     # (..., N) count of r > r0 + OVER_R0_EPS
     violation_count: torch.Tensor,   # (..., N) count of r > 1
     last_bad: torch.Tensor,          # (..., N) last t with r > r0 + SETTLE_TOL
-    p99_utilization: torch.Tensor,   # (...) from quantile_from_codes
+    p99_utilization: torch.Tensor,   # (...) from quantile_from_hist
     r0: torch.Tensor,                # (...)
     n_intervals: int,
     interval_s: float,
@@ -191,10 +244,18 @@ def finalize_fleet_stats(
     t = n_intervals
     n = util_sum.shape[-1]
     samples = f32(t * n, dev)
-    caps_total = _fold(caps_sum_gib)
-    caps_mean = caps_total / samples
-    caps_var = torch.clamp_min(fma(-caps_mean, caps_mean,
-                                   _fold(caps_sumsq_gib) / samples), 0.0)
+    summed = [util_sum, caps_sum_gib, caps_sumsq_gib, over_r0_count,
+              violation_count]
+    if app_time_s is not None:
+        summed += [hits_gib, evicted_gib]
+    # every node sum in one fold, and the five means in one division:
+    # the sweep's finalize is host-bound, so each operation saved counts
+    totals = _fold(torch.stack(summed))
+    caps_total = totals[1]
+    util_mean, caps_mean, caps_sq_mean, over_frac, viol_rate = \
+        (totals[:5] / samples).unbind(0)
+    caps_var = torch.clamp_min(fma(-caps_mean, caps_mean, caps_sq_mean),
+                               0.0)
     max_util = util_max.amax(-1)
     ideal_s = t * interval_s
     lanes = max_util.shape
@@ -204,19 +265,22 @@ def finalize_fleet_stats(
         app_runtime = torch.full(lanes, ideal_s, dtype=torch.float32,
                                  device=dev)
     else:
-        hit_ratio = _fold(hits_gib) / f32(n * accesses_gib, dev)
-        evicted_bytes = _fold(evicted_gib) * f32(GiB, dev)
+        hits_total, evicted_total = totals[5:].unbind(0)
+        hit_ratio = hits_total / f32(n * accesses_gib, dev)
+        # a float32 product with a scalar rounds as with a 0-d tensor
+        evicted_bytes = evicted_total * float(np.float32(GiB))
         app_runtime = app_time_s.amax(-1)
     return FleetStats(
-        mean_utilization=_fold(util_sum) / samples,
+        mean_utilization=util_mean,
         p99_utilization=p99_utilization,
         max_utilization=max_util,
-        frac_intervals_over_r0=_fold(over_r0_count) / samples,
+        frac_intervals_over_r0=over_frac,
         max_over_r0=torch.clamp_min(max_util - r0, 0.0),
-        pressure_violation_rate=_fold(violation_count) / samples,
+        pressure_violation_rate=viol_rate,
         mean_capacity_gib=caps_mean,
         capacity_std_gib=torch.sqrt(caps_var),
-        granted_volume_gib_s=caps_total / f32(n, dev) * f32(interval_s, dev),
+        granted_volume_gib_s=(caps_total / f32(n, dev)
+                              * float(np.float32(interval_s))),
         settle_intervals=(last_bad.amax(-1) + 1).to(torch.int32),
         hit_ratio=hit_ratio,
         evicted_bytes=evicted_bytes,

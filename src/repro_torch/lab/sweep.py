@@ -26,13 +26,16 @@ import torch
 from ..core.control import ControllerParams
 from ..device import DeviceLike
 from .appgraph import AppGraphSpec
+from ..kernels.sweep import state_names
 from .scenarios import CacheSpec, ScenarioSpec, get_scenario
-from .score import FleetStats, default_score
+from .score import HIST_BINS, FleetStats, default_score
 
 # Upper bound on gain lanes per launch; the auto chunk lowers it when
-# the per-lane uint16 code history would exceed the budget.
-DEFAULT_CHUNK = 32
-CODES_BUDGET_BYTES = 256 << 20
+# what one launch allocates per lane would exceed the budget.
+DEFAULT_CHUNK = 64
+LAUNCH_BUDGET_BYTES = 256 << 20
+# Float32 state planes of the widest specialization (generic law, cache).
+_MAX_PLANES = len(state_names(paper_law=False, has_cache=True))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,17 +115,17 @@ class GainSet:
                          for f in dataclasses.fields(self)))
 
 
-def _resolve_chunk(chunk: Optional[int], n_gains: int, n_steps: int,
-                   n_nodes: int) -> int:
-    """Gain lanes per launch, capped by the code budget.
+def _resolve_chunk(chunk: Optional[int], n_gains: int, n_nodes: int) -> int:
+    """Gain lanes per launch, capped by the launch budget.
 
-    The auto chunk never exceeds :data:`CODES_BUDGET_BYTES` of codes --
-    a huge (T, N) shape degrades to one gain per launch rather than
-    overshooting device memory.
+    The auto chunk never allocates more than :data:`LAUNCH_BUDGET_BYTES`
+    per launch: state planes and histograms, each in and out -- a huge
+    fleet degrades to one gain per launch rather than overshooting
+    device memory.
     """
     if chunk is None:
-        per_gain = max(n_steps * n_nodes * 2, 1)       # uint16 codes
-        chunk = min(max(int(CODES_BUDGET_BYTES // per_gain), 1),
+        per_gain = 2 * 4 * (_MAX_PLANES * n_nodes + HIST_BINS)
+        chunk = min(max(int(LAUNCH_BUDGET_BYTES // per_gain), 1),
                     DEFAULT_CHUNK)
     chunk = max(int(chunk), 1)
     return min(chunk, max(n_gains, 1))
@@ -175,7 +178,7 @@ def sweep_demand(
 
     Returns ``(G,)``-field stats as numpy.  ``horizon`` truncates the
     loop to the first ``horizon`` intervals; ``chunk`` bounds the gain
-    lanes per launch (default: the code budget); ``cache`` enables
+    lanes per launch (default: the launch budget); ``cache`` enables
     CacheLoop.  A gain set mixing paper-faithful and beyond-paper points
     is partitioned by law class, each class on its own specialization,
     and the stats are stitched back in gain order.

@@ -22,7 +22,7 @@ from repro_torch.convert import gainset_from_numpy, params_from_dict
 from repro_torch.kernels import sweep as ks
 from repro_torch.lab import fused_sweep as fs
 from repro_torch.lab import scenarios as tsc
-from repro_torch.lab.score import stats_mismatches
+from repro_torch.lab.score import HIST_BINS, stats_mismatches
 from repro_torch.lab.sweep import GainSet, plan_specialization
 from repro_torch.lab.tune import halving_tune
 
@@ -113,6 +113,8 @@ def test_halving_schedule_matches_jax():
 
 @pytest.mark.parametrize("cache", [False, True])
 def test_dead_lanes_write_zero_codes_and_keep_state(cache):
+    """A dead lane counts no code into its histogram row and keeps its
+    state; live lanes equal a run of the live lanes alone."""
     demand, m, spec, cache_spec = _inputs("spark-iterative-cache")
     cache_spec = cache_spec if cache else None
     gains = _port(_random_gains(8))
@@ -123,20 +125,24 @@ def test_dead_lanes_write_zero_codes_and_keep_state(cache):
     dtn, rows, lp = fs._stage(demand, gains, m, cache_spec, "f32", dev)
     alive = fs._alive(8, 5, dev)
     state0 = fs._init_state(lp, rows, dtn[0], con, names)
-    state, codes = ks.sweep_segment(state0, dtn, lp, rows, alive, t0=0,
-                                    con=con, names=names)
-    assert codes.dtype == torch.uint16 and codes.shape == (N_STEPS, 8,
-                                                           N_NODES)
-    assert int(codes[:, 5:].to(torch.int32).abs().sum()) == 0
-    assert int(codes[:, :5].to(torch.int32).sum()) > 0
+    hist0 = fs._zero_hist(lp)
+    state, hist = ks.sweep_segment(state0, hist0, dtn, lp, rows, alive,
+                                   t0=0, con=con, names=names)
+    assert hist.dtype == torch.int32 and hist.shape == (8, HIST_BINS)
+    assert int(hist[5:].abs().sum()) == 0
+    assert hist[:5].sum(1).tolist() == [N_STEPS * N_NODES] * 5
     assert torch.equal(state[:, 5:], state0[:, 5:])
+    assert int(hist0.abs().sum()) == 0            # the input is not written
     # Live lanes are untouched by their dead neighbours.
-    solo, solo_codes = ks.sweep_segment(
-        state0[:, :5].contiguous(), dtn, lp[:, :5].contiguous(), rows,
-        fs._alive(5, 5, dev), t0=0, con=con, names=names)
+    solo, solo_hist = ks.sweep_segment(
+        state0[:, :5].contiguous(), hist0[:5], dtn, lp[:, :5].contiguous(),
+        rows, fs._alive(5, 5, dev), t0=0, con=con, names=names)
     assert torch.equal(solo, state[:, :5])
-    assert torch.equal(solo_codes.to(torch.int32),
-                       codes[:, :5].to(torch.int32))
+    assert torch.equal(solo_hist, hist[:5])
+    # A dead lane's row is carried as it came in, not reset.
+    again = ks.sweep_segment(state, hist, dtn[:7], lp, rows, alive, t0=0,
+                             con=con, names=names)[1]
+    assert torch.equal(again[5:], hist[5:])
 
 
 def test_survivor_stats_equal_a_plain_sweep_of_the_survivors():

@@ -37,6 +37,7 @@ from repro_torch.lab import sweep as tsw
 from repro_torch.lab import tune as ttu
 from repro_torch.launch import profile_serve as tprofile
 from repro_torch.launch import serve as tserve
+from repro_torch.launch import time_sweep as ttime
 from repro_torch.models import Model
 from repro_torch.serving import ServingConfig, ServingEngine
 
@@ -114,6 +115,7 @@ def test_serving_entry_points_raise_without_cuda(monkeypatch):
         lambda: ServingEngine(cpu_model, ServingConfig()),
         lambda: tserve.main(["--requests", "1"]),
         tprofile.main,
+        ttime.main,
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -164,13 +166,13 @@ def test_cuda_tensors_launch_the_kernel_and_never_the_plain_version(
     monkeypatch.setattr(ks, "sweep_segment_plain", plain)
     monkeypatch.setattr(ks, "_launch",
                         lambda *a, **k: launched.append(a) or "kernel")
-    out = ks.sweep_segment(_OnCuda(), None, None, None, None, t0=0,
+    out = ks.sweep_segment(_OnCuda(), None, None, None, None, None, t0=0,
                            con=None, names=())
     assert out == "kernel" and len(launched) == 1
     meta = torch.empty((1, 1, 1), device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
-        ks.sweep_segment(meta, None, None, None, None, t0=0, con=None,
-                         names=())
+        ks.sweep_segment(meta, None, None, None, None, None, t0=0,
+                         con=None, names=())
 
 
 def test_each_library_has_its_flags_and_declarations():

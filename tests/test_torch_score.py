@@ -1,11 +1,12 @@
 """The port's streamed statistics and objectives held against the JAX ones.
 
-Codes and quantiles are integer results and must be equal exactly on
-identical inputs.  The float folds (finalize, objectives, the Fig.-2
+Codes, histograms and quantiles are integer results and must be equal
+exactly on identical inputs.  The float folds (finalize, objectives, the Fig.-2
 curve) are held at rtol 1e-6: XLA on the CPU contracts multiply-adds
 and sums in another order than eager PyTorch.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -53,6 +54,56 @@ def test_quantile_per_lane_equals_lane_by_lane():
     ref = [float(js.quantile_from_codes(jnp.asarray(codes[:, i]), 0.99,
                                         T * N)) for i in range(L)]
     np.testing.assert_array_equal(got, np.asarray(ref, np.float32))
+
+
+def _code_lanes(case):
+    """(L, M) uint16 codes, one lane per row: the histogram's cases."""
+    rng = np.random.default_rng(11)
+    if case == "spread":
+        # lanes from tight (1e-4) to wide (0.5) around r0, both ends cut
+        spread = np.geomspace(1e-4, 0.5, L)[:, None]
+        u = (0.93 + spread * rng.standard_normal((L, T * N))).astype(
+            np.float32)
+        u[-1, :3] = [-0.5, 2.5, 1.99999]
+        return np.array(js.utilization_codes(jnp.asarray(u)))
+    if case == "one-bin":
+        return (1601 * 16 + rng.integers(0, 16, (L, T * N))).astype(np.uint16)
+    if case == "ends":
+        ends = np.where(rng.random((L, T * N)) < np.linspace(0, 1, L)[:, None],
+                        65535, 0)
+        return ends.astype(np.uint16)
+    assert case == "n_total=1"
+    return rng.integers(0, 65536, (L, 1)).astype(np.uint16)
+
+
+@pytest.mark.parametrize("case", ["spread", "one-bin", "ends", "n_total=1"])
+@pytest.mark.parametrize("q", [0.0, 0.5, 0.99, 1.0])
+@pytest.mark.parametrize("levels", range(1, 13))
+def test_quantile_from_hist_equals_jax_quantile_from_codes(case, q, levels):
+    """The per-lane histogram of code >> 4 gives JAX's bracket, bit for
+    bit, at every depth the 4096 bins resolve."""
+    codes = _code_lanes(case)
+    n = codes.shape[1]
+    ref = jax.vmap(lambda c: js.quantile_from_codes(c, q, n, levels=levels))(
+        jnp.asarray(codes))
+    hist = torch.zeros((L, ts.HIST_BINS), dtype=torch.int32)
+    assert ts.hist_add(hist, torch.from_numpy(codes)) is hist
+    assert int(hist.sum()) == L * n
+    got = ts.quantile_from_hist(hist, q, n, levels=levels)
+    assert got.dtype == torch.float32 and got.shape == (L,)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    # one row alone gives lane 0's value as a 0-d result
+    assert float(ts.quantile_from_hist(hist[0], q, n, levels=levels)) == \
+        float(ref[0])
+
+
+def test_quantile_from_hist_refuses_levels_past_the_bins():
+    hist = torch.zeros((2, ts.HIST_BINS), dtype=torch.int32)
+    ts.quantile_from_hist(hist, 0.99, 1, levels=12)
+    with pytest.raises(ValueError, match="12 bisection levels"):
+        ts.quantile_from_hist(hist, 0.99, 1, levels=13)
+    with pytest.raises(ValueError, match="12 bisection levels"):
+        ts.quantile_from_hist(hist, 0.99, 1, levels=-1)
 
 
 def test_hpl_slowdown_curve_and_kahan_match():

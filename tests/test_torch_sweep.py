@@ -11,17 +11,26 @@ fields at rtol 1e-4, p99 at 5e-4, the two rate fields also at atol
 
 import dataclasses
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import repro.lab as jlab
 from repro.configs.dynims import PAPER_TABLE_I as J_TABLE_I
+from repro.lab import score as js
 from repro.lab.pallas_sweep import pallas_sweep_demand
 from repro_torch.convert import gainset_from_numpy
+from repro_torch.kernels import sweep as ks
+from repro_torch.lab import fused_sweep as fs
 from repro_torch.lab import scenarios as tsc
+from repro_torch.lab import score as ts
 from repro_torch.lab.fused_sweep import fused_sweep_demand
 from repro_torch.lab.score import FleetStats, stats_mismatches
-from repro_torch.lab.sweep import run_sweep, sweep_demand
+from repro_torch.lab.sweep import (DEFAULT_CHUNK, _resolve_chunk,
+                                   plan_specialization, run_sweep,
+                                   sweep_demand)
 
 N_NODES, N_STEPS = 12, 96
 
@@ -182,3 +191,80 @@ def test_bad_arguments_raise():
         sweep_demand(demand, g, horizon=N_STEPS + 1, **kw)
     with pytest.raises(ValueError, match="occupancy"):
         sweep_demand(demand, g, occupancy=0.5, cache=tsc.CacheSpec(), **kw)
+
+
+def _segment(name, law, cache, seed=8):
+    demand, m, spec = _inputs(name, seed=seed,
+                              **({} if cache else {"cache": None}))
+    gains = _port_gains(_jax_gains(law))
+    cspec = _port_cache(spec.cache)
+    con = fs._engine_consts(plan_specialization(gains), cspec, 0.1, 1.0,
+                            "f32")
+    names = ks.state_names(con.paper_law, con.has_cache)
+    dtn, rows, lp = fs._stage(demand, gains, m, cspec, "f32",
+                              torch.device("cpu"))
+    alive = fs._alive(len(gains), len(gains), torch.device("cpu"))
+    state0 = fs._init_state(lp, rows, dtn[0], con, names)
+    return (state0, dtn, lp, rows, alive), con, names
+
+
+@pytest.mark.parametrize("law", ["paper", "mixed"])
+@pytest.mark.parametrize("cache", [False, True])
+def test_plain_histogram_equals_binned_fused_step_codes(law, cache):
+    """The plain segment's histogram is hist_add over the codes its
+    fused_step loop produces, added to the histogram handed in, and its
+    p99 is JAX's quantile_from_codes over those codes."""
+    (state0, dtn, lp, rows, alive), con, names = _segment(
+        "cache-churn", "paper" if law == "paper" else "deadband", cache)
+    t0, n_lanes = 5, lp.shape[1]
+    hist0 = torch.randint(0, 3, (n_lanes, ts.HIST_BINS), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(0))
+    state, hist = ks.sweep_segment(state0, hist0, dtn, lp, rows, alive,
+                                   t0=t0, con=con, names=names)
+    ix = {n: i for i, n in enumerate(names)}
+    k = ks._Lifted(con, state0.device)
+    cols = lp[:, :, None]
+    wf0 = ks.warm_fraction0(cols, rows, con)[1] if con.has_cache else None
+    st, codes = tuple(state0.unbind(0)), []
+    for i in range(dtn.shape[0]):
+        st, c = ks.fused_step(st, dtn[i], t0 + i, cols, rows, wf0, con,
+                              names, ix, k)
+        codes.append(c)
+    codes = torch.stack(codes, dim=1)                   # (L, T, N)
+    want = ts.hist_add(hist0.clone(), codes)
+    assert torch.equal(hist, want)
+    assert torch.equal(state, torch.stack(st))
+    n = codes[0].numel()
+    p99 = ts.quantile_from_hist(hist - hist0, 0.99, n)
+    ref = jax.vmap(lambda c: js.quantile_from_codes(c, 0.99, n))(
+        jnp.asarray(codes.numpy().reshape(n_lanes, n)))
+    np.testing.assert_array_equal(p99.numpy(), np.asarray(ref))
+
+
+def test_segment_checks_the_histogram():
+    (state0, dtn, lp, rows, alive), con, names = _segment(
+        "swap-storm", "paper", False)
+    kw = dict(con=con, names=names)
+    hist = fs._zero_hist(lp)
+    with pytest.raises(ValueError, match="hist must be torch.int32"):
+        ks.sweep_segment(state0, hist.long(), dtn, lp, rows, alive, t0=0,
+                         **kw)
+    with pytest.raises(ValueError, match="hist must be"):
+        ks.sweep_segment(state0, hist[:-1], dtn, lp, rows, alive, t0=0,
+                         **kw)
+    # a lane's count reaches (t0 + T) * N by the segment's end
+    t_end = -(-2**31 // N_NODES)          # the first end that can reach 2^31
+    with pytest.raises(ValueError, match="overflow"):
+        ks.sweep_segment(state0, hist, dtn, lp, rows, alive,
+                         t0=t_end - N_STEPS, **kw)
+    ks.sweep_segment(state0, hist, dtn[:1], lp, rows, alive, t0=t_end - 2,
+                     **kw)
+
+
+def test_auto_chunk_is_bounded_by_what_a_launch_allocates():
+    """No code stream: the horizon no longer shrinks the chunk, only a
+    fleet whose state planes outgrow the budget does."""
+    assert _resolve_chunk(None, 64, 4096) == DEFAULT_CHUNK
+    assert _resolve_chunk(None, 5, 4096) == 5
+    assert _resolve_chunk(8, 64, 4096) == 8
+    assert _resolve_chunk(None, 64, 1 << 20) == 1
