@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the four kernels from ``src/repro_torch/csrc/`` (one ``nvcc``
-each, all at once) and drives the port's three main paths on the card:
+each, all at once) and drives the port's main paths on the card:
 
 * the sweep (phases 1-5): the sweep kernel against its plain PyTorch
   version (state, the per-lane p99 histogram, and the p99 against the
@@ -17,7 +17,9 @@ each, all at once) and drives the port's three main paths on the card:
   finalize, and ``fused_sweep_demand`` end to end;
 * serving llama3.2-1b at full width (phases 6-9): the decode- and
   flash-attention kernels against their plain versions, the
-  continuous-batching engine through a pool burst, forward (flash)
+  continuous-batching engine through a pool burst under a live
+  ``MemoryPlane`` (ticks = steps, healthy, the pool re-granted on the
+  tick after the shrink), forward (flash)
   against decode (decode attention), mixed progress against isolated
   serving, then the kernels' times beside their bounds, their plain
   versions and PyTorch's ``scaled_dot_product_attention`` (flash
@@ -27,7 +29,13 @@ each, all at once) and drives the port's three main paths on the card:
   hymba's heads and window; the engine through the same burst; forward
   (flash and scan) against decode past the 1024-token window, mixed
   progress against isolated serving; then the scan kernel's time beside
-  its bound and its plain version.
+  its bound and its plain version;
+* the live plane under real device-memory pressure (phase 14):
+  llama3.2-1b served while one tensor holds the card at (r0 + 0.03) M;
+  the plane alone empties the pool, preempting, re-grants it once the
+  tensor is freed, and its card actions equal a CPU replay of the
+  recorded samples bit for bit; the tick's host time, syncs and
+  launches.
 
 Every phase prints a line; any failed check raises and the exit code is
 nonzero.  The last line is a JSON object naming the device; the one
@@ -42,6 +50,7 @@ import concurrent.futures
 import ctypes
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -60,7 +69,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 from repro_torch.configs import DECODE_32K, get_config  # noqa: E402
 from repro_torch.configs.dynims import (LAB_TUNED,  # noqa: E402
-                                        LAB_TUNED_OBJECTIVES)
+                                        LAB_TUNED_OBJECTIVES,
+                                        hbm_pool_params)
+from repro_torch.core.monitor import SimulatedMonitor  # noqa: E402
+from repro_torch.core.plane import (MemoryPlane, NodeSpec,  # noqa: E402
+                                    PlaneSpec)
+from repro_torch.core.store import StoreRegistry  # noqa: E402
 from repro_torch.core.traces import GiB, fleet_demand_traces  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as kd  # noqa: E402
@@ -75,8 +89,10 @@ from repro_torch.lab.sweep import (DEFAULT_CHUNK,  # noqa: E402
                                    plan_specialization, run_sweep,
                                    sweep_demand)
 from repro_torch.lab.tune import grid_gains, tune_gains  # noqa: E402
+from repro_torch.launch.profile_serve import (count_syncs,  # noqa: E402
+                                              tick_launches, watch_ticks)
 from repro_torch.launch.serve import (FULL_WIDTH,  # noqa: E402
-                                      FULL_WIDTH_HYMBA, serve)
+                                      FULL_WIDTH_HYMBA, build_engine, serve)
 from repro_torch.launch.time_sweep import (device_ms,  # noqa: E402
                                            time_fused_sweep)
 from repro_torch.models import decode as D  # noqa: E402
@@ -626,7 +642,8 @@ def serve_full_width(phase, w, smi):
         f"{w['seed']}; bf16 cache), {w['requests']} requests x "
         f"{w['prompt_len']}-token prompts x {w['max_new']} new tokens, "
         f"max_batch {w['max_batch']}, max_len {w['max_len']}, block 16, "
-        f"pool to 25% after 10 steps, restored 5 steps later")
+        f"the pool under a live plane on the card (hbm_pool_params, "
+        f"device-memory monitor), shrunk by hand to 25% after 10 steps")
     kd.LAUNCHES = 0                        # the serving path starts here
     report = serve(**w, burst=True)
     launches = kd.LAUNCHES
@@ -642,16 +659,35 @@ def serve_full_width(phase, w, smi):
     check(launches == st["decode_steps"] * cfg.n_layers,
           f"decode kernel launched {launches} times for "
           f"{st['decode_steps']} steps x {cfg.n_layers} layers")
+    health = check_plane(eng)
+    after = report["after_shrink"]
+    check(after[0] == report["full"], f"the plane did not re-grant the pool "
+          f"on the tick after the shrink: {after} of {report['full']}")
     log(f"  drained {len(fin)}/{w['requests']}, {report['tokens']} tokens, "
         f"{st['preemptions']} preemption(s), {st['steps']} steps "
         f"({st['decode_steps']} with an active slot); decode kernel "
         f"launches {launches} = steps x {cfg.n_layers}; logits finite")
+    log(f"  plane: {health.ticks} ticks = steps, {health.summary()}; pool "
+        f"{after[0] / 2**20:.0f} of {report['full'] / 2**20:.0f} MiB on the "
+        f"tick after the shrink")
     log(f"  {report['tokens'] / dt:.1f} tok/s, {st['steps'] / dt:.2f} "
         f"steps/s ({dt:.3f} s, host clock) on {smi}")
     return eng, launches, {"tok_s": report["tokens"] / dt,
                            "steps_s": st["steps"] / dt, "seconds": dt,
                            "steps": st["steps"],
                            "preemptions": st["preemptions"]}
+
+
+def check_plane(eng):
+    """The engine's plane ticked once per step, healthy, no fault logged;
+    returns its health report."""
+    health = eng.plane.health()
+    check(health.ticks == eng.steps, f"{health.ticks} plane ticks for "
+          f"{eng.steps} engine steps")
+    check(health.healthy and not eng.plane.fault_log.snapshot(),
+          f"plane not healthy: {health.summary()}, faults "
+          f"{eng.plane.fault_log.snapshot()}")
+    return health
 
 
 def forward_decode_rel(model, tokens):
@@ -1026,6 +1062,149 @@ def phase13(state, scfg):
                      max_abs_err=err, share_of_bound=bound_ms / ms)
 
 
+# ---- llama3.2-1b under device-memory pressure: the live plane ---------
+
+WARM_STEPS = 10          # steps before the pressure (u climbs to u_max)
+PRESSURE_TICKS = 30      # at most, until the plane has emptied the pool
+RECOVERY_TICKS = 3       # the pool must be full again within these
+ALONE_TICKS = 20         # ticks timed alone for syncs and launches
+
+
+def plane_replay(cap, u0, node):
+    """The captured samples through a CPU plane (array backend): its
+    actions, one per tick."""
+    used = cap.demand[0] + cap.residency[0]   # exact: integer byte counts
+    replay = MemoryPlane(PlaneSpec(
+        params=hbm_pool_params(), device="cpu",
+        nodes=(NodeSpec(node, monitor=SimulatedMonitor(
+            node, total=float(cap.total_memory[0]), usage=list(used)),
+            registry=StoreRegistry(), u0=u0),)))
+    return [replay.tick()[0] for _ in range(len(used))]
+
+
+def phase14(smi):
+    """Serve FULL_WIDTH while one tensor takes the card to (r0 + 0.03) M:
+    the plane alone resizes the pool.  Returns the decode kernel's
+    launches and the phase's numbers."""
+    w = FULL_WIDTH
+    cfg = get_config(w["arch"])
+    torch.cuda.empty_cache()
+    kd.LAUNCHES = 0                        # the pressure path starts here
+    eng = build_engine(**w)
+    plane, node = eng.plane, eng.node
+    plane.record()
+    full = eng.pool.capacity()
+    p = plane.params
+    log(f"phase 14: serve {w['arch']} at full width as in phase 7, the "
+        f"pool ({full / 2**20:.0f} MiB) under the plane alone (r0 {p.r0}, "
+        f"lam {p.lam}, lam_grant {p.lam_grant}, u_max {p.u_max:.4e} B); "
+        f"after {WARM_STEPS} steps one tensor takes memory_allocated to "
+        f"(r0 + 0.03) M for up to {PRESSURE_TICKS} ticks")
+    with count_syncs() as syncs:
+        for _ in range(WARM_STEPS):
+            eng.step()
+    syncs_per_step = len(syncs) / WARM_STEPS
+    tick_s, step_s = watch_ticks(plane), []
+
+    def step():
+        t0 = time.perf_counter()
+        eng.step()
+        step_s.append(time.perf_counter() - t0)
+
+    total = float(plane.capture().total_memory[0])
+    target = (p.r0 + 0.03) * total
+    need = math.ceil(target) - torch.cuda.memory_allocated()
+    free = torch.cuda.mem_get_info()[0]
+    check(0 < need <= free - GiB, f"cannot take the card to (r0 + 0.03) M = "
+          f"{target:.4e} B: {need} B more needed, {free} B free less 1 GiB")
+    burst = torch.empty(need, dtype=torch.uint8, device=CUDA)
+    check(torch.cuda.memory_allocated() >= target, "the tensor fell short")
+    at = eng.steps                          # ticks before the pressure
+    for _ in range(PRESSURE_TICKS):
+        step()
+        if eng.pool.capacity() == 0:
+            break
+    check(eng.pool.capacity() == 0, f"the plane did not empty the pool in "
+          f"{eng.steps - at} ticks")
+    del burst
+    released = eng.steps
+    for _ in range(RECOVERY_TICKS):
+        step()
+        if eng.pool.capacity() == full:
+            break
+    recovery = eng.steps - released
+    check(eng.pool.capacity() == full, f"pool not full {RECOVERY_TICKS} "
+          f"ticks after the release: {eng.pool.capacity()} of {full}")
+    while eng.queue or any(not s.free for s in eng.slots):
+        step()
+        check(eng.steps < 5000, "the engine did not drain")
+    launches = kd.LAUNCHES
+    st = eng.stats()
+    fin = eng.finished
+    check(len(fin) == w["requests"]
+          and all(len(r.output) == w["max_new"] for r in fin.values()),
+          f"not drained: {st}")
+    check(st["logits_finite"], "non-finite logits")
+    check(launches == st["decode_steps"] * cfg.n_layers,
+          f"decode kernel launched {launches} times for "
+          f"{st['decode_steps']} steps x {cfg.n_layers} layers")
+    health = check_plane(eng)
+    acts = plane.actions(node=node)
+    check(len(acts) == eng.steps, f"{len(acts)} actions for {eng.steps} "
+          f"ticks")
+    evicted = [sum(len(r.evicted_keys) for r in a.reports) for a in acts]
+    shrunk = [min(r.applied_capacity for r in a.reports) < full
+              for a in acts]
+    check(sum(evicted) >= 1, "the plane preempted nothing")
+    first_shrink = shrunk.index(True) + 1 - at
+    first_preempt = next(i for i, n in enumerate(evicted) if n) + 1 - at
+    replay = plane_replay(plane.capture(), full, node)
+    same = [(a.u_prev, a.u_next, a.epoch) for a in acts] == \
+        [(a.u_prev, a.u_next, a.epoch) for a in replay]
+    check(same, "the card's actions differ from their CPU replay")
+    n_steps = len(step_s)
+    tick_ms = [t * 1e3 for t in tick_s[:n_steps]]
+    share = sum(tick_s[:n_steps]) / sum(step_s)
+    with count_syncs() as syncs:
+        for _ in range(ALONE_TICKS):
+            plane.tick()
+    syncs_per_tick = len(syncs) / ALONE_TICKS
+    check(syncs_per_tick <= 1, f"a tick made {syncs_per_tick} syncs")
+    per_tick = tick_launches(plane, ALONE_TICKS)
+    u = [a.u_next for a in acts]
+    log(f"  M {total:.4e} B (monitor), tensor {need:.4e} B; u before the "
+        f"pressure (ticks 1-{at}): "
+        + ", ".join(f"{x:.4e}" for x in u[:at]))
+    log(f"  u under pressure (ticks {at + 1}-{released}): "
+        + ", ".join(f"{x:.4e}" for x in u[at:released])
+        + f"; after the release: "
+        + ", ".join(f"{x:.4e}" for x in u[released:released + recovery]))
+    log(f"  ticks from the allocation to the first shrink {first_shrink}, "
+        f"to the first preemption {first_preempt}; {sum(evicted)} "
+        f"sequence(s) preempted by the plane, {st['preemptions']} "
+        f"preemption(s) in all; pool full {recovery} tick(s) after the "
+        f"release (re-grant {u[released] - u[released - 1]:.4e} B)")
+    log(f"  drained {len(fin)}/{w['requests']}, {st['steps']} steps "
+        f"({st['decode_steps']} with an active slot); decode kernel "
+        f"launches {launches} = steps x {cfg.n_layers}; {health.summary()}; "
+        f"card u_next == CPU replay bit for bit over {len(acts)} ticks")
+    log(f"  tick host ms median {statistics.median(tick_ms):.4f}, max "
+        f"{max(tick_ms):.4f}, {share:.4f} of the step ({n_steps} steps); "
+        f"syncs {syncs_per_step:.2f} per step (the first {WARM_STEPS}), "
+        f"{syncs_per_tick:.2f} per tick alone; {per_tick:.1f} kernels and "
+        f"copies per tick, on {smi}")
+    return launches, {
+        "total_memory": total, "tensor_bytes": need, "ticks": eng.steps,
+        "first_shrink_tick": first_shrink,
+        "first_preemption_tick": first_preempt,
+        "preempted_by_plane": sum(evicted), "recovery_ticks": recovery,
+        "regrant_bytes": u[released] - u[released - 1],
+        "tick_ms_median": statistics.median(tick_ms),
+        "tick_ms_max": max(tick_ms), "tick_share_of_step": share,
+        "syncs_per_step": syncs_per_step, "syncs_per_tick": syncs_per_tick,
+        "launches_per_tick": per_tick, "u_next": u[:released + recovery]}
+
+
 def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1170,6 +1349,15 @@ def main() -> None:
                                           "steps", "preemptions")}
     serving_h["forward_vs_decode_jax_init"] = rel_jax_init
     log(f"serving {HYMBA.name}: " + json.dumps(serving_h))
+
+    n_decode_p, pressure = phase14(smi)
+    log(f"main path: decode attention launched {n_decode_p} times (phase "
+        f"14)")
+    check(n_decode_p > 0, "the pressure path skipped decode attention")
+    decode["launches"] += n_decode_p
+    decode["launches_by_path"][f"{ARCH} under device-memory pressure "
+                               f"(phase 14)"] = n_decode_p
+    log(f"plane under pressure, {ARCH}: " + json.dumps(pressure))
     print(smi)
     print(json.dumps({"kernels": [kernel, decode, flash, scan]}))
     print(json.dumps({"ok": True, "device": {

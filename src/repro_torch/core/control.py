@@ -1,7 +1,10 @@
 """The DynIMS feedback control law (paper Eq. 1), PyTorch form.
 
-Counterpart of ``repro/core/control.py``.  :class:`ControllerParams`
-and the scalar :func:`control_step` are numpy-only copies;
+Counterpart of ``repro/core/control.py``.  :class:`Signal`,
+:class:`ControllerParams`, the scalar :func:`control_step` and the
+stability helpers (:func:`fixed_point_capacity`, :func:`is_stable`,
+:func:`simulate_saturated_loop`, :func:`settling_time`) are
+numpy-only copies;
 :func:`vectorized_step` steps ``N`` node controllers at once on torch
 tensors, in the reference's float32 operation order:
 
@@ -19,6 +22,7 @@ reciprocal) out of the arithmetic.
 from __future__ import annotations
 
 import dataclasses
+import enum
 from typing import Optional, Union
 
 import numpy as np
@@ -27,6 +31,31 @@ import torch
 GiB = float(2**30)
 
 Scalar = Union[float, np.ndarray, torch.Tensor]
+
+
+class Signal(enum.Enum):
+    """Which aggregate of the usage window drives Eq. 1.
+
+    Plain strings are accepted anywhere a :class:`Signal` is expected
+    via :meth:`coerce`.
+    """
+
+    LATEST = "latest"
+    EWMA = "ewma"
+    MAX = "max"
+
+    @classmethod
+    def coerce(cls, value: "Signal | str") -> "Signal":
+        if isinstance(value, Signal):
+            return value
+        try:
+            return cls(str(value).lower())
+        except ValueError:
+            raise ValueError("signal must be latest|ewma|max") from None
+
+    def pick(self, agg) -> float:
+        """Extract this signal's value from an ``AggregatedMetrics``."""
+        return float(getattr(agg, f"used_{self.value}"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,3 +216,63 @@ def vectorized_step(
                              u_next)
     return torch.minimum(torch.maximum(u_next, f32(u_min, dev)),
                          f32(u_max, dev))
+
+
+# ----------------------------------------------------------------------
+# Analysis helpers
+# ----------------------------------------------------------------------
+
+def fixed_point_capacity(params: ControllerParams,
+                         compute_demand: float) -> float:
+    """Equilibrium storage capacity under constant compute demand.
+
+    With a saturated store, v = d + u, so r = r0  <=>  u* = r0*M - d,
+    clamped to the admissible range.
+    """
+    u_star = params.r0 * params.total_memory - compute_demand
+    return float(np.clip(u_star, params.u_min, params.u_max))
+
+
+def closed_loop_eigenvalue(params: ControllerParams) -> float:
+    """f'(u*) of the saturated-store closed loop: 1 - lam."""
+    return 1.0 - params.lam
+
+
+def is_stable(params: ControllerParams) -> bool:
+    """Asymptotic stability of the saturated-store closed loop."""
+    return abs(closed_loop_eigenvalue(params)) < 1.0
+
+
+def simulate_saturated_loop(
+    params: ControllerParams,
+    compute_demand: np.ndarray,
+    u0: float,
+    occupancy: float = 1.0,
+) -> np.ndarray:
+    """Roll the scalar loop forward against a compute-demand trace.
+
+    The store is modelled as ``occupancy``-full.  Returns the capacity
+    trace ``u[t]`` with ``u[0] == u0``, one entry per demand sample.
+    """
+    demand = np.asarray(compute_demand, dtype=np.float64)
+    out = np.empty(demand.shape[0], dtype=np.float64)
+    u = float(u0)
+    v_prev: Optional[float] = None
+    for i, d in enumerate(demand):
+        out[i] = u
+        v = d + occupancy * u
+        u = control_step(u, v, params, v_prev=v_prev)
+        v_prev = v
+    return out
+
+
+def settling_time(
+    trace: np.ndarray, target: float, tol_frac: float = 0.02
+) -> Optional[int]:
+    """First index after which the trace stays within tol_frac of target."""
+    tol = max(abs(target) * tol_frac, 1e-9)
+    ok = np.abs(np.asarray(trace) - target) <= tol
+    for i in range(len(ok)):
+        if ok[i:].all():
+            return i
+    return None

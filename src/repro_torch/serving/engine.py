@@ -1,12 +1,16 @@
 """Continuous-batching serving engine over a DynIMS-managed KV pool.
 
-The port of ``repro/serving/engine.py`` without the live plane (its
-``plane``/``node``/``monitor`` arguments wait for ROADMAP A3): HBM is
-the contended resource and the KV cache its storage tenant, whose
-:class:`~repro_torch.core.store.KVBlockPool` the caller resizes with
-``set_capacity``.  A shrink preempts whole sequences, which the engine
-requeues with their progress kept (tokens generated so far become part
-of the prompt on re-admission).
+The port of ``repro/serving/engine.py``.  The paper's architecture in
+the serving path: device memory is the contended resource; the
+*compute tenant* is the model's weights and activations, the *storage
+tenant* the KV cache.  The :class:`~repro_torch.core.store.KVBlockPool`
+bookkeeps block grants; a :class:`~repro_torch.core.plane.MemoryPlane`
+(device monitor -> controller) resizes the pool each interval, and a
+shrink preempts whole sequences, which the engine requeues with their
+progress kept (tokens generated so far become part of the prompt on
+re-admission).  The engine declares its pool to the plane at
+construction and ticks it once per step, idle steps too; all
+bus/controller wiring stays inside the plane.
 
 Mechanics, as in JAX:
 
@@ -18,8 +22,8 @@ Mechanics, as in JAX:
   failure to claim -> self-preemption back to the queue,
 * prompt ingestion streams through the same decode step.
 
-Decoding is greedy.  The step runs eagerly (no ``torch.compile``); the
-argmax is the one host sync per step, as in JAX.
+Decoding is greedy.  The step runs eagerly (no ``torch.compile``).  The
+plane ticks after the argmax has come back to the host, as in JAX.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..core.monitor import DeviceMemoryMonitor, MemoryMonitor
+from ..core.plane import MemoryPlane, StoreSpec
 from ..core.store import KVBlockPool
 from ..device import DeviceLike, resolve_device
 from ..models import decode as D
@@ -76,12 +82,18 @@ class _Slot:
 class ServingEngine:
     """Serve ``model`` on ``device`` (the card unless asked otherwise).
 
-    The model must already lie on that device.
+    The model must already lie on that device.  With a ``plane`` the
+    pool is attached to it as node ``node``, observed by ``monitor``
+    (default: a :class:`DeviceMemoryMonitor` of the engine's device,
+    with the pool's bytes as the storage tenant's).
     """
 
     def __init__(self, model: Model, cfg: ServingConfig,
                  pool: Optional[KVBlockPool] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 plane: Optional[MemoryPlane] = None,
+                 node: str = "serve0",
+                 monitor: Optional[MemoryMonitor] = None):
         dev = resolve_device(device)
         on = model.device
         if dev.type != on.type or (dev.index is not None
@@ -94,6 +106,15 @@ class ServingEngine:
         n_blocks = cfg.max_batch * (cfg.max_len // cfg.block_tokens)
         self.pool = pool or KVBlockPool("kv-pool", n_blocks,
                                         self._block_bytes())
+        self.plane = plane
+        self.node = node
+        if plane is not None:
+            monitor = monitor or DeviceMemoryMonitor(
+                on, node=node, storage_used_fn=self.pool.used)
+            plane.attach(
+                node, monitor,
+                stores=(StoreSpec(self.pool, self.pool.total_blocks
+                                  * self.pool.block_bytes),))
         self.queue: List[Request] = []
         self.finished: Dict[int, Request] = {}
         self.slots = [_Slot() for _ in range(cfg.max_batch)]
@@ -129,14 +150,17 @@ class ServingEngine:
         self.steps += 1
         self._handle_preemptions()
         self._admit()
-        if all(s.free for s in self.slots):
-            return
-        tokens, feeding = self._next_tokens()
-        logits = D.decode_step(self.model, self.state,
-                               torch.from_numpy(tokens).to(self.device))
-        self.decode_steps += 1
-        self._finite &= torch.isfinite(logits).all()
-        self._consume(logits, feeding)
+        if not all(s.free for s in self.slots):
+            tokens, feeding = self._next_tokens()
+            logits = D.decode_step(self.model, self.state,
+                                   torch.from_numpy(tokens).to(self.device))
+            self.decode_steps += 1
+            self._finite &= torch.isfinite(logits).all()
+            self._consume(logits, feeding)
+        # Idle steps tick too: a fully preempted engine depends on the
+        # controller re-granting pool capacity to admit again.
+        if self.plane is not None:
+            self.plane.tick()
 
     # ---- internals -----------------------------------------------------------------
     def _handle_preemptions(self) -> None:

@@ -9,14 +9,22 @@ present (a CUDA kernel has no CPU mode).  On a machine with the card:
 Tolerances of the attention kernels are those of
 ``tests/test_kernels.py``: 2e-5 in float32, 3e-2 (decode) and 2e-2
 (flash) in bfloat16.  The sweep without the cache (state and p99
-histogram) and the scan are held bit for bit.
+histogram) and the scan are held bit for bit.  The live plane on the
+card: the device monitor's counters follow a tensor, a card plane's
+actions equal a CPU plane's bit for bit, a tick adds one sync (its
+readback), and it does not wait for work queued on the default stream.
 """
+
+import time
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import (ControllerParams, DeviceMemoryMonitor,
+                              MemoryPlane, NodeSpec, PlaneSpec,
+                              SimulatedMonitor, StoreRegistry)
 from repro_torch.core.traces import GiB, fleet_demand_traces
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
@@ -27,6 +35,7 @@ from repro_torch.lab.scenarios import get_scenario
 from repro_torch.lab.score import quantile_from_hist, stats_mismatches
 from repro_torch.lab.sweep import plan_specialization, run_sweep
 from repro_torch.lab.tune import grid_gains
+from repro_torch.launch.profile_serve import count_syncs
 from repro_torch.models import Model, decode as D
 
 pytestmark = pytest.mark.cuda
@@ -252,3 +261,87 @@ def test_hybrid_forward_launches_the_scan_once_per_layer(card):
                      for t in range(40)], dim=1)
     rel = float((fwd - dec).abs().max() / fwd.abs().max())
     assert bool(torch.isfinite(fwd).all()) and rel < 5e-3
+
+
+def test_device_monitor_follows_a_tensor(card):
+    mon = DeviceMemoryMonitor(card, node="n0")
+    assert mon.node == "n0" and mon.total == torch.cuda.mem_get_info()[1]
+    assert mon.total != mon.assumed_total
+    with count_syncs() as syncs:
+        before = mon.sample()
+    assert [(str(w.message), w.filename, w.lineno) for w in syncs] == []
+    n = 256 * 2**20
+    t = torch.empty(n, dtype=torch.uint8, device=card)
+    during = mon.sample()
+    del t
+    after = mon.sample()
+    assert during.used - before.used == n
+    assert after.used == before.used
+
+
+def _card_fleet(device, variant, n=256, t=30):
+    """tests/test_plane.py's heterogeneous fleet, on one device."""
+    rng = np.random.default_rng(42)
+    M = rng.uniform(64, 256, n) * GiB
+    u_max = rng.uniform(20, 60, n) * GiB
+    u_min = rng.uniform(0, 5, n) * GiB
+    u0 = rng.uniform(u_min, u_max)
+    base = ControllerParams(total_memory=125 * GiB)
+    if variant == "paper":
+        demand = rng.uniform(0.5, 1.05, (n, t)) * M[:, None]
+    else:
+        base = base.replace(feedforward=0.5, deadband=0.015, lam_grant=0.25)
+        offsets = np.array([-0.25, -0.10, -0.04, 0.02, 0.06, 0.12])
+        levels = rng.choice(offsets, size=(n, t // 5 + 1))
+        demand = (base.r0 + np.repeat(levels, 5, axis=1)[:, :t]) * M[:, None]
+    nodes = tuple(
+        NodeSpec(f"n{i}", monitor=SimulatedMonitor(f"n{i}", total=M[i],
+                                                   usage=demand[i]),
+                 registry=StoreRegistry(), u0=u0[i],
+                 params=base.replace(total_memory=M[i], u_min=u_min[i],
+                                     u_max=u_max[i]))
+        for i in range(n))
+    return MemoryPlane(PlaneSpec(params=base, nodes=nodes, device=device))
+
+
+@pytest.mark.parametrize("variant", ["paper", "extended"])
+def test_card_plane_equals_cpu_plane(card, variant):
+    on_card, on_cpu = _card_fleet(card, variant), _card_fleet("cpu", variant)
+    for _ in range(30):
+        a, b = on_card.tick(), on_cpu.tick()
+        assert [(x.node, x.u_prev, x.u_next) for x in a] == \
+            [(x.node, x.u_prev, x.u_next) for x in b]
+
+
+def _one_node_plane(card):
+    plane = MemoryPlane(PlaneSpec(
+        params=ControllerParams(total_memory=80 * GiB), device=card))
+    plane.attach("n0", DeviceMemoryMonitor(card, node="n0"),
+                 registry=StoreRegistry(), u0=GiB)
+    return plane
+
+
+def test_a_tick_adds_one_sync(card):
+    plane = _one_node_plane(card)
+    plane.tick()
+    torch.cuda.synchronize()
+    with count_syncs() as syncs:
+        for _ in range(5):
+            assert len(plane.tick()) == 1
+    assert len(syncs) == 5
+
+
+def test_a_tick_does_not_wait_for_the_default_stream(card):
+    plane = _one_node_plane(card)
+    plane.tick()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)           # ~1 s on the default stream
+    queued = torch.cuda.Event()
+    queued.record()
+    t0 = time.perf_counter()
+    plane.tick()
+    tick_s = time.perf_counter() - t0
+    busy = not queued.query()
+    torch.cuda.synchronize()
+    assert busy, "the default stream drained before the tick returned"
+    assert tick_s < 0.2

@@ -8,8 +8,9 @@
   package's, and the presets equal the JAX package's presets.
 * The config copies equal the JAX configs field by field.
 * Entry points run on CUDA unless asked for the CPU, and raise without
-  a card; a CUDA tensor never reaches the plain version, and a CPU
-  tensor never launches a kernel.
+  a card (the plane's array backend and the device monitor too); a
+  CUDA tensor never reaches the plain version, and a CPU tensor never
+  launches a kernel.
 * Each kernel library is built with its own flags and declarations;
   the sweep's flags, on which its bit parity rests, stay as they were.
 """
@@ -87,6 +88,38 @@ def test_presets_equal_the_jax_presets():
     assert td.PAPER_SCENARIOS == jd.PAPER_SCENARIOS
     assert dataclasses.asdict(td.PAPER_TABLE_I) == \
         dataclasses.asdict(jd.PAPER_TABLE_I)
+
+
+def test_tier_params_equal_the_jax_tier_params():
+    for kw in ({}, dict(hbm_bytes=80 * 2**30), dict(u_max_frac=0.5, lam=1.2)):
+        assert dataclasses.asdict(td.hbm_pool_params(**kw)) == \
+            dataclasses.asdict(jd.hbm_pool_params(**kw))
+    for kw in ({}, dict(u_max_frac=0.25, r0=0.9)):
+        assert dataclasses.asdict(td.host_cache_params(512 * 2**30, **kw)) \
+            == dataclasses.asdict(jd.host_cache_params(512 * 2**30, **kw))
+    assert td.tuned_scenarios() == jd.tuned_scenarios()
+
+
+def test_plane_and_monitor_raise_without_cuda(monkeypatch):
+    """No device means the card, for the plane's array backend and the
+    device monitor alike; the scalar backend is host float64 and needs
+    none.  On the CPU device the monitor reads as JAX's does there."""
+    import jax
+    from repro.core import DeviceMemoryMonitor as JaxMonitor
+    from repro_torch.core import (ArrayController, DeviceMemoryMonitor,
+                                  MemoryPlane, PlaneSpec)
+    cpu = DeviceMemoryMonitor("cpu", node="cpu:0").sample()
+    ref = JaxMonitor(jax.devices()[0]).sample()
+    assert (cpu.node, cpu.used, cpu.total) == (ref.node, ref.used, ref.total)
+    assert DeviceMemoryMonitor("cpu").node == ref.node
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = td.hbm_pool_params()
+    for call in (lambda: MemoryPlane(PlaneSpec(params=params)),
+                 lambda: ArrayController(params),
+                 DeviceMemoryMonitor):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    MemoryPlane(PlaneSpec(params=params, backend="scalar")).tick()
 
 
 def test_entry_points_raise_without_cuda_when_no_device_given(monkeypatch):

@@ -1,12 +1,15 @@
 """The port's serving engine against the JAX package's, on the CPU.
 
 The five engine tests of ``tests/test_serving.py`` run on the port, plus
-two more: the port's and JAX's engines give the same greedy tokens on
-the same prompts and parameters (float32 cache), and a slot left free
-while its position ticks past ``max_len`` breaks nothing (the cache
-write clamps to ``S - 1`` and the kernel length to ``S``, as JAX's
-clamped update and mask do).  The KV pool copy is held to the JAX pool
-on one sequence of grants, touches and shrinks.
+more: the port's and JAX's engines give the same greedy tokens on the
+same prompts and parameters (float32 cache), and a slot left free while
+its position ticks past ``max_len`` breaks nothing (the cache write
+clamps to ``S - 1`` and the kernel length to ``S``, as JAX's clamped
+update and mask do).  The KV pool copy is held to the JAX pool on one
+sequence of grants, touches and shrinks.  With a live plane on each
+(``tests/test_plane.py``'s idle-engine tick too), both engines under
+the same simulated memory pressure give the same tokens, preemptions,
+pool capacity after every step and plane actions.
 """
 
 import jax
@@ -14,12 +17,17 @@ import numpy as np
 import pytest
 import torch
 
+import repro.core as J
 from repro.configs import get_config as jax_config
+from repro.configs.dynims import hbm_pool_params as jax_hbm_pool_params
 from repro.core.store import KVBlockPool as JaxPool
 from repro.models import Model as JaxModel
 from repro.serving import ServingConfig as JaxServingConfig
 from repro.serving import ServingEngine as JaxEngine
+import repro_torch.core as T
+import repro_torch.serving.engine as E
 from repro_torch.configs import get_config
+from repro_torch.configs.dynims import hbm_pool_params
 from repro_torch.convert import model_params_from_numpy
 from repro_torch.core.store import KVBlockPool
 from repro_torch.launch import profile_serve, serve
@@ -225,6 +233,10 @@ def test_serve_cli_on_the_cpu(capsys):
     stats = report["engine"].stats()
     assert len(report["finished"]) == 5 and report["tokens"] == 30
     assert stats["preemptions"] >= 1 and stats["logits_finite"]
+    # no hand restore: the plane re-grants the pool on the next tick
+    assert report["after_shrink"][0] == report["full"]
+    health = report["engine"].plane.health()
+    assert health.ticks == stats["steps"] and health.healthy
     assert "tok/s" in capsys.readouterr().out
 
 
@@ -240,3 +252,91 @@ def test_profile_counts_each_kernel_once():
             Row("cudaLaunchKernel", 0.0)]
     kept = [r.key for r in rows if profile_serve.on_device(r)]
     assert kept == ["gemv_kernel", "Memcpy HtoD (Pageable -> Device)"]
+
+
+def test_idle_engine_still_ticks_plane():
+    """A fully idle (e.g. fully preempted) engine must keep ticking its
+    plane or a reclaimed pool can never be re-granted."""
+    class _Plane:
+        ticks = 0
+
+        def tick(self):
+            self.ticks += 1
+            return []
+
+    eng = E.ServingEngine.__new__(E.ServingEngine)
+    eng.steps = 0
+    eng.plane = _Plane()
+    eng.queue = []
+    eng.finished = {}
+    eng.slots = [E._Slot()]
+    eng.pool = type("P", (), {"drain_preempted": staticmethod(lambda: []),
+                              "num_free_blocks": staticmethod(lambda: 0)})()
+    eng.cfg = E.ServingConfig(max_batch=1)
+    eng.step()
+    assert eng.plane.ticks == 1
+
+
+def _engines_with_planes(models, backend):
+    """JAX's engine and the port's on the same model, pool and simulated
+    pressure: compute demand at 1.5 pools' worth of bytes out of M = 4
+    pools for 6 ticks, then 3.6 (past r0) for 20, then 1.0."""
+    jm, params, tm = models
+    kw = dict(max_batch=3, max_len=64, block_tokens=8, cache_dtype="float32")
+    cfg = tm.cfg
+    block = float(kw["block_tokens"] * 2 * cfg.n_kv_heads * cfg.head_dim
+                  * 2 * cfg.n_layers)
+    n_blocks = kw["max_batch"] * (kw["max_len"] // kw["block_tokens"])
+    pool_bytes = n_blocks * block
+    total = 4 * pool_bytes
+
+    def usage(i):
+        return (1.5 if i < 6 else 3.6 if i < 26 else 1.0) * pool_bytes
+
+    def build(core, params_fn, pool_cls, **spec_kw):
+        pool = pool_cls("kv-pool", n_blocks, block)
+        plane = core.MemoryPlane(core.PlaneSpec(
+            params=params_fn(total), backend=backend, **spec_kw))
+        mon = core.SimulatedMonitor("serve0", total=total, usage=usage,
+                                    storage_used_fn=pool.used)
+        return pool, plane, mon
+
+    pool, plane, mon = build(J, jax_hbm_pool_params, JaxPool)
+    jeng = JaxEngine(jm, params, JaxServingConfig(**kw), pool=pool,
+                     plane=plane, monitor=mon)
+    pool, plane, mon = build(T, hbm_pool_params, KVBlockPool, device="cpu")
+    teng = ServingEngine(tm, ServingConfig(**kw), pool=pool, device="cpu",
+                         plane=plane, monitor=mon)
+    return jeng, teng, pool_bytes
+
+
+@pytest.mark.parametrize("backend", ["array", "scalar"])
+def test_engine_with_plane_matches_the_jax_engine_with_plane(models,
+                                                            backend):
+    jeng, teng, pool_bytes = _engines_with_planes(models, backend)
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, models[2].cfg.vocab_size, n)
+               for n in (5, 11, 8, 14, 3, 9, 6, 12, 7)]
+    jr = [jeng.submit(p, 12) for p in prompts]
+    tr = [teng.submit(p, 12) for p in prompts]
+    keys = ("steps", "finished", "queued", "active", "pool_free_blocks",
+            "pool_capacity_bytes", "preemptions")
+    caps = []
+
+    def busy(e):
+        return e.queue or any(not s.free for s in e.slots)
+
+    while busy(jeng) or busy(teng):
+        jeng.step()
+        teng.step()
+        js, ts = jeng.stats(), teng.stats()
+        assert {k: js[k] for k in keys} == {k: ts[k] for k in keys}
+        caps.append(ts["pool_capacity_bytes"])
+        assert ts["steps"] < 2000, "did not drain"
+    assert min(caps) < pool_bytes and caps[-1] == pool_bytes
+    assert teng.stats()["preemptions"] >= 1
+    ja = [(a.u_prev, a.u_next, a.epoch) for a in jeng.plane.actions()]
+    ta = [(a.u_prev, a.u_next, a.epoch) for a in teng.plane.actions()]
+    assert len(ta) == teng.steps and ja == ta
+    _assert_same_tokens(models[2], [(jeng.finished[a], teng.finished[b])
+                                    for a, b in zip(jr, tr)])
