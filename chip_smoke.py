@@ -35,7 +35,19 @@ each, all at once) and drives the port's main paths on the card:
   the plane alone empties the pool, preempting, re-grants it once the
   tensor is freed, and its card actions equal a CPU replay of the
   recorded samples bit for bit; the tick's host time, syncs and
-  launches.
+  launches;
+* the ReplayLoop (phase 15): llama3.2-1b served through the burst under
+  a recording plane, the pool's gains re-tuned on the capture by the
+  sweep kernel on the card (non-blocking, supervised) to the CPU
+  round's decision, a second wave served under the plane's epoch; the
+  paper's testbed (``cluster_sim``, config 3) captured on the host and
+  replayed on the card within JAX's fidelity gates, then tuned at 4096
+  nodes; ``simulate_fleet`` at 4096 x 1000 against the CPU and JAX's
+  fleet gates.
+
+Decode attention at the engines' shapes (phases 9 and 13) is timed three
+ways, also in a fresh process that has built no plane (``chip_smoke.py
+--decode-times LENGTHS``, started by phase 9).
 
 Every phase prints a line; any failed check raises and the exit code is
 nonzero.  The last line is a JSON object naming the device; the one
@@ -71,6 +83,9 @@ from repro_torch.configs import DECODE_32K, get_config  # noqa: E402
 from repro_torch.configs.dynims import (LAB_TUNED,  # noqa: E402
                                         LAB_TUNED_OBJECTIVES,
                                         hbm_pool_params)
+from repro_torch.core.cluster_sim import (make_paper_config,  # noqa: E402
+                                          paper_controller_params, simulate,
+                                          simulate_fleet)
 from repro_torch.core.monitor import SimulatedMonitor  # noqa: E402
 from repro_torch.core.plane import (MemoryPlane, NodeSpec,  # noqa: E402
                                     PlaneSpec)
@@ -82,19 +97,23 @@ from repro_torch.kernels import flash_attention as kf  # noqa: E402
 from repro_torch.kernels import ssm_scan as kscan  # noqa: E402
 from repro_torch.kernels import sweep as ks  # noqa: E402
 from repro_torch.lab import fused_sweep as fs  # noqa: E402
-from repro_torch.lab.scenarios import get_scenario  # noqa: E402
-from repro_torch.lab.score import (quantile_from_codes,  # noqa: E402
-                                   quantile_from_hist, stats_mismatches)
-from repro_torch.lab.sweep import (DEFAULT_CHUNK,  # noqa: E402
+from repro_torch.lab.scenarios import (ScenarioSpec,  # noqa: E402
+                                       get_scenario)
+from repro_torch.lab.score import (FleetStats,  # noqa: E402
+                                   quantile_from_codes, quantile_from_hist,
+                                   stats_mismatches)
+from repro_torch.lab.sweep import (DEFAULT_CHUNK, GainSet,  # noqa: E402
                                    plan_specialization, run_sweep,
                                    sweep_demand)
-from repro_torch.lab.tune import grid_gains, tune_gains  # noqa: E402
+from repro_torch.lab.tune import (grid_gains, retune_online,  # noqa: E402
+                                  tune_gains)
 from repro_torch.launch.profile_serve import (count_syncs,  # noqa: E402
-                                              tick_launches, watch_ticks)
+                                              device_us, tick_launches,
+                                              watch_ticks)
 from repro_torch.launch.serve import (FULL_WIDTH,  # noqa: E402
                                       FULL_WIDTH_HYMBA, build_engine, serve)
-from repro_torch.launch.time_sweep import (device_ms,  # noqa: E402
-                                           time_fused_sweep)
+from repro_torch.launch.time_sweep import (_profiled,  # noqa: E402
+                                           device_ms, time_fused_sweep)
 from repro_torch.models import decode as D  # noqa: E402
 from repro_torch.models.transformer import layer_windows  # noqa: E402
 from repro_torch.serving import ServingConfig, ServingEngine  # noqa: E402
@@ -130,12 +149,23 @@ def check(ok: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def cuda_ms(fn, reps: int = 5, warm: int = 2, flush=None) -> float:
+# Cycles of the device-side spin queued before the start event when a
+# run is timed with ``lead``: ~1 ms at the H100's clock, longer than the
+# host takes to issue one kernel.
+LEAD_CYCLES = 2_000_000
+
+
+def cuda_ms(fn, reps: int = 5, warm: int = 2, flush=None,
+            lead: bool = False) -> float:
     """Median of ``reps`` warm runs, timed with CUDA events.
 
     ``flush``, a large tensor, is overwritten before each timed run so
     the run finds the 50 MB L2 cache cold, as a caller between other
-    work does.
+    work does.  Without ``lead`` the window between the events also
+    holds whatever part of the host's issue of ``fn`` the device waits
+    for; with it, a ~1 ms spin on the device ahead of the start event
+    lets the host issue ``fn`` first, so the window holds the device's
+    work alone.
     """
     for _ in range(warm):
         fn()
@@ -143,6 +173,8 @@ def cuda_ms(fn, reps: int = 5, warm: int = 2, flush=None) -> float:
     for _ in range(reps):
         if flush is not None:
             flush.fill_(1.0)
+        if lead:
+            torch.cuda._sleep(LEAD_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -759,9 +791,41 @@ def bound(n_bytes, n_ops, peak_ops):
                                  else "operations")
 
 
+def host_us(fn, reps: int = 20) -> float:
+    """Median host microseconds to issue one call of ``fn`` (no sync)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def decode_ways(run, flush, reps: int = 20):
+    """B3 timed three ways at one shape: one launch between two events
+    with the L2 flushed first (the earlier phases 9 and 13), the same
+    with a device-side lead (the events then hold the kernel alone), and
+    the profiler's device time over ``reps`` calls, with the launches
+    the profiler saw of them; and the host's time to issue a call."""
+    run()
+    _, rows = _profiled(run, reps)
+    seen = sum(e.count for e in rows if "decode" in e.key)
+    return dict(events_ms=cuda_ms(run, reps=7, flush=flush),
+                events_lead_ms=cuda_ms(run, reps=7, flush=flush, lead=True),
+                device_ms=sum(device_us(e) for e in rows) / 1e3 / reps,
+                profiler_launches_seen=seen, launches=reps,
+                host_us=host_us(run))
+
+
 def time_decode(tag, q, kc, vc, lens, flush, window=0):
     """B3 at one shape: kernel, plain, SDPA.  The bound counts the kept
-    keys' K and V read once, q read and the output written once."""
+    keys' K and V read once, q read and the output written once.  The
+    kernel's and SDPA's ``ms`` are event times with a device-side lead
+    (``cuda_ms(lead=True)``): a ~14 us kernel alone between two events
+    otherwise reads the host's issue time on a slow host."""
     b, h, hd = q.shape
     s, kv = kc.shape[1], kc.shape[2]
     hi = lens.clamp(min=0, max=s).long()
@@ -774,8 +838,9 @@ def time_decode(tag, q, kc, vc, lens, flush, window=0):
         q, kc, vc, lens, window=window)
     plain_run = lambda: kd.decode_attention_plain(  # noqa: E731
         q, kc, vc, lens, window=window)
-    ms = cuda_ms(run, reps=7, flush=flush)
-    plain = cuda_ms(plain_run, reps=3, warm=1, flush=flush)
+    ways = decode_ways(run, flush)
+    ms = ways["events_lead_ms"]
+    plain = cuda_ms(plain_run, reps=3, warm=1, flush=flush, lead=True)
     got = run()
     err = max_err(got, plain_run(), 3e-2 if q.dtype == BF16 else 2e-5,
                   f"decode {tag}")
@@ -788,16 +853,21 @@ def time_decode(tag, q, kc, vc, lens, flush, window=0):
     lib_out = sdpa(qs, kc, vc, attn_mask=mask)[:, 0]
     check(bool(torch.isfinite(lib_out).all()), f"{tag}: SDPA non-finite")
     lib = cuda_ms(lambda: sdpa(qs, kc, vc, attn_mask=mask), reps=5,
-                  flush=flush)
+                  flush=flush, lead=True)
     log(f"  decode {tag}: {splits} split(s), kernel {ms:.4f} ms, plain "
         f"{plain:.3f} ms, SDPA {lib:.4f} ms, bound {bound_ms:.4f} ms by {by} "
         f"({n_bytes / 1e9:.4f} GB; {n_bytes / ms / 1e6:.1f} GB/s achieved, "
         f"{bound_ms / ms:.1%} of bound); kernel vs plain max |diff| "
         f"{err:.2e}, bit-identical twice; SDPA vs kernel max |diff| "
         f"{float((lib_out.float() - got.float()).abs().max()):.2e}")
+    log(f"    the kernel three ways: one launch between two events "
+        f"{ways['events_ms']:.4f} ms, with the device-side lead "
+        f"{ms:.4f} ms, profiler device time {ways['device_ms']:.4f} ms "
+        f"({ways['profiler_launches_seen']} of {ways['launches']} launches "
+        f"seen); host issue {ways['host_us']:.1f} us a call")
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound_ms,
                 bound_by=by, shape=tag, max_abs_err=err, splits=splits,
-                gb_s=n_bytes / ms / 1e6)
+                gb_s=n_bytes / ms / 1e6, ways=ways)
 
 
 def kept_pairs(sq, skv, causal, window):
@@ -855,6 +925,44 @@ def time_flash(b, s, h, kv, hd, dtype, window, gen, flush):
                 tflop_s=n_ops / ms / 1e9)
 
 
+def engine_decode_shapes():
+    """(tag, heads, kv heads, head dim, window) of B3 at the engine's
+    shape for the two served models (phases 9 and 13)."""
+    llama = get_config(ARCH)
+    return [("llama", llama.n_heads, llama.n_kv_heads, llama.head_dim, 0),
+            ("hymba", HYMBA.n_heads, HYMBA.n_kv_heads, HYMBA.head_dim,
+             max(layer_windows(HYMBA)))]
+
+
+def fresh_decode_times(lens):
+    """B3 at both engine shapes with the served ``lens``, timed as
+    :func:`decode_ways` does, in a process that has built no plane and
+    served nothing (``chip_smoke.py --decode-times LENS``)."""
+    _build.load_library("decode_attention.cu")
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=CUDA)
+    gen = torch.Generator(device=CUDA).manual_seed(99)
+    b, s = FULL_WIDTH["max_batch"], FULL_WIDTH["max_len"]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=CUDA)
+    out = {}
+    for tag, h, kv, hd, window in engine_decode_shapes():
+        q = randn((b, h, hd), F32, gen)
+        kc, vc = randn((b, s, kv, hd), BF16, gen), randn((b, s, kv, hd),
+                                                          BF16, gen)
+        out[tag] = decode_ways(lambda: kd.decode_attention(
+            q, kc, vc, lengths, window=window), flush)
+    return out
+
+
+def run_fresh_decode_times(lens):
+    """:func:`fresh_decode_times` in a new process; waits for it."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--decode-times",
+         json.dumps(lens)], capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"the fresh decode-timing process failed:\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
 def phase9(state, scfg):
     log("phase 9: times on the card (CUDA events, median of warm runs, L2 "
         "flushed before each; peaks 989 TFLOP/s bf16 and 495 TF32 on the "
@@ -865,6 +973,17 @@ def phase9(state, scfg):
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     out = {}
     lens = (state.pos + 1).clamp(max=scfg.max_len).to(torch.int32)
+    out["lens"] = lens.tolist()
+    t0 = time.perf_counter()
+    out["fresh"] = fresh = run_fresh_decode_times(out["lens"])
+    for tag, w in fresh.items():
+        log(f"  decode at {tag}'s engine shape in a fresh process (no "
+            f"plane, nothing served; {time.perf_counter() - t0:.1f} s): one "
+            f"launch between two events {w['events_ms']:.4f} ms, with the "
+            f"device-side lead {w['events_lead_ms']:.4f} ms, profiler "
+            f"device time {w['device_ms']:.4f} ms "
+            f"({w['profiler_launches_seen']} of {w['launches']} launches "
+            f"seen); host issue {w['host_us']:.1f} us a call")
     q = randn((scfg.max_batch, h, hd), F32, gen)
     out["decode_engine"] = time_decode(
         f"engine B{scfg.max_batch} x S{scfg.max_len} x KV{kv} x hd{hd}, q "
@@ -1038,6 +1157,7 @@ def phase13(state, scfg):
         f"max_len {scfg.max_len}: local and global layers alike), lengths "
         f"{lens.tolist()}", q, state.k[0], state.v[0], lens, flush,
         window=window)
+    dec["lens"] = lens.tolist()
     del state
     decay, drive, h0 = scan_inputs(b, s, c, n, F32, gen)
     n_el = decay.numel()
@@ -1205,7 +1325,275 @@ def phase14(smi):
         "launches_per_tick": per_tick, "u_next": u[:released + recovery]}
 
 
+# ---- the ReplayLoop on the card: capture, replay, retune ---------------
+
+RETUNE_BUDGET, RETUNE_RESTARTS = 16, 2     # the serve CLI's defaults
+FLEET_TUNE_BUDGET = 512                    # halving at the fleet's size
+# The paper testbed's burst window: the run cut at this many intervals
+# (the default trace keeps the last 4096, after HPCC has finished).
+BURST_WINDOW = 4096
+
+
+def sweep_kernel_events(fn):
+    """``fn()`` with every sweep kernel launch timed by a pair of CUDA
+    events on the launching stream, each after a device-side lead (so
+    the pair holds the kernel alone): ``fn``'s result, the kernels' ms
+    summed, and the launches."""
+    pairs, inner = [], ks._launch
+
+    def timed(*args, **kw):
+        torch.cuda._sleep(LEAD_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = inner(*args, **kw)
+        b.record()
+        pairs.append((a, b))
+        return out
+
+    ks._launch = timed
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        ks._launch = inner
+    return out, sum(a.elapsed_time(b) for a, b in pairs), len(pairs)
+
+
+def same_round(card, cpu, n_samples, tag):
+    """Two retune rounds on one capture make one decision."""
+    same = all(np.array_equal(getattr(card.tune.sweep.gains, f),
+                              getattr(cpu.tune.sweep.gains, f))
+               for f in ("r0", "lam", "lam_grant", "deadband",
+                         "feedforward"))
+    check(same, f"{tag}: the halving survivors differ, card vs CPU")
+    check(card.params == cpu.params, f"{tag}: winners differ: "
+          f"{card.params} vs {cpu.params}")
+    check((card.swapped, card.epoch) == (cpu.swapped, cpu.epoch),
+          f"{tag}: swapped/epoch {card.swapped}/{card.epoch} vs "
+          f"{cpu.swapped}/{cpu.epoch}")
+    assert_same(f"{tag}: final lanes", card.tune.sweep.stats,
+                cpu.tune.sweep.stats, n_samples)
+
+
+def phase15a(smi):
+    """Serve FULL_WIDTH through the burst under a recording plane, retune
+    the pool's gains on the capture on the card (non-blocking, supervised)
+    and serve a second wave; the same round on the CPU from the same
+    capture.  Returns the sweep and decode kernels' launches and the
+    numbers."""
+    w = FULL_WIDTH
+    cfg = get_config(w["arch"])
+    log(f"phase 15a: serve {w['arch']} at full width with the burst under "
+        f"a plane recording 2048 intervals; retune_online(kv-pool-replay, "
+        f"budget {RETUNE_BUDGET}, restarts {RETUNE_RESTARTS}, "
+        f"block=False) on the card; a second wave of "
+        f"{w['requests'] // 2} prompts")
+    torch.cuda.empty_cache()
+    kd.LAUNCHES = ks.LAUNCHES = 0          # the retune path starts here
+    report = serve(**w, burst=True, retune=True,
+                   retune_budget=RETUNE_BUDGET,
+                   retune_restarts=RETUNE_RESTARTS)
+    n_sweep, n_decode = ks.LAUNCHES, kd.LAUNCHES
+    eng, res, w2 = report["engine"], report["retune"], report["wave2"]
+    st, first = eng.stats(), report["stats"]["steps"]
+    cap = res.capture
+    check(n_sweep > 0, "the retune round never launched the sweep kernel")
+    check(report["retune_attempts"] == 1 and not report["retune_restarts"],
+          f"the round restarted: {report['retune_attempts']} attempts")
+    check(cap.n_intervals == first, f"capture of {cap.n_intervals} "
+          f"intervals for {first} steps")
+    check(w2["requests"] == w["requests"] // 2 and w2["epoch"] ==
+          eng.plane.epoch, f"second wave: {w2}")
+    check(all(len(r.output) == w["max_new"] for r in eng.finished.values())
+          and len(eng.finished) == w["requests"] + w["requests"] // 2,
+          f"not drained: {st}")
+    check(n_decode == st["decode_steps"] * cfg.n_layers,
+          f"decode kernel launched {n_decode} times for "
+          f"{st['decode_steps']} steps x {cfg.n_layers} layers")
+    health = check_plane(eng)
+    acts = eng.plane.actions(node=eng.node)
+    epochs = [a.epoch for a in acts]
+    check(len(acts) == eng.steps, f"{len(acts)} actions for {eng.steps} "
+          f"ticks")
+    check(epochs[:first] == [0] * first and epochs[first:] ==
+          [eng.plane.epoch] * (eng.steps - first),
+          "an action of a wave is not stamped with the epoch it ran under")
+    cpu_plane = MemoryPlane(PlaneSpec(params=res.old_params,
+                                      backend="scalar"))
+    t0 = time.perf_counter()
+    cpu = retune_online(cpu_plane, capture=cap, name="kv-pool-replay",
+                        budget=RETUNE_BUDGET, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    same_round(res, cpu, cap.demand.size, "kv-pool-replay")
+    _, b1_ms, b1_n = sweep_kernel_events(lambda: tune_gains(
+        res.scenario, base_params=res.old_params, method="halving",
+        budget=RETUNE_BUDGET))
+    cache = res.scenario.cache
+    rounds = " -> ".join(f"{r['n_candidates']}@T={r['horizon']}"
+                         for r in res.tune.rounds)
+    log(f"  capture: {cap.n_intervals} intervals x {len(cap.nodes)} node, "
+        f"demand {cap.demand.min():.4e}-{cap.demand.max():.4e} B, grant "
+        f"{cap.grant.min():.4e}-{cap.grant.max():.4e} B, residency "
+        f"{cap.residency.min():.4e}-{cap.residency.max():.4e} B")
+    log(f"  CacheSpec fitted: {cache is not None}"
+        + (f" ({cache})" if cache is not None else "") + f"; rungs {rounds}")
+    log(f"  {res.summary()}; epoch {eng.plane.epoch}; the round "
+        f"{report['retune_seconds'] * 1e3:.1f} ms wall (host clock, card), "
+        f"{cpu_s * 1e3:.1f} ms on the CPU; same survivors, winner, swapped "
+        f"and epoch on both")
+    log(f"  sweep kernel: {n_sweep} launches in the round; one halving of "
+        f"the round's scenario again, each launch between two events: "
+        f"{b1_n} launches, {b1_ms:.4f} ms")
+    tok1 = report["tokens"] / report["seconds"]
+    tok2 = w2["tokens"] / w2["seconds"]
+    log(f"  wave 1: {len(report['finished'])} requests, {report['tokens']} "
+        f"tokens, {tok1:.1f} tok/s ({first} steps); wave 2 under epoch "
+        f"{w2['epoch']}: {w2['requests']} requests, {w2['tokens']} tokens, "
+        f"{tok2:.1f} tok/s; {health.summary()}; decode launches "
+        f"{n_decode} = steps x {cfg.n_layers}; on {smi}")
+    return n_sweep, n_decode, {
+        "round_ms": report["retune_seconds"] * 1e3, "cpu_round_ms":
+        cpu_s * 1e3, "sweep_launches": n_sweep, "sweep_ms": b1_ms,
+        "sweep_launches_timed": b1_n, "cache_fitted": cache is not None,
+        "cache": None if cache is None else dataclasses.asdict(cache),
+        "rounds": res.tune.rounds, "swapped": res.swapped,
+        "epoch": eng.plane.epoch, "deployed_score": res.tune.baseline_score,
+        "tuned_score": res.tune.score, "capture_intervals": cap.n_intervals,
+        "wave1_tok_s": tok1, "wave2_tok_s": tok2, "steps": eng.steps}
+
+
+def replay_capture(tag, cap, gated):
+    """``cap`` as a replay scenario through ``run_sweep`` at Table I, on
+    the card against the CPU, and against the capture's own p99 and mean
+    utilization (gated: JAX's fidelity gates, 0.02 and 0.01)."""
+    spec = ScenarioSpec.from_capture(cap, name="paper-testbed")
+    gains = GainSet.from_params(paper_controller_params())
+    card = run_sweep(spec, gains)
+    cpu = run_sweep(spec, gains, device="cpu")
+    assert_same(f"replay of the {tag}", card.stats, cpu.stats,
+                cap.demand.size)
+    p99, mean = float(card.stats.p99_utilization[0]), \
+        float(card.stats.mean_utilization[0])
+    d_p99 = abs(p99 - cap.utilization_p99())
+    d_mean = abs(mean - float(cap.utilization.mean()))
+    log(f"  {tag} ({cap.n_intervals} intervals x {len(cap.nodes)} nodes, "
+        f"CacheSpec fitted: {spec.cache is not None}): replay p99 "
+        f"{p99:.6f} vs captured {cap.utilization_p99():.6f} (|diff| "
+        f"{d_p99:.2e}), mean {mean:.6f} vs {cap.utilization.mean():.6f} "
+        f"(|diff| {d_mean:.2e})" + ("" if gated else "; not gated"))
+    if gated:
+        check(d_p99 <= 0.02 and d_mean <= 0.01, f"{tag}: the replay misses "
+              f"the capture (p99 {d_p99:.3e} > 0.02 or mean {d_mean:.3e} > "
+              f"0.01)")
+    return dict(p99_replay=p99, p99_captured=cap.utilization_p99(),
+                mean_replay=mean, mean_captured=float(cap.utilization.mean()),
+                cache_fitted=spec.cache is not None)
+
+
+def tune_fleet(tag, cap):
+    """``cap`` tiled to the lab fleet's 4096 nodes, halving over
+    FLEET_TUNE_BUDGET candidates on the card: wall time, and the sweep
+    kernel's launches and time in a second call, each launch between two
+    events."""
+    spec = ScenarioSpec.from_capture(cap, name="paper-testbed-4096",
+                                     n_nodes=N_NODES)
+
+    def tune():
+        return tune_gains(spec, method="halving", budget=FLEET_TUNE_BUDGET)
+
+    before = ks.LAUNCHES
+    t0 = time.perf_counter()
+    r = tune()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ks.LAUNCHES - before
+    _, b1_ms, b1_n = sweep_kernel_events(tune)
+    rounds = " -> ".join(f"{x['n_candidates']}@T={x['horizon']}"
+                         for x in r.rounds)
+    log(f"  {tag} tiled to {N_NODES} nodes, halving over "
+        f"{FLEET_TUNE_BUDGET} candidates ({rounds}; CacheSpec fitted: "
+        f"{spec.cache is not None}): {wall:.3f} s wall (host clock, from "
+        f"the scenario), sweep kernel {b1_n} launches, {b1_ms:.4f} ms; "
+        f"winner "
+        f"r0={r.params.r0:.4f} lam={r.params.lam:.4f} lam_grant="
+        f"{r.params.lam_grant} score {r.score:.6f} (Table I "
+        f"{r.baseline_score:.6f})")
+    return dict(wall_s=wall, sweep_launches=launches, sweep_ms=b1_ms,
+                rounds=r.rounds, cache_fitted=spec.cache is not None,
+                score=r.score, baseline_score=r.baseline_score)
+
+
+def phase15b():
+    """The paper's testbed (config 3, Table I) simulated on the host with
+    its plane recording; its capture replayed and tuned on the card.
+    Returns the sweep kernel's launches (the replays and each capture's
+    first tuning call) and the numbers."""
+    log(f"phase 15b: simulate(make_paper_config(3, record_trace=True)) on "
+        f"the host (5 nodes of 125 GiB, Table I), its capture replayed "
+        f"through run_sweep on the card, then tuned at {N_NODES} nodes; "
+        f"also the burst window (the run cut at {BURST_WINDOW} intervals)")
+    t0 = time.perf_counter()
+    sim = simulate(make_paper_config(3, record_trace=True))
+    window = simulate(make_paper_config(3, record_trace=True,
+                                        max_sim_s=BURST_WINDOW * 0.1))
+    sim_s = time.perf_counter() - t0
+    log(f"  simulated in {sim_s:.1f} s (host): app runtime "
+        f"{sim.app_runtime_s:.1f} s over {len(sim.t_s)} intervals, hit "
+        f"ratio {sim.hit_ratio:.4f}; the trace keeps the last "
+        f"{sim.trace.n_intervals}")
+    ks.LAUNCHES = 0                        # the testbed path starts here
+    out = {"simulate_s": sim_s,
+           "replay": replay_capture("testbed capture", sim.trace, True),
+           "replay_burst_window": replay_capture("burst window",
+                                                 window.trace, False)}
+    launches = ks.LAUNCHES
+    check(launches > 0, "the replay never launched the sweep kernel")
+    out["tune_4096"] = tune_fleet("testbed capture", sim.trace)
+    out["tune_4096_burst_window"] = tune_fleet("burst window", window.trace)
+    launches += sum(out[k]["sweep_launches"]
+                    for k in ("tune_4096", "tune_4096_burst_window"))
+    return launches, out
+
+
+def phase15c():
+    """``simulate_fleet(4096, 1000, seed=1)``, lab engine, on the card
+    against the port's CPU run and JAX's fleet gates."""
+    log(f"phase 15c: simulate_fleet({N_NODES}, {N_STEPS}, seed=1), lab "
+        f"engine, card against the CPU")
+    ks.LAUNCHES = 0                        # the fleet path starts here
+    t0 = time.perf_counter()
+    card = simulate_fleet(N_NODES, N_STEPS, seed=1)
+    wall = time.perf_counter() - t0
+    launches = ks.LAUNCHES
+    cpu = simulate_fleet(N_NODES, N_STEPS, seed=1, device="cpu")
+
+    def stats(d):
+        return FleetStats(*(np.array([d[f]]) for f in FleetStats._fields))
+    assert_same("simulate_fleet", stats(card), stats(cpu), N_NODES * N_STEPS)
+    check(card["p99_utilization"] <= 1.0
+          and card["frac_intervals_over_r0"] < 0.08
+          and card["mean_utilization"] < 0.95, f"fleet gates: {card}")
+    _, b1_ms, b1_n = sweep_kernel_events(
+        lambda: simulate_fleet(N_NODES, N_STEPS, seed=1))
+    log(f"  {launches} launch(es), {wall * 1e3:.1f} ms wall (host clock); "
+        f"again with each launch between two events: {b1_n} launch(es), "
+        f"{b1_ms:.4f} ms of sweep kernel; p99 "
+        f"{card['p99_utilization']:.6f} <= 1.0, over r0 "
+        f"{card['frac_intervals_over_r0']:.6f} < 0.08, mean "
+        f"{card['mean_utilization']:.6f} < 0.95")
+    check(launches > 0, "simulate_fleet never launched the sweep kernel")
+    return launches, {"wall_ms": wall * 1e3, "sweep_ms": b1_ms,
+                      "sweep_launches_timed": b1_n,
+                      **{k: card[k] for k in ("p99_utilization",
+                                              "frac_intervals_over_r0",
+                                              "mean_utilization")}}
+
+
 def main() -> None:
+    if sys.argv[1:2] == ["--decode-times"]:
+        print(json.dumps(fresh_decode_times(json.loads(sys.argv[2]))))
+        return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -1282,7 +1670,9 @@ def main() -> None:
                            dec32["max_abs_err"]),
         "max_abs_err_f32": max(errs["decode"]["f32"], dec["max_abs_err"]),
         **{k: dec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                               "library_ms", "shape", "splits", "gb_s")},
+                               "library_ms", "shape", "splits", "gb_s",
+                               "ways")},
+        "ways_fresh_process": t["fresh"]["llama"],
         "decode_32k": dec32,
     }
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -1319,6 +1709,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     dec_h, sc = phase13(state, scfg)
     del state
+    dec_h["ways_fresh_process"] = t["fresh"]["hymba"]
+    log(f"  phase 13's lengths {dec_h['lens']} "
+        f"{'equal' if dec_h['lens'] == t['lens'] else 'differ from'} the "
+        f"fresh process's (phase 9's) {t['lens']}")
     decode["hymba_engine"] = dec_h
     for name, d in (("decode", decode), ("flash", flash)):
         d["max_abs_err"] = max(d["max_abs_err"], *hymba_errs[name].values())
@@ -1358,8 +1752,36 @@ def main() -> None:
     decode["launches_by_path"][f"{ARCH} under device-memory pressure "
                                f"(phase 14)"] = n_decode_p
     log(f"plane under pressure, {ARCH}: " + json.dumps(pressure))
+
+    seconds = [time.perf_counter()]
+    n_retune, n_decode_r, retune = phase15a(smi)
+    log(f"main path: sweep kernel launched {n_retune} times (phase 15a's "
+        f"round), decode attention {n_decode_r} times (phase 15a)")
+    seconds.append(time.perf_counter())
+    n_testbed, testbed = phase15b()
+    seconds.append(time.perf_counter())
+    n_fleet, fleet = phase15c()
+    seconds.append(time.perf_counter())
+    log(f"main path: sweep kernel launched {n_testbed} times (phase 15b's "
+        f"replays and 4096-node tunings), {n_fleet} (phase 15c)")
+    log("phase 15 seconds (host clock): " + ", ".join(
+        f"15{p} {b - a:.1f}" for p, a, b in zip("abc", seconds, seconds[1:])))
+    kernel["launches_by_path"] = {
+        "run_sweep, sweep_demand, tune_gains (phases 2-4)":
+        kernel["launches"], "serving retune round (phase 15a)": n_retune,
+        "paper testbed replays and 4096-node tunings (phase 15b)":
+        n_testbed,
+        "simulate_fleet (phase 15c)": n_fleet}
+    kernel["launches"] = sum(kernel["launches_by_path"].values())
+    kernel["retune"] = {"serving": retune, "testbed": testbed,
+                        "fleet": fleet}
+    decode["launches"] += n_decode_r
+    decode["launches_by_path"][f"{ARCH} serving with the retune (phase "
+                               f"15a)"] = n_decode_r
+    log("retune on the card: " + json.dumps(kernel["retune"], default=str))
     print(smi)
-    print(json.dumps({"kernels": [kernel, decode, flash, scan]}))
+    print(json.dumps({"kernels": [kernel, decode, flash, scan]},
+                     default=float))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

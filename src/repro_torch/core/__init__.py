@@ -12,6 +12,9 @@ The counterpart of ``repro/core``, module for module:
 * :mod:`.eviction`   -- LFU/LRU/FIFO/adaptive eviction policies
 * :mod:`.store`      -- managed stores: ShardCache, KVBlockPool
 * :mod:`.traces`     -- HPCC/HPL workload models (paper Figs 1-2)
+* :mod:`.cluster_sim`-- discrete-event reproduction of Sec. IV (the
+  paper's 5-node testbed over a scalar-backend plane), and
+  :func:`simulate_fleet` at fleet scale
 
 The plane's two backends: the scalar reference controller
 (:class:`DynIMSController`, host float64) and the batched
@@ -20,6 +23,10 @@ the plane's device, the card by default).
 """
 
 from .bus import MessageBus
+from .cluster_sim import (SimConfig, SimResult, make_cache_parity_config,
+                          make_paper_config, paper_controller_params,
+                          run_paper_experiment, simulate, simulate_app_graph,
+                          simulate_fleet)
 from .control import (ControllerParams, GiB, Signal, closed_loop_eigenvalue,
                       control_step, fixed_point_capacity, is_stable,
                       settling_time, simulate_saturated_loop,
@@ -50,9 +57,13 @@ __all__ = [
     "ManagedStore", "MemoryPlane", "MemorySample", "MessageBus",
     "MetricAggregator", "MonitorFault", "NodeHealth", "NodeHealthInfo",
     "NodeSpec", "PlaneSpec", "RAW_TOPIC",
-    "ShardCache", "Signal", "SimulatedMonitor", "StoreRegistry",
+    "ShardCache", "Signal", "SimConfig", "SimResult", "SimulatedMonitor",
+    "StoreRegistry",
     "StoreSpec", "StoreStats", "closed_loop_eigenvalue",
     "control_step", "fixed_point_capacity",
-    "is_stable", "make_fused_step", "make_policy", "settling_time",
-    "simulate_saturated_loop", "validate_sample", "vectorized_step",
+    "is_stable", "make_cache_parity_config", "make_fused_step",
+    "make_paper_config", "make_policy", "paper_controller_params",
+    "run_paper_experiment", "settling_time", "simulate",
+    "simulate_app_graph", "simulate_fleet", "simulate_saturated_loop",
+    "validate_sample", "vectorized_step",
 ]

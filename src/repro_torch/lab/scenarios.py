@@ -1,11 +1,9 @@
 """Declarative closed-loop scenarios for the ScenarioLab sweep engine.
 
-A numpy-only copy of ``repro/lab/scenarios.py`` (the registry and
-:meth:`ScenarioSpec.build_demand` / :meth:`~ScenarioSpec.build_node_memory`),
-so that the port imports nothing of the JAX package.  It leaves out the
+A numpy-only copy of ``repro/lab/scenarios.py``, so that the port
+imports nothing of the JAX package.  It leaves out the
 ``runtime-churn`` registration, whose demand comes from the runtime's
-fault machinery, and the capture fitting (``from_capture``), which only
-the online re-tuner reads; both wait for a later slice.
+fault machinery (ROADMAP A1).
 
 A :class:`ScenarioSpec` names everything the sweep engine needs to
 compile a fleet's compute-tenant demand into a dense ``(N, T)`` array:
@@ -21,9 +19,15 @@ pressure, heterogeneous fleets, swap storms, phase-shifted replay).
 ``register_scenario`` admits new ones; ``get_scenario`` accepts either
 a name or a spec everywhere the lab takes a scenario.
 
-The ``"replay"`` family carries captured demand (a :class:`ReplayTrace`)
-for exact replay through the sweep engine, interpolated to any horizon
-and tiled to any fleet size.
+**ReplayLoop**: the ``"replay"`` family closes the loop with live
+deployments.  :meth:`ScenarioSpec.from_capture` turns a
+:class:`~repro_torch.core.plane.CapturedTrace` (what a running ``MemoryPlane``
+observed) into a scenario that carries the raw demand for *exact*
+replay through the sweep engine -- interpolated to any horizon,
+padded/tiled to any fleet size using the capture's fitted
+amplitude/phase/heterogeneity statistics -- plus a fitted
+:class:`CacheSpec` whenever cache residency was observed.  Every
+captured workload is thereby a new sweepable scenario.
 """
 
 from __future__ import annotations
@@ -210,7 +214,8 @@ class ScenarioSpec:
                        ``n_nodes`` (slow-node indices must exist).
       replay:          the captured demand a ``"replay"`` scenario
                        carries (required for that family, forbidden
-                       elsewhere).  The first
+                       elsewhere).  Build with
+                       :meth:`ScenarioSpec.from_capture`; the first
                        ``min(n_nodes, capture)`` nodes replay the raw
                        trace exactly (time-interpolated when the
                        horizon differs), extra nodes are tiled clones
@@ -245,8 +250,9 @@ class ScenarioSpec:
             raise ValueError(f"family must be one of {TRACE_FAMILIES}")
         if (self.family == "replay") != (self.replay is not None):
             raise ValueError(
-                "family='replay' requires a ReplayTrace payload and "
-                "other families must not carry one")
+                "family='replay' requires a ReplayTrace payload (build "
+                "one with ScenarioSpec.from_capture) and other families "
+                "must not carry one")
         if self.n_nodes < 1 or self.n_intervals < 1:
             raise ValueError("need n_nodes >= 1 and n_intervals >= 1")
         if not (0.0 <= self.memory_jitter < 1.0):
@@ -270,6 +276,110 @@ class ScenarioSpec:
     @property
     def duration_s(self) -> float:
         return self.n_intervals * self.interval_s
+
+    # -- capture -> scenario -------------------------------------------------
+    @classmethod
+    def from_capture(cls, capture, *, name: str = "captured",
+                     n_nodes: Optional[int] = None,
+                     n_intervals: Optional[int] = None,
+                     fit_cache: Optional[bool] = None,
+                     **overrides) -> "ScenarioSpec":
+        """Fit a live :class:`~repro_torch.core.plane.CapturedTrace` into a
+        replayable scenario.
+
+        The returned spec carries the raw captured demand
+        (:class:`ReplayTrace`) for exact replay through the sweep
+        engine, plus fitted summary statistics -- ``amp_range`` from
+        the per-node mean-demand spread, ``phase_shift`` from how
+        decorrelated nodes were from the fleet-mean trace,
+        ``memory_jitter`` from the per-node total-memory spread -- that
+        parameterize any clone nodes a larger ``n_nodes`` asks for.
+        When the capture observed cache-like residency (the managed
+        stores held bytes *and* visibly lagged the grant -- residency
+        that tracks the grant exactly is the saturated-store model), a
+        :class:`CacheSpec` is fitted from the residency dynamics:
+        ``working_set_frac`` from the
+        residency ceiling, ``warm_frac`` from the initial
+        residency/grant ratio, ``refill_gibps`` from the admission
+        flux (p90 of positive residency increments).  Access rate,
+        skew and policy are not observable from capacity telemetry
+        alone, so they keep the :class:`CacheSpec` defaults -- pass
+        ``cache=`` in ``overrides`` to pin them, or ``fit_cache=False``
+        to replay the saturated-store model.
+
+        ``capture`` is duck-typed: anything exposing ``demand``,
+        ``total_memory``, ``interval_s`` and optionally ``residency`` /
+        ``grant`` arrays works (``CapturedTrace`` does).
+        """
+        demand = np.asarray(capture.demand, np.float64)
+        if demand.ndim != 2 or demand.size == 0:
+            raise ValueError("capture.demand must be a non-empty (N, T) "
+                             "array")
+        m = np.broadcast_to(np.asarray(capture.total_memory, np.float64),
+                            (demand.shape[0],))
+        trace = ReplayTrace(demand, m, interval_s=float(capture.interval_s))
+
+        node_mean = demand.mean(axis=1)
+        fleet_mean = float(node_mean.mean())
+        if fleet_mean > 0:
+            rel = node_mean / fleet_mean
+            amp_range = (float(np.clip(rel.min(), 0.05, 1.0)),
+                         float(max(rel.max(), 1.0)))
+        else:
+            amp_range = (1.0, 1.0)
+        # Clones should be phase-shifted iff the captured nodes were
+        # visibly desynchronized from the fleet-mean shape.
+        phase_shift = True
+        if demand.shape[0] > 1 and demand.shape[1] > 2:
+            fleet_trace = demand.mean(axis=0)
+            if fleet_trace.std() > 0:
+                corr = [np.corrcoef(row, fleet_trace)[0, 1]
+                        for row in demand if row.std() > 0]
+                phase_shift = bool(corr and float(np.median(corr)) < 0.9)
+        m_mean = float(m.mean())
+        memory_jitter = float(np.clip(
+            (m.max() - m.min()) / (2.0 * m_mean), 0.0, 0.5))
+
+        cache = None
+        residency = np.asarray(getattr(capture, "residency", np.zeros(())),
+                               np.float64)
+        grant = np.asarray(getattr(capture, "grant", residency), np.float64)
+        observed = residency.size > 0 and float(residency.max()) > 0.0
+        if fit_cache is None:
+            # Auto-fit only when the residency behaved like a *cache*:
+            # visibly below the grant somewhere (cold fill, slow
+            # refill, eviction lag).  Residency that tracks the grant
+            # exactly IS the saturated-store model -- fitting a cache
+            # to it would re-simulate warmup that never happened.
+            # Samples are observed *before* the interval's decision
+            # while ``grant`` is the post-decision capacity, so
+            # residency is compared against the grant in force during
+            # the interval (the previous tick's decision).
+            in_force = np.concatenate([grant[:, :1], grant[:, :-1]], axis=1) \
+                if grant.ndim == 2 and grant.shape[1] else grant
+            gap = (in_force - residency) / np.maximum(in_force, 1.0)
+            fit_cache = observed and bool((gap > 0.02).mean() > 0.05)
+        if fit_cache:
+            if not observed:
+                raise ValueError("fit_cache=True but the capture holds no "
+                                 "nonzero cache residency")
+            cache = _fit_cache_spec(residency, m, grant,
+                                    float(capture.interval_s))
+
+        kw = dict(
+            name=name, family="replay",
+            n_nodes=n_nodes or trace.n_nodes,
+            n_intervals=n_intervals or trace.n_intervals,
+            interval_s=trace.interval_s,
+            node_memory_gib=m_mean / GiB,
+            base_gib=fleet_mean / GiB,
+            amp_range=amp_range, phase_shift=phase_shift,
+            memory_jitter=memory_jitter, cache=cache, replay=trace,
+            description=(f"replay of {trace.n_intervals} intervals x "
+                         f"{trace.n_nodes} nodes captured from a live "
+                         "MemoryPlane"))
+        kw.update(overrides)
+        return cls(**kw)
 
     # -- compilation ---------------------------------------------------------
     def build_demand(self, seed: int = 0) -> np.ndarray:
@@ -380,6 +490,30 @@ class ScenarioSpec:
         for i in np.flatnonzero(failed):
             mask[i, starts[i]:starts[i] + flen] = 0.05    # kernel remnant
         return mask
+
+
+def _fit_cache_spec(residency: np.ndarray, node_memory: np.ndarray,
+                    grant: np.ndarray, interval_s: float) -> CacheSpec:
+    """Fit CacheLoop knobs from observed residency/grant telemetry.
+
+    Only capacity-visible quantities are fitted; access rate, reuse
+    skew and policy are unobservable from byte counts alone and keep
+    the :class:`CacheSpec` defaults.
+    """
+    residency = np.atleast_2d(residency)
+    grant = np.atleast_2d(grant)
+    ceiling = residency.max(axis=1)                      # (N,) bytes
+    ws_frac = float(np.clip((ceiling / node_memory).mean(), 0.01, 1e6))
+    g0 = np.maximum(grant[:, 0], 1.0)
+    warm_frac = float(np.clip((residency[:, 0] / g0).mean(), 0.0, 1.0))
+    flux = np.diff(residency, axis=1) / interval_s       # bytes / s
+    inflow = flux[flux > 0]
+    refill = (float(np.quantile(inflow, 0.9)) / GiB if inflow.size
+              else CacheSpec.refill_gibps)
+    refill = max(refill, 0.01)
+    return CacheSpec(working_set_frac=ws_frac, warm_frac=warm_frac,
+                     refill_gibps=refill,
+                     access_gibps=max(2.0 * refill, CacheSpec.access_gibps))
 
 
 # ---------------------------------------------------------------------------

@@ -14,21 +14,40 @@ and materialize the argmax as a
   without leaving the device.  The final ranking is recomputed on the
   host from the final lanes' stats.
 
+* :func:`tune_portfolio` -- multi-scenario tuning: one gain set scored
+  across a scenario list, aggregated worst-case (default) or mean.
+
 The baseline gains are always scored on the full horizon beside the
 candidates, so a tuned result never scores below them on the tuning
-scenario.  Portfolio tuning and online re-tuning are not ported yet.
+scenario.
+
+**ReplayLoop** closes the loop on live deployments:
+:func:`retune_online` snapshots a running ``MemoryPlane``'s
+:class:`~repro_torch.core.plane.TraceRecorder`, fits the capture into a
+``"replay"`` scenario (:meth:`ScenarioSpec.from_capture`), runs
+:func:`halving_tune` on it in a background thread -- on a CUDA stream of
+its own, so its readbacks never wait for work a serving engine queued on
+the default stream -- and, when the winner beats the currently deployed
+gains on the replayed workload, atomically hot-swaps the tuned
+:class:`ControllerParams` into the still-running plane at an interval
+boundary.  The plane's action history is epoch-stamped, so the swap is
+auditable: no interval is dropped or duplicated.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
+import torch
 
 from ..configs.dynims import PAPER_TABLE_I
 from ..core.control import ControllerParams
-from ..device import DeviceLike
+from ..device import DeviceLike, resolve_device
 from .fused_sweep import halving_sweep
 from .scenarios import ScenarioSpec, get_scenario
 from .score import (FleetStats, default_score, makespan_score,
@@ -268,3 +287,271 @@ def halving_tune(
         rounds=hs.rounds,
         objective=objective,
     )
+
+
+@dataclasses.dataclass
+class PortfolioResult:
+    """Outcome of one multi-scenario (portfolio) tuning run."""
+
+    params: ControllerParams          # best aggregate gains, deployable
+    score: float                      # aggregated over the portfolio
+    baseline_params: ControllerParams
+    baseline_score: float
+    index: int
+    aggregate: str                    # "worst" | "mean"
+    scenario_scores: Dict[str, float]      # winner's per-scenario scores
+    sweeps: Dict[str, SweepResult]         # full per-scenario results
+
+    @property
+    def improvement(self) -> float:
+        return self.score - self.baseline_score
+
+
+def tune_portfolio(
+    scenarios: Sequence[Union[str, ScenarioSpec]],
+    *,
+    base_params: Optional[ControllerParams] = None,
+    gains: Optional[GainSet] = None,
+    method: str = "grid",
+    budget: int = 64,
+    aggregate: str = "worst",
+    seed: int = 0,
+    objective: Union[None, str, Objective] = None,
+    chunk: Optional[int] = None,
+    device: DeviceLike = None,
+) -> PortfolioResult:
+    """One gain set scored across a scenario portfolio.
+
+    Sweeps the same candidates over every scenario and aggregates the
+    (S, G) score matrix per gain point -- ``"worst"`` (min over
+    scenarios: robust gains that degrade gracefully everywhere) or
+    ``"mean"``.  ``objective`` accepts the named objectives too
+    (``"runtime"`` portfolio-tunes modeled app runtime across CacheLoop
+    scenarios).  The baseline rides along, so the winner's aggregate
+    never falls below the paper defaults across the portfolio.
+    """
+    objective = resolve_objective(objective or default_score)
+    if not scenarios:
+        raise ValueError("need at least one scenario")
+    if aggregate not in ("worst", "mean"):
+        raise ValueError("aggregate must be worst|mean")
+    base = base_params or PAPER_TABLE_I
+    if gains is None:
+        gains = _default_candidates(method, budget, base, seed)
+    candidates = gains.concat(GainSet.from_params(base))
+    sweeps: Dict[str, SweepResult] = {}
+    matrix = []
+    for sc in scenarios:
+        spec = get_scenario(sc)
+        result = run_sweep(spec, candidates, seed=seed, chunk=chunk,
+                           objective=objective, device=device)
+        sweeps[spec.name] = result
+        matrix.append(result.scores(objective))
+    matrix = np.stack(matrix)                       # (S, G)
+    agg = matrix.min(axis=0) if aggregate == "worst" else matrix.mean(axis=0)
+    best = int(np.argmax(agg))
+    return PortfolioResult(
+        params=candidates.params_at(best, base),
+        score=float(agg[best]),
+        baseline_params=base,
+        baseline_score=float(agg[-1]),              # base appended last
+        index=best,
+        aggregate=aggregate,
+        scenario_scores={name: float(matrix[i, best])
+                         for i, name in enumerate(sweeps)},
+        sweeps=sweeps,
+    )
+
+
+# ---------------------------------------------------------------------------
+# ReplayLoop: capture -> replay -> re-tune -> hot-swap
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class RetuneResult:
+    """Outcome of one online re-tuning round."""
+
+    scenario: ScenarioSpec            # the fitted replay scenario
+    tune: TuneResult                  # full tuning outcome on the replay
+    old_params: ControllerParams      # what the plane was running
+    params: ControllerParams          # the replay winner (== tune.params)
+    swapped: bool                     # did the plane adopt the winner?
+    epoch: Optional[int]              # parameter epoch after the swap
+    capture: object                   # the CapturedTrace that was tuned on
+
+    @property
+    def improvement(self) -> float:
+        """Winner's score minus the deployed gains' score on the replay."""
+        return self.tune.improvement
+
+    def summary(self) -> str:
+        verdict = (f"hot-swapped at epoch {self.epoch}" if self.swapped
+                   else "kept deployed gains (no improvement on replay)")
+        return (f"retune[{self.scenario.name}]: deployed "
+                f"{self.tune.baseline_score:.3f} -> tuned "
+                f"{self.tune.score:.3f} (+{self.improvement:.3f}); "
+                f"{verdict}")
+
+
+class RetuneHandle:
+    """Join handle on a supervised background :func:`retune_online` round.
+
+    Besides joining for the result, it exposes the supervisor's live
+    counters: ``attempts`` (rounds started, including the first) and
+    ``restarts`` (rounds restarted after a crashed attempt).
+    """
+
+    def __init__(self, thread: threading.Thread, box: dict,
+                 stats: Optional[dict] = None,
+                 stats_lock: Optional[threading.Lock] = None):
+        # The box is written only by the supervisor thread and read
+        # only after join() -- synchronized by the join, not by a lock.
+        self._thread = thread
+        self._box = box          # guarded-by: join(_thread)
+        self._stats_lock = stats_lock or threading.Lock()
+        self._stats = stats if stats is not None else {
+            "attempts": 1, "restarts": 0}   # guarded-by: _stats_lock
+
+    @property
+    def done(self) -> bool:
+        return not self._thread.is_alive()
+
+    @property
+    def attempts(self) -> int:
+        """Rounds started so far (>= 1 once the thread runs)."""
+        with self._stats_lock:
+            return self._stats["attempts"]
+
+    @property
+    def restarts(self) -> int:
+        """Rounds restarted after a crashed attempt."""
+        with self._stats_lock:
+            return self._stats["restarts"]
+
+    def result(self, timeout: Optional[float] = None) -> RetuneResult:
+        """Wait for the round and return its result (re-raising errors)."""
+        self._thread.join(timeout)
+        if self._thread.is_alive():
+            raise TimeoutError("retune round still running")
+        if "error" in self._box:
+            raise self._box["error"]
+        return self._box["result"]
+
+
+def retune_online(
+    plane,
+    *,
+    capture=None,
+    name: str = "captured",
+    method: str = "halving",
+    budget: int = 32,
+    objective: Union[None, str, Objective] = None,
+    n_intervals: Optional[int] = None,
+    n_nodes: Optional[int] = None,
+    fit_cache: Optional[bool] = None,
+    min_improvement: float = 0.0,
+    swap: bool = True,
+    block: bool = True,
+    seed: int = 0,
+    chunk: Optional[int] = None,
+    restarts: int = 0,
+    restart_backoff_s: float = 0.05,
+    device: DeviceLike = None,
+    **scenario_overrides,
+) -> Union[RetuneResult, "RetuneHandle"]:
+    """Re-tune a running ``MemoryPlane`` on its own captured workload.
+
+    The ReplayLoop in one call: snapshot the plane's recorded telemetry
+    (``plane.capture()``, or pass an explicit ``capture``), fit it into
+    a ``"replay"`` scenario, search gains on it with the sweep on
+    ``device`` (the card by default; ``method``/``budget``/``objective``
+    as in :func:`tune_gains`, successive halving by default), and -- if
+    the winner improves on the *currently deployed* parameters by more
+    than ``min_improvement`` -- hot-swap it into the plane via
+    ``plane.swap_params`` (atomic, interval-boundary, epoch-stamped).
+
+    The deployed parameters are the tuning baseline, so the returned
+    ``tune.score`` never falls below what the plane is already running
+    on the replayed workload, and a no-improvement round swaps nothing.
+
+    Tuning runs on a daemon thread; the plane keeps ticking while the
+    search sweeps.  On a card the round's device work runs on a CUDA
+    stream of its own: every thread shares the device's default stream,
+    and the sweep's readbacks would otherwise wait for the steps a
+    serving engine keeps queueing there.  ``block=True`` (default) joins
+    and returns the :class:`RetuneResult`; ``block=False`` returns a
+    :class:`RetuneHandle` immediately (``handle.result()`` joins).
+    Extra keywords pass through to :meth:`ScenarioSpec.from_capture`
+    (e.g. ``cache=`` to pin a hand-fitted :class:`CacheSpec`).
+
+    **Supervision** (``restarts > 0``): a crashed round -- capture,
+    sweep, or swap raising -- is restarted up to ``restarts`` times with
+    exponential backoff (``restart_backoff_s * 2**attempt``, capped at
+    5 s).  Each retry re-captures (when ``capture`` was not pinned) and
+    re-reads the deployed params, so a restart tunes on fresh
+    telemetry.  The supervisor runs entirely on its own thread and
+    never holds the plane's tick lock across a round -- a wedged sweep
+    cannot stall control.  Restarts are visible as ``handle.restarts``
+    and, when the plane has a fault log, as ``retune-restart`` /
+    ``retune-dead`` events.
+    """
+    if restarts < 0:
+        raise ValueError("restarts must be >= 0")
+    dev = resolve_device(device)
+    if capture is None and restarts == 0:
+        # Unsupervised: capture eagerly so an empty recorder raises in
+        # the caller, not the round thread.
+        capture = plane.capture()
+    box: dict = {}
+    stats = {"attempts": 0, "restarts": 0}      # guarded-by: stats_lock
+    stats_lock = threading.Lock()
+
+    def _attempt() -> RetuneResult:
+        cap = capture if capture is not None else plane.capture()
+        deployed = plane.params
+        spec = ScenarioSpec.from_capture(
+            cap, name=name, n_intervals=n_intervals, n_nodes=n_nodes,
+            fit_cache=fit_cache, **scenario_overrides)
+        tune = tune_gains(spec, base_params=deployed, method=method,
+                          budget=budget, seed=seed, objective=objective,
+                          chunk=chunk, device=dev)
+        swapped, epoch = False, None
+        if swap and tune.improvement > min_improvement:
+            epoch = plane.swap_params(tune.params)
+            swapped = True
+        return RetuneResult(
+            scenario=spec, tune=tune, old_params=deployed,
+            params=tune.params, swapped=swapped, epoch=epoch, capture=cap)
+
+    def _supervised() -> None:
+        log_fault = getattr(plane, "log_fault", None)
+        on_stream = (torch.cuda.stream(torch.cuda.Stream(dev))
+                     if dev.type == "cuda" else contextlib.nullcontext())
+        with on_stream:
+            for attempt in range(restarts + 1):
+                with stats_lock:
+                    stats["attempts"] += 1
+                try:
+                    box["result"] = _attempt()
+                    box.pop("error", None)       # earlier attempts' crash
+                    return
+                except BaseException as exc:     # surfaced via result()
+                    box["error"] = exc
+                    if attempt >= restarts:
+                        if log_fault is not None and restarts > 0:
+                            log_fault("retune-dead",
+                                      detail=f"{type(exc).__name__}: {exc}")
+                        return
+                    with stats_lock:
+                        stats["restarts"] += 1
+                    if log_fault is not None:
+                        log_fault("retune-restart",
+                                  detail=f"attempt {attempt + 1} died: "
+                                         f"{type(exc).__name__}: {exc}")
+                    time.sleep(min(restart_backoff_s * (2 ** attempt), 5.0))
+
+    thread = threading.Thread(target=_supervised, daemon=True,
+                              name="retune-online")
+    thread.start()
+    handle = RetuneHandle(thread, box, stats, stats_lock)
+    return handle.result() if block else handle

@@ -34,8 +34,9 @@ from repro_torch.lab import fused_sweep as fs
 from repro_torch.lab.scenarios import get_scenario
 from repro_torch.lab.score import quantile_from_hist, stats_mismatches
 from repro_torch.lab.sweep import plan_specialization, run_sweep
-from repro_torch.lab.tune import grid_gains
+from repro_torch.lab.tune import grid_gains, retune_online
 from repro_torch.launch.profile_serve import count_syncs
+from repro_torch.launch.serve import build_engine, prompts
 from repro_torch.models import Model, decode as D
 
 pytestmark = pytest.mark.cuda
@@ -345,3 +346,81 @@ def test_a_tick_does_not_wait_for_the_default_stream(card):
     torch.cuda.synchronize()
     assert busy, "the default stream drained before the tick returned"
     assert tick_s < 0.2
+
+
+def _recorded_capture(device, n=5, t=120):
+    """A saturated-store plane over swap-storm demand, ticked ``t``
+    times while recording (tests/test_replay.py's plane)."""
+    spec = get_scenario("swap-storm").replace(n_nodes=n, n_intervals=t)
+    demand = spec.build_demand(seed=0)
+    params = ControllerParams(total_memory=125 * GiB)
+    plane = MemoryPlane(PlaneSpec(params=params, record=t, device=device))
+    for i in range(n):
+        name = f"node{i}"
+        plane.attach(name, SimulatedMonitor(
+            name, total=125 * GiB,
+            usage=lambda k, row=demand[i]: float(row[k % t]),
+            storage_used_fn=lambda nm=name: plane.capacity(nm)),
+            registry=StoreRegistry(), u0=params.u_max)
+    for _ in range(t):
+        plane.tick()
+    return plane
+
+
+def test_retune_on_the_card_makes_the_cpu_decision(card):
+    plane = _recorded_capture(card)
+    cap = plane.capture()
+    before = ks.LAUNCHES
+    got = retune_online(plane, capture=cap, budget=24, swap=False,
+                        device=card)
+    assert ks.LAUNCHES > before
+    ref = retune_online(plane, capture=cap, budget=24, swap=False,
+                        device="cpu")
+    for f in ("r0", "lam", "lam_grant", "deadband", "feedforward"):
+        np.testing.assert_array_equal(getattr(got.tune.sweep.gains, f),
+                                      getattr(ref.tune.sweep.gains, f))
+    assert got.params == ref.params and got.tune.index == ref.tune.index
+    assert not stats_mismatches(got.tune.sweep.stats, ref.tune.sweep.stats,
+                                n_samples=cap.demand.size)
+
+
+def test_a_retune_round_does_not_wait_for_the_default_stream(card):
+    plane = _recorded_capture(card)
+    cap = plane.capture()
+    retune_online(plane, capture=cap, budget=8, swap=False, device=card)
+    torch.cuda.synchronize()                   # built and warm
+    torch.cuda._sleep(2_000_000_000)           # ~1 s on the default stream
+    queued = torch.cuda.Event()
+    queued.record()
+    t0 = time.perf_counter()
+    retune_online(plane, capture=cap, budget=8, swap=False, device=card)
+    round_s = time.perf_counter() - t0
+    busy = not queued.query()
+    torch.cuda.synchronize()
+    assert busy, "the default stream drained before the round returned"
+    assert round_s < 0.5
+
+
+def test_a_nonblocking_round_while_the_engine_steps(card):
+    eng = build_engine("llama3.2-1b-smoke", record=2048, device=card)
+    eng.run_until_drained()
+    first = eng.steps
+    before = ks.LAUNCHES
+    handle = retune_online(eng.plane, name="kv-pool-replay", budget=16,
+                           restarts=2, block=False, device=card)
+    for p in prompts(eng.model.cfg.vocab_size, 16, 0, 18)[12:]:
+        eng.submit(p, max_new_tokens=16)
+    while not handle.done:
+        eng.step()
+    result = handle.result()
+    eng.run_until_drained()
+    assert ks.LAUNCHES > before
+    assert result.capture.n_intervals >= first
+    assert result.epoch == (1 if result.swapped else None)
+    health = eng.plane.health()
+    assert health.ticks == eng.steps and health.healthy
+    acts = eng.plane.actions()
+    assert len(acts) == eng.steps
+    epochs = [a.epoch for a in acts]
+    assert epochs == sorted(epochs) and epochs[-1] == eng.plane.epoch
+    assert len(eng.finished) == 18

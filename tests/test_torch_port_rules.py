@@ -90,6 +90,24 @@ def test_presets_equal_the_jax_presets():
         dataclasses.asdict(jd.PAPER_TABLE_I)
 
 
+def test_simulator_configs_equal_the_jax_configs():
+    """The cluster simulator's defaults, the paper's four configurations,
+    the cache-parity oracle and Table I, field for field."""
+    from repro.core import cluster_sim as jcs
+    from repro_torch.core import cluster_sim as tcs
+    pairs = [(jcs.SimConfig(name="x"), tcs.SimConfig(name="x")),
+             (jcs.make_cache_parity_config(), tcs.make_cache_parity_config()),
+             (jcs.paper_controller_params(), tcs.paper_controller_params()),
+             (jcs.paper_controller_params(lam=1.2),
+              tcs.paper_controller_params(lam=1.2))]
+    pairs += [(jcs.make_paper_config(c), tcs.make_paper_config(c))
+              for c in (1, 2, 3, 4)]
+    for ref, got in pairs:
+        assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+    with pytest.raises(ValueError, match="1..4"):
+        tcs.make_paper_config(5)
+
+
 def test_tier_params_equal_the_jax_tier_params():
     for kw in ({}, dict(hbm_bytes=80 * 2**30), dict(u_max_frac=0.5, lam=1.2)):
         assert dataclasses.asdict(td.hbm_pool_params(**kw)) == \
@@ -123,11 +141,18 @@ def test_plane_and_monitor_raise_without_cuda(monkeypatch):
 
 
 def test_entry_points_raise_without_cuda_when_no_device_given(monkeypatch):
+    from repro_torch.core import MemoryPlane, PlaneSpec, cluster_sim
+    plane = MemoryPlane(PlaneSpec(params=td.PAPER_TABLE_I, backend="scalar",
+                                  record=4))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     spec = tsc.get_scenario("swap-storm").replace(n_nodes=4, n_intervals=8)
     g = ttu.grid_gains(lam=(0.5,), r0=(0.95,))
     demand = spec.build_demand()
     calls = [
+        lambda: ttu.tune_portfolio([spec], budget=4),
+        lambda: ttu.retune_online(plane, capture=object(), block=False),
+        lambda: cluster_sim.simulate_fleet(4, 8),
+        lambda: cluster_sim.simulate_fleet(4, 8, engine="python"),
         lambda: tsw.sweep_demand(demand, g, node_memory=125 * 2**30),
         lambda: tsw.run_sweep(spec, g),
         lambda: ttu.tune_gains(spec, budget=4),

@@ -12,6 +12,8 @@ the same simulated memory pressure give the same tokens, preemptions,
 pool capacity after every step and plane actions.
 """
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -340,3 +342,66 @@ def test_engine_with_plane_matches_the_jax_engine_with_plane(models,
     assert len(ta) == teng.steps and ja == ta
     _assert_same_tokens(models[2], [(jeng.finished[a], teng.finished[b])
                                     for a, b in zip(jr, tr)])
+
+
+def test_serve_retune_cli_makes_the_jax_clis_decision(monkeypatch, capsys):
+    """``serve --burst --retune`` at llama3.2-1b-smoke, seed 0: the port's
+    CLI on the CPU records the capture JAX's CLI records (bit for bit),
+    re-tunes on it with the same halving rungs to the same decision
+    (deployed -16.598, kept, epoch 0; scores to rtol 1e-5, both rank in
+    float32), prints JAX's retune lines, and serves the second wave."""
+    import repro.lab.tune as jtune
+    from repro.launch import serve as jserve
+
+    seen = {}
+    real = jtune.retune_online
+
+    def spy(plane, **kw):
+        handle = real(plane, **kw)
+        seen.update(plane=plane, handle=handle)
+        return handle
+
+    monkeypatch.setattr(jtune, "retune_online", spy)
+    monkeypatch.setattr("sys.argv", ["serve", "--arch", ARCH, "--burst",
+                                     "--retune"])
+    jserve.main()
+    jax_out = capsys.readouterr().out
+    ref = seen["handle"].result()
+    report = serve.main(["--arch", ARCH, "--device", "cpu", "--burst",
+                         "--retune"])
+    out = capsys.readouterr().out
+    got = report["retune"]
+    jc, tc = ref.capture, got.capture
+    assert tc.nodes == jc.nodes and tc.interval_s == jc.interval_s
+    assert tc.n_intervals == report["stats"]["steps"] == 93
+    for f in ("demand", "utilization", "grant", "residency",
+              "total_memory"):
+        np.testing.assert_array_equal(getattr(tc, f), getattr(jc, f),
+                                      err_msg=f)
+    assert [r["horizon"] for r in got.tune.rounds] == \
+        [r["horizon"] for r in ref.tune.rounds]
+    assert (got.swapped, got.epoch) == (ref.swapped, ref.epoch) == \
+        (False, None)
+    assert got.old_params == hbm_pool_params()
+    assert dataclasses.asdict(got.params) == dataclasses.asdict(ref.params)
+    assert np.isclose(got.tune.score, ref.tune.score, rtol=1e-5)
+    assert np.isclose(got.tune.baseline_score, ref.tune.baseline_score,
+                      rtol=1e-5)
+    assert (report["retune_attempts"], report["retune_restarts"]) == \
+        (seen["handle"].attempts, seen["handle"].restarts) == (1, 0)
+    assert report["wave2"]["epoch"] == seen["plane"].epoch == 0
+    assert report["wave2"]["requests"] == 6
+    health = report["engine"].plane.health()
+    assert health.ticks == report["engine"].steps and health.healthy
+
+    def retune_lines(text):
+        lines = text.splitlines()
+        i = lines.index("-- ReplayLoop: re-tuning pool gains on the "
+                        "captured KV workload --")
+        return lines[i:i + 3] + lines[-1:]
+
+    assert retune_lines(out) == retune_lines(jax_out)
+    assert "deployed -16.598 -> tuned -16.598 (+0.000); kept deployed " \
+        "gains" in out
+    assert out.splitlines()[-1] == \
+        "   second wave under epoch 0: served 18 requests"

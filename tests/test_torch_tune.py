@@ -3,7 +3,8 @@
 Two reduced scenarios, one of them CacheLoop, under both registry
 objectives: ``tune_gains`` must return the same argmax index and the
 same ``ControllerParams`` as the JAX package (XLA engine), with scores
-inside rtol 1e-5 (both rank in float32).
+inside rtol 1e-5 (both rank in float32).  ``tune_portfolio`` over both
+scenarios, worst-case and mean, does the same for the aggregate.
 """
 
 import dataclasses
@@ -17,7 +18,8 @@ from repro.lab.tune import _default_candidates as j_candidates
 from repro_torch.configs.dynims import PAPER_TABLE_I
 from repro_torch.convert import gainset_from_numpy, params_from_dict
 from repro_torch.lab import scenarios as tsc
-from repro_torch.lab.tune import _default_candidates, tune_gains
+from repro_torch.lab.tune import (_default_candidates, tune_gains,
+                                  tune_portfolio)
 
 
 def _port(g):
@@ -68,3 +70,30 @@ def test_random_method_runs_exactly_budget_plus_baseline():
     assert r.score >= r.baseline_score
     with pytest.raises(ValueError, match="method"):
         tune_gains(spec, method="anneal", device="cpu")
+
+
+@pytest.mark.parametrize("aggregate,objective", [("worst", "default"),
+                                                 ("mean", "runtime")])
+def test_tune_portfolio_picks_the_jax_winner(aggregate, objective):
+    names = ("swap-storm", "spark-iterative-cache")
+    jspecs = [jlab.get_scenario(n).replace(n_nodes=12, n_intervals=150)
+              for n in names]
+    tspecs = [tsc.get_scenario(n).replace(n_nodes=12, n_intervals=150)
+              for n in names]
+    g = _gains()
+    ref = jlab.tune_portfolio(jspecs, gains=g, aggregate=aggregate,
+                              objective=objective, seed=2, engine="xla")
+    got = tune_portfolio(tspecs, gains=_port(g), aggregate=aggregate,
+                         objective=objective, seed=2, device="cpu")
+    assert got.index == ref.index and got.aggregate == aggregate
+    assert got.params == params_from_dict(dataclasses.asdict(ref.params))
+    assert np.isclose(got.score, ref.score, rtol=1e-5)
+    assert np.isclose(got.baseline_score, ref.baseline_score, rtol=1e-5)
+    assert got.scenario_scores.keys() == ref.scenario_scores.keys()
+    for name, score in ref.scenario_scores.items():
+        assert np.isclose(got.scenario_scores[name], score, rtol=1e-5)
+    assert got.score >= got.baseline_score
+    with pytest.raises(ValueError, match="aggregate"):
+        tune_portfolio(tspecs, aggregate="median", device="cpu")
+    with pytest.raises(ValueError, match="scenario"):
+        tune_portfolio([], device="cpu")
