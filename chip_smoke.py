@@ -43,7 +43,16 @@ each, all at once) and drives the port's main paths on the card:
   paper's testbed (``cluster_sim``, config 3) captured on the host and
   replayed on the card within JAX's fidelity gates, then tuned at 4096
   nodes; ``simulate_fleet`` at 4096 x 1000 against the CPU and JAX's
-  fleet gates.
+  fleet gates;
+* AppGraph (phase 16): the sweep kernel's graph instance (the stage
+  DAG's queue/barrier carry) against its plain version, one block a
+  lane (limplock, spark-dag at their sizes) and several with a barrier
+  between them (both at 4096 nodes x 64 lanes); ``BENCH_appgraph.json``'s
+  gates (spark-dag's >= 2x makespan gap, limplock's ~4x) with the card's
+  makespans equal to the CPU's; ``halving_tune(spark-dag, makespan)``
+  making the CPU's decision; ``runtime-churn`` card against CPU; and
+  the graph instance's times beside the graph-free instance on the same
+  demand.
 
 Decode attention at the engines' shapes (phases 9 and 13) is timed three
 ways, also in a fresh process that has built no plane (``chip_smoke.py
@@ -59,8 +68,8 @@ package.  Without a card it exits nonzero before printing a result.
 """
 
 import concurrent.futures
-import ctypes
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -81,7 +90,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 from repro_torch.configs import DECODE_32K, get_config  # noqa: E402
 from repro_torch.configs.dynims import (LAB_TUNED,  # noqa: E402
-                                        LAB_TUNED_OBJECTIVES,
+                                        LAB_TUNED_OBJECTIVES, PAPER_TABLE_I,
                                         hbm_pool_params)
 from repro_torch.core.cluster_sim import (make_paper_config,  # noqa: E402
                                           paper_controller_params, simulate,
@@ -97,6 +106,7 @@ from repro_torch.kernels import flash_attention as kf  # noqa: E402
 from repro_torch.kernels import ssm_scan as kscan  # noqa: E402
 from repro_torch.kernels import sweep as ks  # noqa: E402
 from repro_torch.lab import fused_sweep as fs  # noqa: E402
+from repro_torch.lab import tune as tune_mod  # noqa: E402
 from repro_torch.lab.scenarios import (ScenarioSpec,  # noqa: E402
                                        get_scenario)
 from repro_torch.lab.score import (FleetStats,  # noqa: E402
@@ -105,8 +115,8 @@ from repro_torch.lab.score import (FleetStats,  # noqa: E402
 from repro_torch.lab.sweep import (DEFAULT_CHUNK, GainSet,  # noqa: E402
                                    plan_specialization, run_sweep,
                                    sweep_demand)
-from repro_torch.lab.tune import (grid_gains, retune_online,  # noqa: E402
-                                  tune_gains)
+from repro_torch.lab.tune import (grid_gains, halving_tune,  # noqa: E402
+                                  retune_online, tune_gains)
 from repro_torch.launch.profile_serve import (count_syncs,  # noqa: E402
                                               device_us, tick_launches,
                                               watch_ticks)
@@ -135,12 +145,25 @@ PEAK_F64_S = 34e12                       # float64 outside the tensor cores
 # float64 log2/exp2 as one, and all at the float32 rate, so the bound
 # stays a lower bound.
 OPS_PER_UPDATE = {"cache-off": 33, "cache-on": 86}
+# The AppGraph carry's operations per update on top of those, counted the
+# same way from csrc/sweep.cu's graph_segment: the held demand's add, the
+# fused pressure curve and dt_eff (cache-off only: 10), the drain, its
+# Kahan sum, the progress code, the finish and promotion tests.  The
+# lane's reductions are not counted, so the bound stays a lower bound.
+GRAPH_OPS_PER_UPDATE = {"cache-off": 36, "cache-on": 26}
 # The two float64 transcendentals of the cache-on count; phase 5 also
 # states a bound with their SASS instructions at the float64 rate.
 F64_CALLS_PER_UPDATE = 2
 
 
+# (phase, host clock at its first line), for the run's seconds by phase
+PHASE_STARTS = []
+
+
 def log(msg: str) -> None:
+    m = re.match(r"phase (\d+[a-z]?)(:| \()", msg)
+    if m and not (PHASE_STARTS and PHASE_STARTS[-1][0] == m.group(1)):
+        PHASE_STARTS.append((m.group(1), time.perf_counter()))
     print(msg, flush=True)
 
 
@@ -377,24 +400,20 @@ def phase4():
 def sweep_resources(lib):
     """Registers, static shared memory and resident blocks per SM of
     every template instance of the sweep kernel, from the runtime."""
-    fn = lib.dynims_sweep_resources
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     rows = {}
-    for law, occ, cache in ((1, 1, 0), (1, 0, 0), (0, 1, 0), (0, 0, 0),
-                            (1, 1, 1), (0, 1, 1)):
-        for bf16 in (0, 1):
-            out = (ctypes.c_int * 3)()
-            rc = fn(law, occ, cache, bf16, ctypes.addressof(out))
-            check(rc == 0, f"cudaFuncGetAttributes failed: {rc}")
-            tag = (f"{'paper' if law else 'generic'} "
-                   f"{'unit-occ' if occ else 'occ'} "
-                   f"{'cache-on' if cache else 'cache-off'} "
-                   f"{'bf16' if bf16 else 'f32'}")
-            rows[tag] = dict(registers=out[0], smem_bytes=out[1],
-                             blocks_per_sm=out[2], warps_per_sm=out[2] * 4)
-            log(f"    {tag}: {out[0]} registers, {out[1]} B shared, "
-                f"{out[2]} blocks ({out[2] * 4} warps) per SM")
+    for (law, occ, cache), bf16, graph in itertools.product(
+            ((1, 1, 0), (1, 0, 0), (0, 1, 0), (0, 0, 0), (1, 1, 1),
+             (0, 1, 1)), (0, 1), (0, 1)):
+        out = ks.instance_resources(law, occ, cache, bf16, graph, lib=lib)
+        tag = (f"{'paper' if law else 'generic'} "
+               f"{'unit-occ' if occ else 'occ'} "
+               f"{'cache-on' if cache else 'cache-off'} "
+               f"{'bf16' if bf16 else 'f32'}"
+               f"{' graph' if graph else ''}")
+        rows[tag] = dict(registers=out[0], smem_bytes=out[1],
+                         blocks_per_sm=out[2], warps_per_sm=out[2] * 4)
+        log(f"    {tag}: {out[0]} registers, {out[1]} B shared, "
+            f"{out[2]} blocks ({out[2] * 4} warps) per SM")
     return rows
 
 
@@ -410,7 +429,7 @@ def sass_f64_ops(lib_path):
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib_path)], check=True,
                           capture_output=True, text=True).stdout
-    want = "sweep_kernelILb1ELb1ELb1ELb0EE"
+    want = "sweep_kernelILb1ELb1ELb1ELb0ELb0EE"
     body = next(f for f in sass.split("Function : ")[1:]
                 if want in f.split("\n", 1)[0])
     ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
@@ -1589,6 +1608,308 @@ def phase15c():
                                               "frac_intervals_over_r0",
                                               "mean_utilization")}}
 
+# ---- AppGraph: the queue/barrier carry in the sweep kernel -------------
+
+GRAPH_M = 125 * GiB                        # the registry's node memory
+GRAPH_TUNE_BUDGET = 64
+
+
+def spark_dag_fleet(n_nodes):
+    """spark-dag at ``n_nodes``, each stage's task count scaled by
+    n_nodes / 16 so that a node keeps the registry's ~288 GiB of work
+    (a task count of 0, one task a node, stays 0)."""
+    spec = get_scenario("spark-dag")
+    scale = n_nodes // spec.n_nodes
+    stages = tuple(dataclasses.replace(st, tasks=st.tasks * scale)
+                   for st in spec.app_graph.stages)
+    return spec.replace(n_nodes=n_nodes,
+                        app_graph=spec.app_graph.replace(stages=stages))
+
+
+def graph_fleets():
+    """(tag, scenario, 64 gains) of phase 16's kernel checks and times:
+    limplock and spark-dag at their sizes (one block a lane), and at the
+    sweep bench's 4096 nodes (several blocks a lane, a barrier between
+    them every interval)."""
+    return [("limplock 8x1200", get_scenario("limplock"), gains_64("paper")),
+            ("spark-dag 16x1800", get_scenario("spark-dag"),
+             gains_64("generic")),
+            (f"limplock {N_NODES}x1200",
+             get_scenario("limplock").replace(n_nodes=N_NODES),
+             gains_64("generic")),
+            (f"spark-dag {N_NODES}x1800", spark_dag_fleet(N_NODES),
+             gains_64("paper"))]
+
+
+def graph_inputs(spec, gains, n_dead=0, graph=True):
+    """The segment operands of ``spec``'s whole horizon on the card (the
+    graph instance's, or the graph-free instance's on the same demand)."""
+    app = spec.app_graph if graph else None
+    plan = plan_specialization(gains)
+    con = fs._engine_consts(plan, spec.cache, spec.interval_s, 1.0, "f32",
+                            app)
+    names = ks.state_names(con.paper_law, con.has_cache, con.has_graph)
+    demand = spec.build_demand(seed=0)
+    dtn, rows, lp = fs._stage(demand, gains, GRAPH_M, spec.cache, "f32",
+                              CUDA)
+    g, total = fs._stage_graph(app, spec.n_nodes, CUDA)
+    alive = fs._alive(len(gains), len(gains) - n_dead, CUDA)
+    state0 = fs._init_state(lp, rows, dtn[0].float(), con, names, g)
+    return ((state0, fs._zero_hist(lp), dtn, lp, rows, alive),
+            dict(t0=0, con=con, names=names, graph=g), total)
+
+
+def graph_kernel(args, kw):
+    """The kernel over every lane of ``args``, in as many launches as
+    co-residency asks (one where one block holds a lane)."""
+    state0, hist0, dtn, lp, rows, alive = args
+    n_lanes = lp.shape[1]
+    limit = n_lanes
+    if kw["con"].has_graph:
+        limit = ks.graph_lane_limit(kw["con"], dtn.shape[1], CUDA) or n_lanes
+    outs = [ks.sweep_segment(state0[:, lo:lo + limit].contiguous(),
+                             hist0[lo:lo + limit].contiguous(), dtn,
+                             lp[:, lo:lo + limit].contiguous(), rows,
+                             alive[:, lo:lo + limit].contiguous(), **kw)
+            for lo in range(0, n_lanes, limit)]
+    if len(outs) == 1:
+        return outs[0]
+    return (torch.cat([o[0] for o in outs], 1),
+            torch.cat([o[1] for o in outs], 0))
+
+
+def phase16a():
+    """The graph instance against its plain version on the card: the
+    state planes and histograms, and the makespans they finalize to."""
+    log("phase 16a: the sweep kernel's AppGraph instance vs plain on the "
+        "card, 64 lanes (5 dead): limplock and spark-dag at their sizes "
+        "(one block a lane) and at 4096 nodes (a barrier between blocks)")
+    worst, out = 0.0, {}
+    for tag, spec, gains in graph_fleets():
+        args, kw, total = graph_inputs(spec, gains, n_dead=5)
+        con, names = kw["con"], kw["names"]
+        limit = ks.graph_lane_limit(con, spec.n_nodes, CUDA)
+        before = ks.LAUNCHES
+        sk, hk = graph_kernel(args, kw)
+        torch.cuda.synchronize()
+        n_launch = ks.LAUNCHES - before
+        sp, hp = ks.sweep_segment_plain(*args, **kw)
+        torch.cuda.synchronize()
+        max_abs, max_rel = compare_planes(names, sk, sp)
+        live = hk.shape[0] - 5
+        n_bins = int((hk != hp).sum())
+        dead_ok = (int(hk[live:].abs().sum()) == 0
+                   and torch.equal(sk[:, live:], args[0][:, live:]))
+        counts_ok = hk[:live].sum(1).tolist() == \
+            [spec.n_intervals * spec.n_nodes] * live
+        fin = [fs._finalize_lanes(st, h, args[3], con, names,
+                                  spec.n_intervals, total).makespan[:live]
+               for st, h in ((sk, hk), (sp, hp))]
+        same_makespan = torch.equal(*fin)
+        t_done = sk[names.index("t_done")][:live]
+        finished = int((t_done[:, 0] >= 0).sum())
+        agree = bool((t_done == t_done[:, :1]).all())
+        exact = torch.equal(sk, sp) and n_bins == 0
+        log(f"  {tag} ({'cache-on' if spec.cache else 'cache-off'}, "
+            f"{n_launch} launch(es), lanes a launch "
+            f"{limit or 'unlimited'}): bit-identical={exact} max_abs="
+            f"{max_abs:.3e} max_rel={max_rel:.3e} hist_bins_differing="
+            f"{n_bins} makespan_equal={same_makespan} finished {finished} "
+            f"of {live} lanes (makespan {float(fin[0].min()):.2f}-"
+            f"{float(fin[0].max()):.2f} s) t_done_agrees_over_nodes={agree}"
+            f" dead_lanes_ok={dead_ok} counts_ok={counts_ok}")
+        check(dead_ok, f"{tag}: dead lanes counted codes or moved state")
+        check(counts_ok, f"{tag}: a live lane did not count T x N updates")
+        check(agree, f"{tag}: the nodes of a lane disagree on t_done")
+        check(bool(torch.isfinite(sk).all()), f"{tag}: non-finite state")
+        check(same_makespan, f"{tag}: makespans differ, kernel vs plain")
+        if spec.cache is None:
+            check(exact, f"{tag}: the cache-off graph instance is not "
+                  f"bit-identical to its plain version")
+        else:
+            check(max_rel <= 1e-6, f"{tag}: cache-on state off by "
+                  f"{max_rel:.3e} relative (bound 1e-6)")
+            check(n_bins <= live, f"{tag}: {n_bins} histogram bins differ")
+        worst = max(worst, max_abs)
+        out[tag] = dict(bit_identical=exact, max_abs_err=max_abs,
+                        max_rel_err=max_rel, hist_bins_differing=n_bins,
+                        launches=n_launch, lanes_per_launch=limit,
+                        lanes_finished=finished)
+    return worst, out
+
+
+def static_gains(grant_gib=25.0):
+    """The paper's static baseline: the grant pinned, the law inert."""
+    return GainSet.from_params(paper_controller_params(
+        lam=0.0, u_min=grant_gib * GiB, u_max=grant_gib * GiB))
+
+
+def phase16b():
+    """BENCH_appgraph.json's gates on the card, and the card's makespans
+    against the port's CPU run."""
+    log("phase 16b: the AppGraph gates on the card (spark-dag static 25 "
+        "GiB vs Table I >= 2.0x; limplock one 4x node vs healthy in [3.5, "
+        "4.5]), card against CPU")
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "BENCH_appgraph.json")) as f:
+        jax_rec = json.load(f)
+    spark = get_scenario("spark-dag")
+    kw = dict(node_memory=GRAPH_M, interval_s=spark.interval_s,
+              cache=spark.cache, app_graph=spark.app_graph)
+    demand = spark.build_demand(seed=0)
+    gains = static_gains().concat(GainSet.from_params(PAPER_TABLE_I))
+    card = sweep_demand(demand, gains, **kw)
+    cpu = sweep_demand(demand, gains, device="cpu", **kw)
+    assert_same("spark-dag static + Table I", card, cpu, demand.size)
+    gap = float(card.makespan[0]) / float(card.makespan[1])
+    lim = get_scenario("limplock")
+    healthy = lim.replace(app_graph=lim.app_graph.replace(slow_nodes=(),
+                                                          slow_factor=1.0))
+    runs = {}
+    for name, spec in (("one-4x-node", lim), ("healthy", healthy)):
+        runs[name] = (run_sweep(spec, static_gains()).stats,
+                      run_sweep(spec, static_gains(), device="cpu").stats)
+        assert_same(f"limplock {name}", *runs[name],
+                    spec.n_nodes * spec.n_intervals)
+    inflation = float(runs["one-4x-node"][0].makespan[0]) / float(
+        runs["healthy"][0].makespan[0])
+    card_ms = [float(x) for x in card.makespan] + [
+        float(runs[k][0].makespan[0]) for k in ("one-4x-node", "healthy")]
+    cpu_ms = [float(x) for x in cpu.makespan] + [
+        float(runs[k][1].makespan[0]) for k in ("one-4x-node", "healthy")]
+    rec = {r["config"]: r["makespan_s"]
+           for r in jax_rec["makespan_gap"] + jax_rec["limplock"]}
+    log(f"  spark-dag makespan static {card_ms[0]:.4f} s, Table I "
+        f"{card_ms[1]:.4f} s: gap {gap:.4f}x (JAX's record "
+        f"{rec['static-25g']:.2f} / {rec['dynamic-table1']:.2f} s)")
+    log(f"  limplock one 4x node {card_ms[2]:.4f} s, healthy {card_ms[3]:.4f}"
+        f" s: inflation {inflation:.4f}x (JAX's record "
+        f"{rec['one-4x-node']:.1f} / {rec['healthy']:.1f} s)")
+    log(f"  card makespans == CPU: {card_ms == cpu_ms} ({card_ms} vs "
+        f"{cpu_ms})")
+    check(gap >= 2.0, f"spark-dag gap {gap:.3f}x < 2.0x")
+    check(3.5 <= inflation <= 4.5, f"limplock inflation {inflation:.3f}x "
+          f"outside [3.5, 4.5]")
+    check(card_ms == cpu_ms, "the card's makespans differ from the CPU's")
+    return dict(spark_dag_static_s=card_ms[0], spark_dag_table1_s=card_ms[1],
+                gap=gap, limplock_slow_s=card_ms[2],
+                limplock_healthy_s=card_ms[3], inflation=inflation)
+
+
+def recorded_rounds(fn):
+    """``fn()`` with the gain sets of every run_sweep the tuner makes."""
+    seen, inner = [], tune_mod.run_sweep
+
+    def record(spec, gains, **kw):
+        seen.append(gains)
+        return inner(spec, gains, **kw)
+
+    tune_mod.run_sweep = record
+    try:
+        return fn(), seen
+    finally:
+        tune_mod.run_sweep = inner
+
+
+def phase16c():
+    """halving_tune(spark-dag, makespan) on the card makes the CPU's
+    decision: the survivors of every round, and the winner."""
+    log(f"phase 16c: halving_tune(spark-dag, objective=makespan, budget="
+        f"{GRAPH_TUNE_BUDGET}) on the card against the CPU")
+    t0 = time.perf_counter()
+    card, card_rounds = recorded_rounds(lambda: halving_tune(
+        "spark-dag", objective="makespan", budget=GRAPH_TUNE_BUDGET))
+    wall = time.perf_counter() - t0
+    cpu, cpu_rounds = recorded_rounds(lambda: halving_tune(
+        "spark-dag", objective="makespan", budget=GRAPH_TUNE_BUDGET,
+        device="cpu"))
+    check(len(card_rounds) == len(cpu_rounds), "round counts differ")
+    for i, (a, b) in enumerate(zip(card_rounds, cpu_rounds)):
+        check(all(np.array_equal(getattr(a, f.name), getattr(b, f.name))
+                  for f in dataclasses.fields(GainSet)),
+              f"round {i}: the survivors differ, card vs CPU")
+    check(card.params == cpu.params, f"winners differ: {card.params} vs "
+          f"{cpu.params}")
+    rounds = " -> ".join(f"{r['n_candidates']}@T={r['horizon']}"
+                         for r in card.rounds)
+    log(f"  {rounds}; same survivors every round and the same winner: "
+        f"r0={card.params.r0:.4f} lam={card.params.lam:.4f} lam_grant="
+        f"{card.params.lam_grant} makespan {-card.score:.4f} s (Table I "
+        f"{-card.baseline_score:.4f} s); {wall:.3f} s wall on the card")
+    return dict(rounds=card.rounds, wall_s=wall, makespan_s=-card.score,
+                baseline_makespan_s=-card.baseline_score)
+
+
+def phase16d():
+    """runtime-churn through run_sweep, card against CPU."""
+    log("phase 16d: run_sweep(runtime-churn, 64 gains), card against CPU")
+    spec = get_scenario("runtime-churn")
+    card = run_sweep("runtime-churn", grid_gains())
+    cpu = run_sweep("runtime-churn", grid_gains(), device="cpu")
+    assert_same(f"runtime-churn {spec.n_nodes}x{spec.n_intervals}",
+                card.stats, cpu.stats, spec.n_nodes * spec.n_intervals)
+    check(card.best() == cpu.best(), "runtime-churn: winners differ")
+
+
+def phase16e():
+    """The graph instance's times beside the graph-free instance on the
+    same demand (the carry's cost, and the barrier's across blocks), its
+    plain version and its operation bound."""
+    log("phase 16e: times of the graph instance (CUDA events after a ~1 "
+        "ms device-side lead, median of 7), 64 lanes")
+    out = {}
+    for tag, spec, gains in graph_fleets():
+        args, kw, _ = graph_inputs(spec, gains)
+        free_args, free_kw, _ = graph_inputs(spec, gains, graph=False)
+        ms = cuda_ms(lambda: graph_kernel(args, kw), reps=7, lead=True)
+        free = cuda_ms(lambda: graph_kernel(free_args, free_kw), reps=7,
+                       lead=True)
+        state0, hist0, dtn, lp, rows, alive = args
+        cache = "cache-on" if spec.cache else "cache-off"
+        n_upd = spec.n_nodes * spec.n_intervals * lp.shape[1]
+        n_bytes = (sum(x.numel() * x.element_size()
+                       for x in (dtn, lp, rows, alive, hist0))
+                   + 2 * state0.numel() * 4
+                   + sum(x.numel() * 4 for x in kw["graph"]))
+        t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+        t_ops = n_upd * (OPS_PER_UPDATE[cache] + GRAPH_OPS_PER_UPDATE[cache]
+                         ) / PEAK_F32_S * 1e3
+        r = dict(ms=ms, graph_free_ms=free, carry_ms=ms - free,
+                 bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 launches=len(range(0, lp.shape[1], ks.graph_lane_limit(
+                     kw["con"], spec.n_nodes, CUDA) or lp.shape[1])),
+                 us_per_interval=ms * 1e3 / spec.n_intervals)
+        if tag.startswith("spark-dag"):
+            # one run: a Python loop of small launches, host-bound
+            r["plain_ms"] = cuda_ms(lambda: ks.sweep_segment_plain(*args,
+                                                                   **kw),
+                                    reps=1, warm=0)
+        out[tag] = r
+        log(f"  {tag} ({cache}): {ms:.4f} ms in {r['launches']} launch(es)"
+            f" ({r['us_per_interval']:.3f} us an interval); graph-free "
+            f"instance on the same demand {free:.4f} ms (the carry "
+            f"{ms - free:+.4f} ms); bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}"
+            + (f"; plain {r['plain_ms']:.1f} ms" if "plain_ms" in r else ""))
+    return out
+
+
+def phase16():
+    """Phase 16: returns the sweep kernel's launches on the AppGraph
+    paths (16b-16d) and the numbers."""
+    max_abs, parity = phase16a()
+    ks.LAUNCHES = 0                        # the AppGraph paths start here
+    gates = phase16b()
+    tuned = phase16c()
+    phase16d()
+    launches = ks.LAUNCHES
+    log(f"main path: sweep kernel launched {launches} times (phase 16b-d)")
+    check(launches > 0, "the AppGraph paths never launched the kernel")
+    times = phase16e()
+    return launches, max_abs, {"parity": parity, "gates": gates,
+                               "halving": tuned, "times": times}
+
 
 def main() -> None:
     if sys.argv[1:2] == ["--decode-times"]:
@@ -1766,12 +2087,28 @@ def main() -> None:
         f"replays and 4096-node tunings), {n_fleet} (phase 15c)")
     log("phase 15 seconds (host clock): " + ", ".join(
         f"15{p} {b - a:.1f}" for p, a, b in zip("abc", seconds, seconds[1:])))
+    t16 = time.perf_counter()
+    n_graph, graph_err, graph = phase16()
+    log(f"phase 16 seconds (host clock): {time.perf_counter() - t16:.1f}")
     kernel["launches_by_path"] = {
         "run_sweep, sweep_demand, tune_gains (phases 2-4)":
         kernel["launches"], "serving retune round (phase 15a)": n_retune,
         "paper testbed replays and 4096-node tunings (phase 15b)":
         n_testbed,
-        "simulate_fleet (phase 15c)": n_fleet}
+        "simulate_fleet (phase 15c)": n_fleet,
+        "AppGraph sweeps, gates and tunings (phase 16)": n_graph}
+    kernel["max_abs_err"] = max(kernel["max_abs_err"], graph_err)
+    big = graph["times"][f"spark-dag {N_NODES}x1800"]
+    kernel["app_graph"] = {
+        "name": "sweep_segment (graph instance)", "route": "cuda",
+        "source": "src/repro_torch/csrc/sweep.cu",
+        "replaces": "src/repro/lab/sweep.py:387 (XLA beside "
+                    "src/repro/lab/pallas_sweep.py:305)",
+        "launches": n_graph, "max_abs_err": graph_err,
+        **{k: big[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "shape": f"spark-dag {N_NODES} x 1800 x 64, cache-on",
+        **graph}
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     kernel["retune"] = {"serving": retune, "testbed": testbed,
                         "fleet": fleet}
@@ -1779,6 +2116,10 @@ def main() -> None:
     decode["launches_by_path"][f"{ARCH} serving with the retune (phase "
                                f"15a)"] = n_decode_r
     log("retune on the card: " + json.dumps(kernel["retune"], default=str))
+    ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter()]
+    log("seconds by phase (host clock): " + ", ".join(
+        f"{name} {end - start:.1f}"
+        for (name, start), end in zip(PHASE_STARTS, ends)))
     print(smi)
     print(json.dumps({"kernels": [kernel, decode, flash, scan]},
                      default=float))

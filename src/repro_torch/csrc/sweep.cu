@@ -20,6 +20,10 @@
 //   state   (S, L, N)  planes in repro_torch.kernels.sweep.state_names
 //   hist    (L, 4096)  int32 counts, added to in place (the wrapper
 //                      hands in a copy of the caller's histogram)
+// and with HAS_GRAPH:
+//   work    (S+1, N)   float32 GiB of each stage row on each node
+//   stage   (2, S+1)   float32 rows: held demand (bytes), barrier flag
+//   ws      (L, 4)     int32, zeroed: the per-lane barrier's workspace
 //
 // Bound: the kernel moves little -- the demand rows (shared by every
 // lane, so read from L2 after the first lane), the state once in and
@@ -61,6 +65,40 @@
 //     widened exactly here by __bfloat162float;
 //   * the v_prev seed and the warm resident seed are computed by the
 //     caller's `_init_state`, shared with the plain version.
+//
+// AppGraph (HAS_GRAPH): the queue/barrier carry of the reference's XLA
+// scan (repro/lab/sweep.py, `app_graph`), which JAX runs beside the
+// Pallas kernel and the port runs in it.  Five more planes: the stage
+// row `sidx` (a float holding a small integer), the work left, the
+// Kahan work done and `t_done`, the lane's finish interval, held in
+// every node of the lane.  Per launch: the (S+1, N) work matrix, the
+// (2, S+1) per-row held demand and barrier flags (row S is the
+// sentinel: no work, no demand, no barrier), S and comp_itv.  Each
+// interval the active row's held bytes join the demand before the law
+// sees it, the queue drains comp_itv * (interval_s / dt_eff), and a
+// barrier row promotes when the lane-wide min of the progress code
+// 2 * sidx + fin says every node finished it.  So every interval needs
+// one reduction over the lane's nodes:
+//   * one block holds the lane (N <= 256, or 128 with the cache): a
+//     warp reduction and one __syncthreads;
+//   * several blocks hold it: each block's min meets the others' at a
+//     per-lane barrier in device memory (arrival counter, generation,
+//     two min slots by parity, in a workspace the wrapper zeroes).  The
+//     barrier needs every block of the launch resident at once, so the
+//     entry launches such a grid cooperatively, which fails rather
+//     than deadlocks when the blocks do not fit, and the wrapper caps
+//     the lanes a launch holds.
+// The reference's second reduction, min(sidx) >= S for t_done, is read
+// off the next interval's min instead: a node past the last row has
+// code 2 * S and any other node less, so that min is 2 * S exactly when
+// every node finished on the interval before.  One more reduction at
+// the segment's end settles its last interval.  Loops past the last
+// node run node N - 1 and enter the min with node N - 1's own code.
+// Without the cache dt_eff is the pressure curve as XLA compiles it
+// (folded slopes, one rounding per segment: hpl_slowdown_fused); with
+// it, the CacheLoop's dt_app.  Bound: the carry adds ~20 operations per
+// update and the lane's reductions, which serialise the intervals: a
+// small fleet is bound by their latency, not by operations or bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,6 +131,8 @@ constexpr float kGiB = 1073741824.0f;
 constexpr int kThreads = 128;  // threads per block
 constexpr int kBins = 4096;    // histogram bins: code >> 4
 constexpr int kAhead = 4;      // demand rows in flight per loop
+constexpr int kWarps = kThreads / 32;
+constexpr int kBig = 1 << 30;  // lane-min slots hold kBig - min, from 0
 
 // Loops per thread: two independent chains interleave without the
 // cache; with it, registers allow one.
@@ -123,6 +163,17 @@ __device__ __forceinline__ float hpl_slowdown(float r) {
   return 4.0f + (u - 1.0f) * 300.0f;
 }
 
+// The same curve as the reference's XLA build computes it: the slopes
+// folded to one float32 constant each and each segment's multiply-add
+// contracted.  kernels/sweep.py::hpl_slowdown_fused is its plain form.
+__device__ __forceinline__ float hpl_slowdown_fused(float r) {
+  const float u = fminf(fmaxf(r, 0.0f), 1.5f);
+  if (u <= 0.92f) return 1.0f;
+  if (u <= 0.98f) return fma_once(u - 0.92f, 5.83333349f, 1.0f);
+  if (u <= 1.0f) return fma_once(u - 0.98f, 132.5f, 1.35f);
+  return fma_once(u - 1.0f, 300.0f, 4.0f);
+}
+
 // demand[i]; the wrapper keeps (t0 + T) * N below 2^31, so i is an int.
 template <bool BF16>
 __device__ __forceinline__ float load_demand(const void* demand, int i) {
@@ -145,22 +196,26 @@ struct Loop {
   float us, us_c, cs, cs_c, c2, mx, n_r0, n_viol, last_bad;
   float hs, hs_c, es, es_c, ts, ts_c;
   float inv_m, w, inv_w, wf0;
+  // the AppGraph carry, and the step's r and dt_app it reads
+  int sidx;
+  float wleft, wd, wd_c, t_done, r, dt;
 };
 
 // Plane indices of the (S, L, N) state, in state_names order.
-template <bool PAPER_LAW, bool HAS_CACHE>
+template <bool PAPER_LAW, bool HAS_CACHE, bool HAS_GRAPH = false>
 struct Planes {
   static constexpr int kVPrev = 1;
   static constexpr int kRes = PAPER_LAW ? 1 : 2;
   static constexpr int kAcc = 1 + (PAPER_LAW ? 0 : 1) + (HAS_CACHE ? 1 : 0);
   static constexpr int kCacheAcc = kAcc + 9;
-  static constexpr int kS = kCacheAcc + (HAS_CACHE ? 6 : 0);
+  static constexpr int kGraph = kCacheAcc + (HAS_CACHE ? 6 : 0);
+  static constexpr int kS = kGraph + (HAS_GRAPH ? 5 : 0);
 };
 
-template <bool PAPER_LAW, bool HAS_CACHE>
+template <bool PAPER_LAW, bool HAS_CACHE, bool HAS_GRAPH = false>
 __device__ __forceinline__ void load_loop(Loop& s, const float* state,
                                           size_t LN, size_t ln) {
-  using P = Planes<PAPER_LAW, HAS_CACHE>;
+  using P = Planes<PAPER_LAW, HAS_CACHE, HAS_GRAPH>;
   const float* acc = state + P::kAcc * LN + ln;
   s.u = state[ln];
   s.v_prev = PAPER_LAW ? 0.0f : state[P::kVPrev * LN + ln];
@@ -184,12 +239,20 @@ __device__ __forceinline__ void load_loop(Loop& s, const float* state,
     s.ts = cache[4 * LN];
     s.ts_c = cache[5 * LN];
   }
+  if (HAS_GRAPH) {
+    const float* graph = state + P::kGraph * LN + ln;
+    s.sidx = static_cast<int>(graph[0]);
+    s.wleft = graph[LN];
+    s.wd = graph[2 * LN];
+    s.wd_c = graph[3 * LN];
+    s.t_done = graph[4 * LN];
+  }
 }
 
-template <bool PAPER_LAW, bool HAS_CACHE>
+template <bool PAPER_LAW, bool HAS_CACHE, bool HAS_GRAPH = false>
 __device__ __forceinline__ void store_loop(const Loop& s, float* state,
                                            size_t LN, size_t ln) {
-  using P = Planes<PAPER_LAW, HAS_CACHE>;
+  using P = Planes<PAPER_LAW, HAS_CACHE, HAS_GRAPH>;
   float* acc = state + P::kAcc * LN + ln;
   state[ln] = s.u;
   if (!PAPER_LAW) state[P::kVPrev * LN + ln] = s.v_prev;
@@ -211,6 +274,14 @@ __device__ __forceinline__ void store_loop(const Loop& s, float* state,
     cache[3 * LN] = s.es_c;
     cache[4 * LN] = s.ts;
     cache[5 * LN] = s.ts_c;
+  }
+  if (HAS_GRAPH) {
+    float* graph = state + P::kGraph * LN + ln;
+    graph[0] = static_cast<float>(s.sidx);
+    graph[LN] = s.wleft;
+    graph[2 * LN] = s.wd;
+    graph[3 * LN] = s.wd_c;
+    graph[4 * LN] = s.t_done;
   }
 }
 
@@ -236,6 +307,7 @@ __device__ __forceinline__ int step(Loop& s, const Lane& p,
   u_next = fminf(fmaxf(u_next, p.u_min), p.u_max);
 
   const float r = v * s.inv_m;
+  s.r = r;
   kahan(s.us, s.us_c, r);
   const float cap_gib = u_next * kInvGiB;
   kahan(s.cs, s.cs_c, cap_gib);
@@ -272,6 +344,7 @@ __device__ __forceinline__ int step(Loop& s, const Lane& p,
     kahan(s.hs, s.hs_c, hit * c.access_g);
     kahan(s.es, s.es_c, ev_g);
     kahan(s.ts, s.ts_c, dt_app);
+    s.dt = dt_app;
   }
   s.u = u_next;
   // The bin code >> 4 of code = trunc(clamp(r * 32768, 0, 65535)):
@@ -286,12 +359,127 @@ __device__ __forceinline__ void count(int* bins, int bin, bool counted) {
   atomicAdd(&bins[counted ? bin : kBins], 1);
 }
 
-template <bool PAPER_LAW, bool UNIT_OCC, bool HAS_CACHE, bool BF16>
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+// The min of v over every block of the lane, by thread 0 of each: the
+// lane's barrier episode e.  bar[0] counts arrivals, bar[1] the episodes
+// completed, bar[2 + e % 2] holds kBig - min (zero: no value yet).  The
+// last block to arrive clears the other parity's slot (every block read
+// it in episode e - 1 before arriving here) and releases the others.
+__device__ int grid_lane_min(int* bar, int v, int e) {
+  int* slot = bar + 2 + (e & 1);
+  atomicMax(slot, kBig - v);
+  __threadfence();
+  if (atomicAdd(bar, 1) == static_cast<int>(gridDim.x) - 1) {
+    atomicExch(bar, 0);
+    atomicExch(bar + 2 + ((e + 1) & 1), 0);
+    __threadfence();
+    atomicAdd(bar + 1, 1);
+  } else {
+    while (ld_acquire(bar + 1) <= e) {
+    }
+  }
+  return kBig - atomicAdd(slot, 0);
+}
+
+// The min of v over the lane's nodes, episode e: every thread passes
+// its loops' min and gets the lane's.  Buffers alternate by parity, so
+// one __syncthreads an episode separates a write from the reads of the
+// episode before.
+__device__ __forceinline__ int lane_min(int v, int e, int (*red)[kWarps],
+                                        int* fleet, int* bar) {
+  v = __reduce_min_sync(0xffffffffu, v);
+  const int par = e & 1;
+  if ((threadIdx.x & 31) == 0) red[par][threadIdx.x >> 5] = v;
+  __syncthreads();
+  int m = red[par][0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) m = min(m, red[par][w]);
+  if (gridDim.x == 1) return m;
+  if (threadIdx.x == 0) fleet[par] = grid_lane_min(bar, m, e);
+  __syncthreads();
+  return fleet[par];
+}
+
+// The segment with the AppGraph carry: one interval at a time, each
+// ending in the lane's min of the progress code (see the header).  The
+// next interval's demand row loads while this one waits on the min.
+template <bool PAPER_LAW, bool UNIT_OCC, bool HAS_CACHE, bool BF16, int J>
+__device__ __forceinline__ void graph_segment(
+    Loop (&loop)[J], const int (&n)[J], const bool (&active)[J],
+    const Lane& p, const SweepConsts& c, int* bins, const void* demand,
+    const float* __restrict__ work, const float* __restrict__ stage,
+    int* bar, int T, int N, int t0, int S, float comp_itv) {
+  __shared__ int red[2][kWarps];
+  __shared__ int fleet_sh[2];
+  const float* stage_demand = stage;
+  const float* stage_barrier = stage + (S + 1);
+  float d_now[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) d_now[j] = load_demand<BF16>(demand, n[j]);
+#pragma unroll 1
+  for (int k = 0; k < T; ++k) {
+    const float tf = static_cast<float>(t0 + k);
+    const int k_next = min(k + 1, T - 1);
+    float d_next[J];
+    bool fin[J];
+    int lvl = 2 * S;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      d_next[j] = load_demand<BF16>(demand, k_next * N + n[j]);
+      Loop& s = loop[j];
+      const float d = d_now[j] + __ldg(stage_demand + s.sidx);
+      count(bins, step<PAPER_LAW, UNIT_OCC, HAS_CACHE>(s, p, c, d, tf),
+            active[j]);
+      const float dt_eff =
+          HAS_CACHE ? s.dt : c.interval_s * hpl_slowdown_fused(s.r);
+      const bool on_row = s.sidx < S;
+      const float adv = on_row ? comp_itv * (c.interval_s / dt_eff) : 0.0f;
+      kahan(s.wd, s.wd_c, fminf(adv, s.wleft));
+      s.wleft = fmaxf(s.wleft - adv, 0.0f);
+      fin[j] = on_row && s.wleft <= 0.0f;
+      lvl = min(lvl, 2 * s.sidx + (fin[j] ? 1 : 0));
+    }
+    const int fleet = lane_min(lvl, k, red, fleet_sh, bar);
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      Loop& s = loop[j];
+      // every node sat on the sentinel row: the DAG finished last interval
+      if (fleet == 2 * S && s.t_done < 0.0f) s.t_done = tf;
+      const bool barrier_row = __ldg(stage_barrier + s.sidx) != 0.0f;
+      if (fin[j] && (!barrier_row || fleet >= 2 * s.sidx + 1)) {
+        s.sidx += 1;
+        s.wleft = work[s.sidx * N + n[j]];
+      }
+      d_now[j] = d_next[j];
+    }
+  }
+  int rows_done = S;
+#pragma unroll
+  for (int j = 0; j < J; ++j) rows_done = min(rows_done, loop[j].sidx);
+  const int fleet = lane_min(rows_done, T, red, fleet_sh, bar);
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    if (fleet >= S && loop[j].t_done < 0.0f) {
+      loop[j].t_done = static_cast<float>(t0 + T);
+    }
+  }
+}
+
+template <bool PAPER_LAW, bool UNIT_OCC, bool HAS_CACHE, bool BF16,
+          bool HAS_GRAPH>
 __global__ void __launch_bounds__(kThreads) sweep_kernel(
     const void* __restrict__ demand, const float* __restrict__ lp,
     const float* __restrict__ np_rows, const float* __restrict__ alive,
     const float* __restrict__ state_in, float* __restrict__ state_out,
-    int* __restrict__ hist, int T, int L, int N, int t0, SweepConsts c) {
+    int* __restrict__ hist, int T, int L, int N, int t0, SweepConsts c,
+    const float* __restrict__ work, const float* __restrict__ stage,
+    int* __restrict__ ws, int S, float comp_itv) {
   constexpr int J = nodes_per_thread(HAS_CACHE);
   __shared__ int bins[kBins + 1];
   const int l = blockIdx.y;
@@ -310,7 +498,7 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(
   }
 
   if (!(alive[l] > 0.5f)) {  // the whole block: its lane is dead
-    constexpr int kS = Planes<PAPER_LAW, HAS_CACHE>::kS;
+    constexpr int kS = Planes<PAPER_LAW, HAS_CACHE, HAS_GRAPH>::kS;
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       const size_t ln = static_cast<size_t>(l) * N + n[j];
@@ -336,8 +524,8 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(
 #pragma unroll
   for (int j = 0; j < J; ++j) {
     Loop& s = loop[j];
-    load_loop<PAPER_LAW, HAS_CACHE>(s, state_in, LN,
-                                    static_cast<size_t>(l) * N + n[j]);
+    load_loop<PAPER_LAW, HAS_CACHE, HAS_GRAPH>(
+        s, state_in, LN, static_cast<size_t>(l) * N + n[j]);
     s.inv_m = np_rows[ROW_INV_M * N + n[j]];
     s.w = np_rows[ROW_W * N + n[j]];
     s.inv_w = np_rows[ROW_INV_W * N + n[j]];
@@ -345,42 +533,50 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(
   }
   __syncthreads();  // the bins are zero
 
-  // Rows k + kAhead load while row k is used: a ring of registers, so no
-  // step waits on the (L2) round trip.  The unrolled main loop runs while
-  // every row it loads exists, with no guard or clamp; the rest of the
-  // rows go one by one.
-  float ring[kAhead][J];
-#pragma unroll
-  for (int i = 0; i < kAhead; ++i) {
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      ring[i][j] = load_demand<BF16>(demand, min(i, T - 1) * N + n[j]);
-    }
-  }
-  int k0 = 0;
-  int row = kAhead * N;  // offset of row k0 + kAhead
-  for (; k0 + 2 * kAhead <= T; k0 += kAhead) {
+  if constexpr (HAS_GRAPH) {
+    graph_segment<PAPER_LAW, UNIT_OCC, HAS_CACHE, BF16>(
+        loop, n, active, p, c, bins, demand, work, stage, ws + 4 * l, T, N,
+        t0, S, comp_itv);
+  } else {
+    // Rows k + kAhead load while row k is used: a ring of registers, so no
+    // step waits on the (L2) round trip.  The unrolled main loop runs while
+    // every row it loads exists, with no guard or clamp; the rest of the
+    // rows go one by one.
+    float ring[kAhead][J];
 #pragma unroll
     for (int i = 0; i < kAhead; ++i) {
-      const float tf = static_cast<float>(t0 + k0 + i);
 #pragma unroll
       for (int j = 0; j < J; ++j) {
-        const float d = ring[i][j];
-        ring[i][j] = load_demand<BF16>(demand, row + n[j]);
-        count(bins, step<PAPER_LAW, UNIT_OCC, HAS_CACHE>(loop[j], p, c, d, tf),
+        ring[i][j] = load_demand<BF16>(demand, min(i, T - 1) * N + n[j]);
+      }
+    }
+    int k0 = 0;
+    int row = kAhead * N;  // offset of row k0 + kAhead
+    for (; k0 + 2 * kAhead <= T; k0 += kAhead) {
+#pragma unroll
+      for (int i = 0; i < kAhead; ++i) {
+        const float tf = static_cast<float>(t0 + k0 + i);
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const float d = ring[i][j];
+          ring[i][j] = load_demand<BF16>(demand, row + n[j]);
+          count(bins,
+                step<PAPER_LAW, UNIT_OCC, HAS_CACHE>(loop[j], p, c, d, tf),
+                active[j]);
+        }
+        row += N;
+      }
+    }
+#pragma unroll 1
+    for (int k = k0; k < T; ++k) {
+      const float tf = static_cast<float>(t0 + k);
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const float d = load_demand<BF16>(demand, k * N + n[j]);
+        count(bins,
+              step<PAPER_LAW, UNIT_OCC, HAS_CACHE>(loop[j], p, c, d, tf),
               active[j]);
       }
-      row += N;
-    }
-  }
-#pragma unroll 1
-  for (int k = k0; k < T; ++k) {
-    const float tf = static_cast<float>(t0 + k);
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const float d = load_demand<BF16>(demand, k * N + n[j]);
-      count(bins, step<PAPER_LAW, UNIT_OCC, HAS_CACHE>(loop[j], p, c, d, tf),
-            active[j]);
     }
   }
   __syncthreads();  // every update is counted
@@ -392,58 +588,83 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(
 #pragma unroll
   for (int j = 0; j < J; ++j) {
     if (active[j]) {
-      store_loop<PAPER_LAW, HAS_CACHE>(loop[j], state_out, LN,
-                                       static_cast<size_t>(l) * N + n[j]);
+      store_loop<PAPER_LAW, HAS_CACHE, HAS_GRAPH>(
+          loop[j], state_out, LN, static_cast<size_t>(l) * N + n[j]);
     }
   }
 }
 
 using SweepFn = void (*)(const void*, const float*, const float*,
                          const float*, const float*, float*, int*, int, int,
-                         int, int, SweepConsts);
+                         int, int, SweepConsts, const float*, const float*,
+                         int*, int, float);
 
-template <bool PAPER_LAW, bool UNIT_OCC, bool HAS_CACHE>
+template <bool PAPER_LAW, bool UNIT_OCC, bool HAS_CACHE, bool HAS_GRAPH>
 SweepFn pick_instance(bool bf16) {
-  return bf16 ? sweep_kernel<PAPER_LAW, UNIT_OCC, HAS_CACHE, true>
-              : sweep_kernel<PAPER_LAW, UNIT_OCC, HAS_CACHE, false>;
+  return bf16 ? sweep_kernel<PAPER_LAW, UNIT_OCC, HAS_CACHE, true, HAS_GRAPH>
+              : sweep_kernel<PAPER_LAW, UNIT_OCC, HAS_CACHE, false, HAS_GRAPH>;
+}
+
+template <bool HAS_GRAPH>
+SweepFn pick_law(int paper_law, int unit_occupancy, int has_cache, bool b) {
+  if (has_cache) {
+    return paper_law ? pick_instance<true, true, true, HAS_GRAPH>(b)
+                     : pick_instance<false, true, true, HAS_GRAPH>(b);
+  }
+  if (paper_law) {
+    return unit_occupancy ? pick_instance<true, true, false, HAS_GRAPH>(b)
+                          : pick_instance<true, false, false, HAS_GRAPH>(b);
+  }
+  return unit_occupancy ? pick_instance<false, true, false, HAS_GRAPH>(b)
+                        : pick_instance<false, false, false, HAS_GRAPH>(b);
 }
 
 // The template instance for one specialization.  A cache segment always
 // runs with unit occupancy (the resident set replaces the occupancy
 // model).
-SweepFn pick(int paper_law, int unit_occupancy, int has_cache, int bf16) {
+SweepFn pick(int paper_law, int unit_occupancy, int has_cache, int bf16,
+             int has_graph) {
   const bool b = bf16 != 0;
-  if (has_cache) {
-    return paper_law ? pick_instance<true, true, true>(b)
-                     : pick_instance<false, true, true>(b);
-  }
-  if (paper_law) {
-    return unit_occupancy ? pick_instance<true, true, false>(b)
-                          : pick_instance<true, false, false>(b);
-  }
-  return unit_occupancy ? pick_instance<false, true, false>(b)
-                        : pick_instance<false, false, false>(b);
+  return has_graph ? pick_law<true>(paper_law, unit_occupancy, has_cache, b)
+                   : pick_law<false>(paper_law, unit_occupancy, has_cache, b);
 }
 
 }  // namespace
 
-// Launches one segment on `stream`; returns cudaGetLastError() after
-// the launch (0 on success).  `hist` must already hold the counts to
-// add to.
+// Launches one segment on `stream`; returns the launch's CUDA error (0
+// on success).  `hist` must already hold the counts to add to.  With
+// `has_graph`, `work` (S+1, N), `stage` (2, S+1) and the zeroed (L, 4)
+// int32 workspace `ws` are the AppGraph's; a lane wider than one block
+// makes the launch cooperative, which the runtime refuses (an error,
+// not a hang) when its blocks cannot all be resident.
 extern "C" int dynims_sweep_segment(int paper_law, int unit_occupancy,
-                                    int has_cache, int bf16,
+                                    int has_cache, int bf16, int has_graph,
                                     const void* demand, const float* lp,
                                     const float* np_rows, const float* alive,
                                     const float* state_in, float* state_out,
-                                    int* hist, int T, int L, int N, int t0,
+                                    int* hist, const float* work,
+                                    const float* stage, int* ws, int T, int L,
+                                    int N, int t0, int S, float comp_itv,
                                     const SweepConsts* consts, void* stream) {
   if (T <= 0 || L <= 0 || N <= 0) return 0;
   const int block_nodes = kThreads * nodes_per_thread(has_cache != 0);
   const dim3 grid((N + block_nodes - 1) / block_nodes, L);
-  pick(paper_law, unit_occupancy, has_cache, bf16)
-      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          demand, lp, np_rows, alive, state_in, state_out, hist, T, L, N, t0,
-          *consts);
+  const SweepFn fn = pick(paper_law, unit_occupancy, has_cache, bf16,
+                          has_graph);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  SweepConsts c = *consts;
+  if (has_graph && grid.x > 1) {
+    void* args[] = {&demand, &lp,   &np_rows, &alive, &state_in, &state_out,
+                    &hist,   &T,    &L,       &N,     &t0,       &c,
+                    &work,   &stage, &ws,     &S,     &comp_itv};
+    const cudaError_t err = cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(fn), grid, dim3(kThreads), args, 0, s);
+    const cudaError_t last = cudaGetLastError();
+    return static_cast<int>(err != cudaSuccess ? err : last);
+  }
+  fn<<<grid, kThreads, 0, s>>>(demand, lp, np_rows, alive, state_in,
+                               state_out, hist, T, L, N, t0, c, work, stage,
+                               ws, S, comp_itv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -451,8 +672,10 @@ extern "C" int dynims_sweep_segment(int paper_law, int unit_occupancy,
 // blocks per SM of one template instance, into out[0..2]; returns the
 // CUDA error (0 on success).
 extern "C" int dynims_sweep_resources(int paper_law, int unit_occupancy,
-                                      int has_cache, int bf16, int* out) {
-  const SweepFn fn = pick(paper_law, unit_occupancy, has_cache, bf16);
+                                      int has_cache, int bf16, int has_graph,
+                                      int* out) {
+  const SweepFn fn = pick(paper_law, unit_occupancy, has_cache, bf16,
+                          has_graph);
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -66,10 +66,11 @@ def _nvcc() -> str:
 
 def _sweep_argtypes():
     from .sweep import _SweepConsts
-    # (paper_law, unit_occupancy, has_cache, bf16, demand, lp, np_rows,
-    #  alive, state_in, state_out, hist, T, L, N, t0, consts, stream)
-    return ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 7
-            + [ctypes.c_int] * 4
+    # (paper_law, unit_occupancy, has_cache, bf16, has_graph, demand, lp,
+    #  np_rows, alive, state_in, state_out, hist, work, stage, ws, T, L,
+    #  N, t0, S, comp_itv, consts, stream)
+    return ([ctypes.c_int] * 5 + [ctypes.c_void_p] * 10
+            + [ctypes.c_int] * 5 + [ctypes.c_float]
             + [ctypes.POINTER(_SweepConsts), ctypes.c_void_p])
 
 

@@ -14,16 +14,20 @@ loaded from its module on first use: the kernel module reads
 * :mod:`.tune` -- :func:`tune_gains`, :func:`halving_tune`,
   :func:`tune_portfolio` and the ReplayLoop's :func:`retune_online`.
 
+* :mod:`.appgraph` -- the AppGraph stage DAG (:class:`AppGraphSpec`)
+  and :func:`reference_makespan`, the float64 mirror of the carry the
+  sweep runs.
+
 The JAX package's engine selection (``ENGINES``, ``XLA_DEFAULT_CHUNK``,
-``CODES_BUDGET_BYTES``, ``resolve_devices``), ``compute_fleet_stats``
-and ``reference_makespan`` have no counterpart here.
+``CODES_BUDGET_BYTES``, ``resolve_devices``) and ``compute_fleet_stats``
+have no counterpart here.
 """
 
 import importlib
 
 _EXPORTS = {
     "appgraph": ("AppGraphSpec", "CompiledGraph", "StageSpec",
-                 "compile_graph", "topo_order"),
+                 "compile_graph", "reference_makespan", "topo_order"),
     "scenarios": ("CacheSpec", "ReplayTrace", "ScenarioSpec",
                   "TRACE_FAMILIES", "get_scenario", "list_scenarios",
                   "register_scenario"),

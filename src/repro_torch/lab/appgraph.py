@@ -1,10 +1,11 @@
 """AppGraph: DAG-aware application co-simulation inside the scanned sweep.
 
-A numpy-only copy of the declarations in ``repro/lab/appgraph.py``
-(:class:`StageSpec`, :class:`AppGraphSpec`, :func:`compile_graph`): the
-scenario registry declares ``spark-dag`` and ``limplock`` with them.
-The port does not run the queue/barrier carry yet -- sweeping a
-scenario with an ``app_graph`` raises ``NotImplementedError``.
+A copy of ``repro/lab/appgraph.py``: the declarations
+(:class:`StageSpec`, :class:`AppGraphSpec`, :func:`compile_graph`), with
+which the scenario registry declares ``spark-dag`` and ``limplock``, and
+:func:`reference_makespan`, the float64 numpy mirror of the carry.  The
+carry itself runs in the sweep kernel's graph instance and its plain
+version (:mod:`repro_torch.kernels.sweep`).
 
 CacheLoop (PR 4) priced memory pressure into a per-interval *penalty
 model*: every interval pays ``interval * hpl_slowdown + misses *
@@ -50,7 +51,7 @@ chunk, and ``app_graph=None`` compiles the exact pre-AppGraph program.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -252,3 +253,78 @@ def compile_graph(graph: AppGraphSpec, n_nodes: int) -> CompiledGraph:
                          demand_bytes=demand.astype(np.float32),
                          barrier=barrier.astype(np.float32),
                          names=names)
+
+
+def reference_makespan(graph: AppGraphSpec, demand: np.ndarray,
+                       node_memory: np.ndarray, grant: np.ndarray,
+                       *, interval_s: float,
+                       extra_dt: Optional[np.ndarray] = None) -> dict:
+    """Float64 numpy mirror of the streamed queue/barrier carry.
+
+    Replays the *exact* interval-quantized update the scan engine runs
+    -- same gather/min/where sequence, float64 instead of f32 -- for a
+    fixed externally supplied per-interval ``grant`` history
+    ``(N, T)`` (plus, optionally, ``extra_dt`` ``(N, T)`` seconds of
+    additional per-interval stall, e.g. a cache-miss mirror).  The
+    parity tests pin the streamed carry against this to f32 tolerance;
+    for the independent sub-interval discrete-event oracle see
+    :func:`repro_torch.core.cluster_sim.simulate_app_graph`.
+
+    Returns ``{"makespan_s", "t_done", "stage_idx", "work_done_gib",
+    "stage_finish_t"}`` -- ``stage_finish_t[j]`` is the interval at
+    which stage row ``j`` cleared its barrier fleet-wide (-1 if never),
+    the per-stage timeline the limplock analysis reads.
+    """
+    import torch
+
+    from .score import hpl_slowdown_curve   # local: keep import cheap
+
+    g = compile_graph(graph, demand.shape[0])
+    n_nodes, t_steps = demand.shape
+    w = g.work_gib.astype(np.float64)
+    e = g.demand_bytes.astype(np.float64)
+    bar = g.barrier.astype(np.float64)
+    s_tot = g.n_rows
+    m = np.broadcast_to(np.asarray(node_memory, np.float64), (n_nodes,))
+    sidx = np.zeros(n_nodes, np.int64)
+    wleft = w[0].copy()
+    done = np.zeros(n_nodes, np.float64)
+    t_done = -1
+    stage_finish = np.full(s_tot, -1, np.int64)
+    comp = float(graph.compute_gibps)
+    for t in range(t_steps):
+        d_eff = demand[:, t] + e[sidx]
+        v = d_eff + grant[:, t]
+        r = v / m
+        slow = hpl_slowdown_curve(torch.from_numpy(r)).numpy().astype(
+            np.float64)
+        dt_eff = interval_s * slow
+        if extra_dt is not None:
+            dt_eff = dt_eff + extra_dt[:, t]
+        active = sidx < s_tot
+        adv = np.where(active, comp * interval_s * (interval_s / dt_eff),
+                       0.0)
+        step_done = np.minimum(adv, wleft)
+        done += step_done
+        wleft = np.maximum(wleft - adv, 0.0)
+        fin = active & (wleft <= 0.0)
+        lvl = sidx * 2 + fin
+        fleet_lvl = int(lvl.min())
+        can = fin & ((bar[sidx] == 0.0) | (fleet_lvl >= sidx * 2 + 1))
+        newly = can & (bar[sidx] > 0.0)
+        for j in np.unique(sidx[newly]):
+            if stage_finish[j] < 0:
+                stage_finish[j] = t
+        sidx = sidx + can
+        wleft = np.where(can, w[sidx, np.arange(n_nodes)], wleft)
+        if t_done < 0 and int(sidx.min()) >= s_tot:
+            t_done = t + 1
+    horizon_s = t_steps * interval_s
+    total = float(w.sum())
+    if t_done >= 0:
+        makespan = t_done * interval_s
+    else:
+        makespan = max(horizon_s * total / max(float(done.sum()), 1e-6),
+                       horizon_s)
+    return {"makespan_s": makespan, "t_done": t_done, "stage_idx": sidx,
+            "work_done_gib": done, "stage_finish_t": stage_finish}

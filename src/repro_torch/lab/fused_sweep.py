@@ -22,6 +22,13 @@ programs:
   deterministic, so the prefix accumulators equal a from-scratch run
   truncated there.
 
+A scenario's AppGraph (``app_graph=``) adds the queue/barrier carry to
+the state block and the stage DAG's work matrix and per-row constants
+to the launch (:func:`_stage_graph`); its lanes finalize to a live
+``makespan``.  On the card a lane wider than one block needs all of its
+launch's blocks resident at once, so the lane chunk is capped by
+:func:`~repro_torch.kernels.sweep.graph_lane_limit`.
+
 Numerics: state and accumulators stay float32; ``precision="bf16"``
 stores only the demand stream in bfloat16 (rounded to nearest even
 once, widened before use).
@@ -42,8 +49,11 @@ from ..core.traces import GiB
 from ..device import DeviceLike, resolve_device
 from ..kernels.sweep import (N_NODE_ROWS, N_PARAM_ROWS, _DB, _FF, _INV_M,
                              _INV_R0, _INV_W, _LAM, _LAM_GRANT, _M, _R0,
-                             _THR_OVER, _THR_SETTLE, _U_MAX, _U_MIN, _W,
-                             state_names, sweep_segment, warm_fraction0)
+                             _STAGE_BARRIER, _STAGE_DEMAND, _THR_OVER,
+                             _THR_SETTLE, _U_MAX, _U_MIN, _W,
+                             graph_lane_limit, state_names, sweep_segment,
+                             warm_fraction0)
+from .appgraph import AppGraphSpec, compile_graph
 from .scenarios import CacheSpec
 from .score import (FleetStats, HIST_BINS, OVER_R0_EPS, SETTLE_TOL,
                     default_score, finalize_fleet_stats, quantile_from_hist)
@@ -74,14 +84,20 @@ class _EngineConsts:
     access_b: float = 0.0
     cold_mix: float = 0.0
     warm_frac: float = 0.0
+    has_graph: bool = False
+    comp_itv: float = 0.0        # AppGraph drain per interval, GiB
 
 
 def _engine_consts(plan, cache: Optional[CacheSpec], interval_s: float,
-                   occupancy: float, precision: str) -> _EngineConsts:
+                   occupancy: float, precision: str,
+                   app_graph: Optional[AppGraphSpec] = None) -> _EngineConsts:
     iv = np.float32(interval_s)
     base = dict(paper_law=plan.paper_law, unit_occupancy=plan.unit_occupancy,
                 occupancy=float(occupancy), interval_s=float(iv),
                 precision=precision)
+    if app_graph is not None:
+        base.update(has_graph=True, comp_itv=float(
+            np.float32(app_graph.compute_gibps) * iv))
     if cache is None:
         return _EngineConsts(**base)
     access_g = np.float32(cache.access_gibps) * iv
@@ -140,8 +156,14 @@ def _pad_gains(gains: GainSet, multiple: int) -> GainSet:
 
 
 def _init_state(lp: torch.Tensor, np_rows: torch.Tensor, d0: torch.Tensor,
-                con: _EngineConsts, names: Tuple[str, ...]) -> torch.Tensor:
-    """Stacked initial (S, L, N) state -- the reference's seeds."""
+                con: _EngineConsts, names: Tuple[str, ...],
+                graph=None) -> torch.Tensor:
+    """Stacked initial (S, L, N) state -- the reference's seeds.
+
+    With an AppGraph (``graph``, :func:`_stage_graph`'s pair) every node
+    starts on row 0 with its row-0 work, and the first interval's
+    observed demand includes row 0's held bytes.
+    """
     cols = lp[:, :, None]
     zeros = torch.zeros((lp.shape[1], np_rows.shape[-1]),
                         dtype=torch.float32, device=lp.device)
@@ -149,6 +171,11 @@ def _init_state(lp: torch.Tensor, np_rows: torch.Tensor, d0: torch.Tensor,
     planes = {n: zeros for n in names}
     planes["u"] = u0
     planes["last_bad"] = zeros - 1.0
+    if con.has_graph:
+        work, stage = graph
+        d0 = d0 + stage[_STAGE_DEMAND][0]
+        planes["wleft"] = zeros + work[0]
+        planes["t_done"] = zeros - 1.0
     if con.has_cache:
         planes["resident"] = zeros + warm_fraction0(cols, np_rows, con)[0]
     if not con.paper_law:
@@ -165,11 +192,14 @@ def _init_state(lp: torch.Tensor, np_rows: torch.Tensor, d0: torch.Tensor,
 
 def _finalize_lanes(state: torch.Tensor, hist: torch.Tensor,
                     lp: torch.Tensor, con: _EngineConsts,
-                    names: Tuple[str, ...], n_steps: int) -> FleetStats:
+                    names: Tuple[str, ...], n_steps: int,
+                    total_work_gib: Optional[float] = None) -> FleetStats:
     """Per-lane :class:`FleetStats` from the stacked accumulators.
 
     ``hist`` is the (L, HIST_BINS) prefix code histogram; every lane's
-    p99 is read out of its own row.
+    p99 is read out of its own row.  With an AppGraph,
+    ``total_work_gib`` is the DAG's fleet-total work (the makespan's
+    extrapolation when the DAG has not finished).
     """
     planes = dict(zip(names, state.unbind(0)))
     n_nodes = state.shape[-1]
@@ -179,6 +209,10 @@ def _finalize_lanes(state: torch.Tensor, hist: torch.Tensor,
         cache_kw = dict(hits_gib=planes["hs"], evicted_gib=planes["es"],
                         app_time_s=planes["ts"],
                         accesses_gib=con.access_g * n_steps)
+    if con.has_graph:
+        cache_kw.update(work_done_gib=planes["wd"],
+                        total_work_gib=total_work_gib,
+                        t_done=planes["t_done"][..., 0])
     return finalize_fleet_stats(
         util_sum=planes["us"], util_max=planes["mx"],
         caps_sum_gib=planes["cs"], caps_sumsq_gib=planes["c2"],
@@ -207,6 +241,27 @@ def _stage(demand: np.ndarray, lanes: GainSet, node_memory,
     return demand_tn, np_rows, lp
 
 
+def _stage_graph(app_graph: Optional[AppGraphSpec], n_nodes: int,
+                 device: torch.device):
+    """The AppGraph's launch operands on ``device`` and its total work.
+
+    Returns ``((work (S+1, N), stage constants (2, S+1)), total GiB)``,
+    or ``(None, None)`` without a graph.  The reference stages the
+    per-row demand and barrier flags from a 1-node compile with
+    ``slow_nodes`` stripped; they depend on the row only, so the
+    N-node compile gives the same values.
+    """
+    if app_graph is None:
+        return None, None
+    cg = compile_graph(app_graph, n_nodes)
+    stage = np.zeros((2, cg.n_rows + 1), np.float32)
+    stage[_STAGE_DEMAND] = cg.demand_bytes
+    stage[_STAGE_BARRIER] = cg.barrier
+    total = float(np.float32(cg.work_gib.astype(np.float64).sum()))
+    return ((torch.from_numpy(cg.work_gib).to(device),
+             torch.from_numpy(stage).to(device)), total)
+
+
 def _alive(n_lanes: int, n_live: int, device: torch.device) -> torch.Tensor:
     alive = torch.zeros((1, n_lanes), dtype=torch.float32)
     alive[0, :n_live] = 1.0
@@ -232,12 +287,16 @@ def _zero_hist(lp: torch.Tensor) -> torch.Tensor:
                        device=lp.device)
 
 
-def _sweep_program(demand_tn, np_rows, lp, alive, con, names) -> FleetStats:
+def _sweep_program(demand_tn, np_rows, lp, alive, con, names, graph=None,
+                   total_work_gib=None) -> FleetStats:
     """One lane chunk over the full horizon, on the device."""
-    state0 = _init_state(lp, np_rows, demand_tn[0].float(), con, names)
+    state0 = _init_state(lp, np_rows, demand_tn[0].float(), con, names,
+                         graph)
     state, hist = sweep_segment(state0, _zero_hist(lp), demand_tn, lp,
-                                np_rows, alive, t0=0, con=con, names=names)
-    return _finalize_lanes(state, hist, lp, con, names, demand_tn.shape[0])
+                                np_rows, alive, t0=0, con=con, names=names,
+                                graph=graph)
+    return _finalize_lanes(state, hist, lp, con, names, demand_tn.shape[0],
+                           total_work_gib)
 
 
 def fused_sweep_demand(
@@ -249,6 +308,7 @@ def fused_sweep_demand(
     occupancy: float = 1.0,
     chunk: Optional[int] = None,
     cache: Optional[CacheSpec] = None,
+    app_graph: Optional[AppGraphSpec] = None,
     horizon: Optional[int] = None,
     precision: str = "f32",
     device: DeviceLike = None,
@@ -258,8 +318,11 @@ def fused_sweep_demand(
     Returns ``(G,)``-field stats as numpy.  Mixed law classes are
     partitioned and stitched back in gain order; gain lanes go in
     chunks of at most ``DEFAULT_CHUNK`` (``chunk`` overrides it), each
-    padded up to :data:`LANE_TILE` lanes with dead lanes.
-    ``precision="bf16"`` stores only the demand stream in bfloat16.
+    padded up to :data:`LANE_TILE` lanes with dead lanes.  ``app_graph``
+    co-simulates the stage DAG (a live ``makespan``); on the card a
+    lane wider than one block caps the chunk at the lanes whose blocks
+    can all be resident at once.  ``precision="bf16"`` stores only the
+    demand stream in bfloat16.
     """
     dev = resolve_device(device)
     demand = _check_args(np.asarray(demand), cache, occupancy, precision,
@@ -268,7 +331,7 @@ def fused_sweep_demand(
     if mask.any() and not mask.all():
         sub_kw = dict(node_memory=node_memory, interval_s=interval_s,
                       occupancy=occupancy, chunk=chunk, cache=cache,
-                      precision=precision, device=dev)
+                      app_graph=app_graph, precision=precision, device=dev)
         idx_fast = np.flatnonzero(mask)
         idx_slow = np.flatnonzero(~mask)
         fast = fused_sweep_demand(demand, gains.take(idx_fast), **sub_kw)
@@ -285,16 +348,22 @@ def fused_sweep_demand(
     chunk = _resolve_chunk(chunk, len(gains), n_nodes)
     chunk = -(-chunk // LANE_TILE) * LANE_TILE
     n_real = len(gains)
-    gains = _pad_gains(gains, chunk)
     plan = plan_specialization(gains, occupancy)
-    con = _engine_consts(plan, cache, interval_s, occupancy, precision)
-    names = state_names(con.paper_law, con.has_cache)
+    con = _engine_consts(plan, cache, interval_s, occupancy, precision,
+                         app_graph)
+    if con.has_graph and dev.type == "cuda":
+        limit = graph_lane_limit(con, n_nodes, dev)
+        chunk = chunk if limit is None else min(chunk, limit)
+    gains = _pad_gains(gains, chunk)
+    names = state_names(con.paper_law, con.has_cache, con.has_graph)
     demand_tn, np_rows, lp = _stage(demand, gains, node_memory, cache,
                                     precision, dev)
+    graph, total_work = _stage_graph(app_graph, n_nodes, dev)
     alive = _alive(len(gains), n_real, dev)
     chunks = [_sweep_program(demand_tn, np_rows,
                              lp[:, lo:lo + chunk].contiguous(),
-                             alive[:, lo:lo + chunk].contiguous(), con, names)
+                             alive[:, lo:lo + chunk].contiguous(), con, names,
+                             graph, total_work)
               for lo in range(0, len(gains), chunk)]
     return FleetStats(*(np.concatenate(f)[:n_real]
                         for f in zip(*map(_to_host, chunks))))

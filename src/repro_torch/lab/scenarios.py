@@ -1,9 +1,9 @@
 """Declarative closed-loop scenarios for the ScenarioLab sweep engine.
 
 A numpy-only copy of ``repro/lab/scenarios.py``, so that the port
-imports nothing of the JAX package.  It leaves out the
-``runtime-churn`` registration, whose demand comes from the runtime's
-fault machinery (ROADMAP A1).
+imports nothing of the JAX package; every registry scenario is here,
+``runtime-churn`` with its demand from the port's copy of the runtime's
+fault machinery (:mod:`repro_torch.runtime.churn`).
 
 A :class:`ScenarioSpec` names everything the sweep engine needs to
 compile a fleet's compute-tenant demand into a dense ``(N, T)`` array:
@@ -658,3 +658,25 @@ register_scenario(ScenarioSpec(
     description="one 4x-degraded node behind every shuffle barrier: the "
                 "limplock effect -- fleet makespan tracks the straggler, "
                 "not the healthy median"))
+
+# Runtime-churn scenario: the demand is synthesized by actually
+# *running* the runtime's fault machinery -- StragglerDetector's
+# squeeze->evict escalation and HeartbeatMonitor's timeout detection --
+# over a simulated fleet (see repro_torch.runtime.churn), then frozen as
+# a replay payload so sweeps stay deterministic and cheap.
+
+
+def _register_runtime_churn() -> ScenarioSpec:
+    from ..runtime.churn import churn_demand
+    demand, _events = churn_demand(n_nodes=24, n_intervals=480,
+                                   interval_s=0.1, seed=0)
+    return register_scenario(ScenarioSpec(
+        name="runtime-churn", family="replay", n_nodes=24, n_intervals=480,
+        replay=ReplayTrace(demand, np.full(24, 125.0 * GiB),
+                           interval_s=0.1),
+        description="fault-injected fleet: straggler squeeze/evict demand "
+                    "swings plus heartbeat-timeout failure windows, "
+                    "generated by the live runtime detectors"))
+
+
+_register_runtime_churn()

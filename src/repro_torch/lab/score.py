@@ -227,6 +227,9 @@ def finalize_fleet_stats(
     evicted_gib: Optional[torch.Tensor] = None,  # (..., N) evicted GiB
     app_time_s: Optional[torch.Tensor] = None,   # (..., N) modeled app time
     accesses_gib: Optional[float] = None,        # per-node access total
+    work_done_gib: Optional[torch.Tensor] = None,  # (..., N) AppGraph wd
+    total_work_gib: Optional[float] = None,      # the DAG's work, fleet
+    t_done: Optional[torch.Tensor] = None,       # (...) finish interval
 ) -> FleetStats:
     """Assemble :class:`FleetStats` from streamed per-node accumulators.
 
@@ -237,8 +240,12 @@ def finalize_fleet_stats(
     their reductions take (the reference's float32 fold differs from
     either by about an ulp).
     ``app_runtime`` is the slowest node's modeled time (the fleet
-    synchronizes on a barrier).  AppGraph's makespan is not carried by
-    the port yet, so ``makespan`` is the neutral ideal horizon.
+    synchronizes on a barrier).  ``makespan`` is the AppGraph's end to
+    end wall clock: ``t_done * interval_s`` once the DAG finished, else
+    the work-linear extrapolation ``max(horizon * total / max(done,
+    1e-6), horizon)`` (the node sum of ``work_done_gib`` folded in
+    float64 as the other fields are); without a graph it is the neutral
+    ideal horizon.
     """
     dev = util_sum.device
     t = n_intervals
@@ -286,8 +293,23 @@ def finalize_fleet_stats(
         evicted_bytes=evicted_bytes,
         app_runtime=app_runtime,
         app_slowdown=app_runtime / f32(ideal_s, dev),
-        makespan=torch.full(lanes, ideal_s, dtype=torch.float32, device=dev),
+        makespan=_makespan(t_done, work_done_gib, total_work_gib, t,
+                           interval_s, lanes, dev),
     )
+
+
+def _makespan(t_done, work_done_gib, total_work_gib, n_intervals,
+              interval_s, lanes, dev) -> torch.Tensor:
+    """``FleetStats.makespan``: the reference's float32 arithmetic."""
+    if t_done is None:
+        return torch.full(lanes, n_intervals * interval_s,
+                          dtype=torch.float32, device=dev)
+    iv = f32(interval_s, dev)
+    horizon = f32(n_intervals, dev) * iv
+    done = torch.clamp_min(_fold(work_done_gib), 1e-6)
+    extrapolated = torch.maximum(horizon * f32(total_work_gib, dev) / done,
+                                 horizon)
+    return torch.where(t_done >= 0, t_done * iv, extrapolated)
 
 
 # GiB-equivalents one full unit of modeled app slowdown costs in

@@ -9,9 +9,9 @@ The port has one engine: the fused kernel of
 :mod:`repro_torch.lab.fused_sweep` (the JAX package's
 ``engine="pallas"``), so the ``engine=`` keyword is gone.  It runs on
 the card by default (``device=None``); ``device="cpu"`` runs the
-kernel's plain PyTorch version.  The AppGraph queue/barrier carry is
-not ported yet: sweeping a scenario with an ``app_graph`` raises
-``NotImplementedError``.
+kernel's plain PyTorch version.  A scenario's ``app_graph`` (AppGraph)
+runs its queue/barrier carry in the same kernel, in its graph instance,
+and scores a live ``FleetStats.makespan``.
 """
 
 from __future__ import annotations
@@ -181,18 +181,15 @@ def sweep_demand(
     lanes per launch (default: the launch budget); ``cache`` enables
     CacheLoop.  A gain set mixing paper-faithful and beyond-paper points
     is partitioned by law class, each class on its own specialization,
-    and the stats are stitched back in gain order.
+    and the stats are stitched back in gain order.  ``app_graph``
+    co-simulates a stage DAG and streams out its ``makespan``.
     """
-    if app_graph is not None:
-        raise NotImplementedError(
-            "the AppGraph queue/barrier carry is not ported to the fused "
-            "sweep yet; sweep this scenario with the JAX package")
     from .fused_sweep import fused_sweep_demand
 
     return fused_sweep_demand(
         demand, gains, node_memory=node_memory, interval_s=interval_s,
-        occupancy=occupancy, chunk=chunk, cache=cache, horizon=horizon,
-        device=device)
+        occupancy=occupancy, chunk=chunk, cache=cache, app_graph=app_graph,
+        horizon=horizon, device=device)
 
 
 @dataclasses.dataclass

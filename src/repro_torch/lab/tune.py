@@ -12,7 +12,9 @@ and materialize the argmax as a
   (:func:`~repro_torch.lab.fused_sweep.halving_sweep`): every candidate
   is scored on T/8, survivors promote through T/2 to the full horizon
   without leaving the device.  The final ranking is recomputed on the
-  host from the final lanes' stats.
+  host from the final lanes' stats.  A scenario with an AppGraph runs
+  the reference's host-side rounds instead, each a fresh
+  :func:`~repro_torch.lab.sweep.run_sweep` at its horizon.
 
 * :func:`tune_portfolio` -- multi-scenario tuning: one gain set scored
   across a scenario list, aggregated worst-case (default) or mean.
@@ -254,16 +256,21 @@ def halving_tune(
     full loop.  ``result.sweep.gains`` holds the surviving candidates
     with the baseline appended last.  The final ranking is recomputed
     on the host from the final lanes' stats.
+
+    A scenario with an ``app_graph`` runs the rounds on the host, as the
+    reference's halving does for it: each round is a fresh sweep
+    truncated to its horizon (the graph planes do not ride the in-scan
+    schedule's lane gathers).
     """
     objective = resolve_objective(objective or default_score)
     spec = get_scenario(scenario)
-    if spec.app_graph is not None:
-        raise NotImplementedError(
-            f"scenario {spec.name!r} attaches an app_graph, whose "
-            "queue/barrier carry is not ported yet")
     base = base_params or PAPER_TABLE_I
     if gains is None:
         gains = _default_candidates("grid", budget, base, seed)
+    if spec.app_graph is not None:
+        return _halving_host(spec, base, gains, rounds=rounds, keep=keep,
+                             min_survivors=min_survivors, seed=seed,
+                             objective=objective, device=device)
     hs = halving_sweep(
         spec.build_demand(seed=seed), gains, GainSet.from_params(base),
         node_memory=spec.build_node_memory(seed=seed),
@@ -287,6 +294,53 @@ def halving_tune(
         rounds=hs.rounds,
         objective=objective,
     )
+
+
+def _halving_host(spec: ScenarioSpec, base: ControllerParams,
+                  gains: GainSet, *, rounds, keep, min_survivors, seed,
+                  objective: Objective, device: DeviceLike) -> TuneResult:
+    """Successive halving with a fresh truncated sweep per round.
+
+    The reference's host-side loop: candidates score on the first
+    ``round(T * frac)`` intervals, the best ``ceil(keep * n)`` (at
+    least ``min_survivors``) promote, and the base joins, last, in the
+    final full-horizon round.
+    """
+    fracs = sorted(set(float(f) for f in rounds))
+    if not fracs or fracs[0] <= 0.0 or fracs[-1] > 1.0:
+        raise ValueError("rounds must be fractions in (0, 1]")
+    if fracs[-1] != 1.0:
+        fracs.append(1.0)
+    survivors = gains
+    round_log: List[dict] = []
+    for i, frac in enumerate(fracs):
+        final = i == len(fracs) - 1
+        horizon = max(int(round(spec.n_intervals * frac)), 1)
+        if final:
+            survivors = survivors.concat(GainSet.from_params(base))
+        result = run_sweep(spec, survivors, seed=seed, objective=objective,
+                           horizon=None if frac == 1.0 else horizon,
+                           device=device)
+        scores = result.scores(objective)
+        round_log.append({"horizon": horizon,
+                          "n_candidates": len(survivors),
+                          "elapsed_s": result.elapsed_s})
+        if final:
+            best = int(np.argmax(scores))
+            return TuneResult(
+                params=survivors.params_at(best, base),
+                score=float(scores[best]),
+                baseline_params=base,
+                baseline_score=float(scores[-1]),   # base appended last
+                index=best,
+                sweep=result,
+                rounds=round_log,
+                objective=objective,
+            )
+        n_keep = max(int(np.ceil(len(survivors) * keep)), min_survivors)
+        n_keep = min(n_keep, len(survivors))
+        survivors = survivors.take(np.argsort(-scores)[:n_keep])
+    raise AssertionError("unreachable")
 
 
 @dataclasses.dataclass

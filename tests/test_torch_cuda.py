@@ -9,7 +9,9 @@ present (a CUDA kernel has no CPU mode).  On a machine with the card:
 Tolerances of the attention kernels are those of
 ``tests/test_kernels.py``: 2e-5 in float32, 3e-2 (decode) and 2e-2
 (flash) in bfloat16.  The sweep without the cache (state and p99
-histogram) and the scan are held bit for bit.  The live plane on the
+histogram) and the scan are held bit for bit, the sweep's AppGraph
+instance too, where one block holds a lane and where a barrier joins
+several; with the cache to 1e-6 and an equal makespan.  The live plane on the
 card: the device monitor's counters follow a tensor, a card plane's
 actions equal a CPU plane's bit for bit, a tick adds one sync (its
 readback), and it does not wait for work queued on the default stream.
@@ -119,6 +121,93 @@ def test_run_sweep_on_the_card_matches_the_cpu(card):
     b = run_sweep(spec, gains, device="cpu")
     assert stats_mismatches(a.stats, b.stats, n_samples=64 * 200) == []
     assert a.best() == b.best()
+
+
+def _graph_segment(card, spec, law, n_dead=2):
+    gains = grid_gains(lam=np.linspace(0.2, 1.8, 4), r0=(0.9, 0.95),
+                       lam_grant=(None,) if law == "paper" else (0.25,))
+    con = fs._engine_consts(plan_specialization(gains), spec.cache,
+                            spec.interval_s, 1.0, "f32", spec.app_graph)
+    names = ks.state_names(con.paper_law, con.has_cache, True)
+    dtn, rows, lp = fs._stage(spec.build_demand(seed=2), gains, 125 * GiB,
+                              spec.cache, "f32", card)
+    graph, total = fs._stage_graph(spec.app_graph, spec.n_nodes, card)
+    alive = fs._alive(len(gains), len(gains) - n_dead, card)
+    state0 = fs._init_state(lp, rows, dtn[0], con, names, graph)
+    return ((state0, fs._zero_hist(lp), dtn, lp, rows, alive),
+            dict(t0=0, con=con, names=names, graph=graph), total)
+
+
+# (scenario, nodes, intervals): one block a lane (limplock 8, spark-dag
+# 16), several (300 nodes: 2 blocks, 3 with the cache), the cache-on
+# 4096-node fleet (32 blocks a lane), a horizon the DAG finishes in
+GRAPH_CARD_CASES = [("limplock", 8, 1200), ("spark-dag", 16, 600),
+                    ("limplock", 300, 1000), ("spark-dag", 300, 400),
+                    ("spark-dag", 4096, 200)]
+
+
+@pytest.mark.parametrize("case", GRAPH_CARD_CASES, ids=str)
+@pytest.mark.parametrize("law", ["paper", "generic"])
+def test_graph_instance_matches_plain_version(card, case, law):
+    name, n_nodes, n_steps = case
+    spec = get_scenario(name).replace(n_nodes=n_nodes, n_intervals=n_steps)
+    args, kw, total = _graph_segment(card, spec, law)
+    limit = ks.graph_lane_limit(kw["con"], n_nodes, card)
+    assert (limit is None) == (n_nodes <= ks.block_nodes(spec.cache
+                                                         is not None))
+    before = ks.LAUNCHES
+    sk, hk = ks.sweep_segment(*args, **kw)
+    assert ks.LAUNCHES == before + 1
+    sp, hp = ks.sweep_segment_plain(*args, **kw)
+    torch.cuda.synchronize()
+    live = len(hk) - 2
+    assert torch.equal(sk[:, live:], args[0][:, live:])     # dead lanes
+    names, lp = kw["names"], args[3]
+    mk = fs._finalize_lanes(sk, hk, lp, kw["con"], names, n_steps, total)
+    mp = fs._finalize_lanes(sp, hp, lp, kw["con"], names, n_steps, total)
+    assert torch.equal(mk.makespan, mp.makespan)
+    if spec.cache is None:
+        assert torch.equal(sk, sp) and torch.equal(hk, hp)
+    else:
+        scale = sp.abs().amax(dim=(1, 2), keepdim=True).clamp_min(1e-30)
+        assert float(((sk - sp).abs() / scale).max()) <= 1e-6
+        assert int((hk != hp).sum()) <= live
+
+
+def test_graph_lane_chunk_that_cannot_be_resident_raises(card):
+    """The multi-block route launches cooperatively: a lane chunk past
+    co-residency is refused, never left to hang, and the largest one
+    that fits runs."""
+    spec = get_scenario("limplock").replace(n_nodes=4096, n_intervals=20)
+    args, kw, _ = _graph_segment(card, spec, "paper", n_dead=0)
+    state0, hist0, dtn, lp, rows, alive = args
+    limit = ks.graph_lane_limit(kw["con"], 4096, card)
+
+    def lanes(n):
+        reps = -(-n // lp.shape[1])
+        return (torch.cat([state0] * reps, 1)[:, :n].contiguous(),
+                torch.cat([hist0] * reps, 0)[:n].contiguous(), dtn,
+                torch.cat([lp] * reps, 1)[:, :n].contiguous(), rows,
+                torch.cat([alive] * reps, 1)[:, :n].contiguous())
+
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ks.sweep_segment(*lanes(limit + 1), **kw)
+    torch.cuda.synchronize()
+    state, _ = ks.sweep_segment(*lanes(limit), **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(state).all())
+
+
+def test_app_graph_sweeps_on_the_card_match_the_cpu(card):
+    for name in ("spark-dag", "limplock"):
+        spec = get_scenario(name).replace(n_intervals=300)
+        gains = grid_gains(lam=(0.5, 1.0, 1.6), r0=(0.9, 0.95),
+                           lam_grant=(None, 0.25))
+        a = run_sweep(spec, gains)
+        b = run_sweep(spec, gains, device="cpu")
+        assert stats_mismatches(a.stats, b.stats,
+                                n_samples=spec.n_nodes * 300) == []
+        np.testing.assert_array_equal(a.stats.makespan, b.stats.makespan)
 
 
 def _randn(card, shape, dtype, seed):

@@ -66,9 +66,16 @@ def test_port_imports_nothing_of_jax_or_repro(path):
     assert bad == [], f"{path.relative_to(REPO)} imports {bad}"
 
 
+def test_import_rule_covers_every_package_of_the_port():
+    """Each subpackage of the port (the runtime copies too) is walked."""
+    walked = {p.parent.name for p in _port_files()}
+    for pkg in ("core", "kernels", "lab", "runtime", "serving"):
+        assert pkg in walked
+
+
 def test_every_scenario_copy_builds_identical_inputs():
     copied = set(tsc.list_scenarios())
-    assert copied == set(jlab.list_scenarios()) - {"runtime-churn"}
+    assert copied == set(jlab.list_scenarios())
     for name in sorted(copied):
         js, ts = jlab.get_scenario(name), tsc.get_scenario(name)
         assert js.n_nodes == ts.n_nodes and js.n_intervals == ts.n_intervals
@@ -157,6 +164,8 @@ def test_entry_points_raise_without_cuda_when_no_device_given(monkeypatch):
         lambda: tsw.run_sweep(spec, g),
         lambda: ttu.tune_gains(spec, budget=4),
         lambda: ttu.halving_tune(spec, budget=4),
+        lambda: ttu.halving_tune(tsc.get_scenario("limplock").replace(
+            n_intervals=8), budget=4, objective="makespan"),
         lambda: fs.halving_sweep(demand, g, g, node_memory=125 * 2**30),
     ]
     for call in calls:
@@ -271,6 +280,9 @@ def test_kernel_layout_and_build_flags():
     assert [d[-1].rstrip(";") for d in decl if d] == fields
     assert ks.state_names(True, False)[:1] == ("u",)
     assert len(ks.state_names(False, True)) == 18
+    assert ks.state_names(False, True, True)[18:] == (
+        "sidx", "wleft", "wd", "wd_c", "t_done")
+    assert f"constexpr int kThreads = {ks.KERNEL_THREADS};" in src
 
 
 def test_convert_checks_gainset_fields():

@@ -23,6 +23,7 @@ from repro.lab import score as js
 from repro.lab.pallas_sweep import pallas_sweep_demand
 from repro_torch.convert import gainset_from_numpy
 from repro_torch.kernels import sweep as ks
+from repro_torch.lab import appgraph as tag
 from repro_torch.lab import fused_sweep as fs
 from repro_torch.lab import scenarios as tsc
 from repro_torch.lab import score as ts
@@ -34,11 +35,13 @@ from repro_torch.lab.sweep import (DEFAULT_CHUNK, _resolve_chunk,
 
 N_NODES, N_STEPS = 12, 96
 
-# Every registry scenario without an app_graph, less runtime-churn
-# (its demand comes from the runtime's fault machinery; a later slice).
+# Every registry scenario: the two AppGraph ones run their stage DAG
+# (JAX's fused engine falls back to its XLA scan for them), and
+# runtime-churn replays the demand of the runtime's fault machinery.
 SCENARIOS = ("bursty-serving", "cache-churn", "failover-churn",
-             "hetero-fleet", "paper-c1-spark45", "paper-c2-static25",
-             "paper-c3-dynims60", "paper-c4-nohpcc", "phase-replay",
+             "hetero-fleet", "limplock", "paper-c1-spark45",
+             "paper-c2-static25", "paper-c3-dynims60", "paper-c4-nohpcc",
+             "phase-replay", "runtime-churn", "spark-dag",
              "spark-iterative-cache", "swap-storm")
 
 
@@ -50,6 +53,15 @@ def _port_gains(g):
 def _port_cache(cache):
     return None if cache is None else tsc.CacheSpec(
         **dataclasses.asdict(cache))
+
+
+def _port_graph(graph):
+    if graph is None:
+        return None
+    stages = tuple(tag.StageSpec(**dataclasses.asdict(st))
+                   for st in graph.stages)
+    return tag.AppGraphSpec(**{**dataclasses.asdict(graph),
+                               "stages": stages})
 
 
 def _jax_gains(law="mixed"):
@@ -74,12 +86,14 @@ def _both(demand, jgains, spec, **kw):
     ref = pallas_sweep_demand(demand, jgains, node_memory=kw["m"],
                               interval_s=spec.interval_s,
                               occupancy=spec.occupancy, cache=spec.cache,
+                              app_graph=spec.app_graph,
                               **kw.get("jax_kw", {}))
     got = fused_sweep_demand(demand, _port_gains(jgains),
                              node_memory=kw["m"], interval_s=spec.interval_s,
                              occupancy=spec.occupancy,
-                             cache=_port_cache(spec.cache), device="cpu",
-                             **kw.get("port_kw", {}))
+                             cache=_port_cache(spec.cache),
+                             app_graph=_port_graph(spec.app_graph),
+                             device="cpu", **kw.get("port_kw", {}))
     return ref, got
 
 
@@ -89,28 +103,29 @@ def _assert_close(ref, got, n_steps=N_STEPS, n_nodes=N_NODES):
 
 
 def test_scenario_list_is_every_portable_registry_scenario():
-    want = {n for n in jlab.list_scenarios()
-            if jlab.get_scenario(n).app_graph is None} - {"runtime-churn"}
-    assert set(SCENARIOS) == want
+    assert set(SCENARIOS) == set(jlab.list_scenarios())
 
 
+@pytest.mark.filterwarnings("ignore:pallas_sweep_demand:RuntimeWarning")
 @pytest.mark.parametrize("name", SCENARIOS)
 def test_sweep_matches_jax_fused_engine(name):
-    """Every portable scenario, mixed law set (partitioned), as declared."""
+    """Every scenario, mixed law set (partitioned), as declared."""
     demand, m, spec = _inputs(name)
     ref, got = _both(demand, _jax_gains("mixed"), spec, m=m)
     _assert_close(ref, got)
 
 
-@pytest.mark.parametrize("name", ["swap-storm", "spark-iterative-cache"])
+@pytest.mark.parametrize("name", ["swap-storm", "spark-iterative-cache",
+                                  "runtime-churn", "spark-dag", "limplock"])
 def test_sweep_demand_matches_jax_xla_engine(name):
     demand, m, spec = _inputs(name, seed=5)
     jg = _jax_gains("mixed")
     ref = jlab.sweep_demand(demand, jg, node_memory=m, interval_s=0.1,
-                            cache=spec.cache, engine="xla")
+                            cache=spec.cache, app_graph=spec.app_graph,
+                            engine="xla")
     got = sweep_demand(demand, _port_gains(jg), node_memory=m,
                        interval_s=0.1, cache=_port_cache(spec.cache),
-                       device="cpu")
+                       app_graph=_port_graph(spec.app_graph), device="cpu")
     _assert_close(ref, got)
 
 
@@ -173,12 +188,19 @@ def test_run_sweep_matches_jax_run_sweep():
     assert b.throughput > 0
 
 
-def test_app_graph_scenarios_raise_not_implemented():
-    g = _port_gains(_jax_gains("paper"))
-    for name in ("spark-dag", "limplock"):
-        spec = tsc.get_scenario(name).replace(n_intervals=20)
-        with pytest.raises(NotImplementedError, match="app_graph|AppGraph"):
-            run_sweep(spec, g, device="cpu")
+@pytest.mark.parametrize("name", ["spark-dag", "limplock"])
+def test_app_graph_scenarios_run_and_match_jax(name):
+    """The AppGraph scenarios sweep through run_sweep (they raised
+    NotImplementedError before the carry was ported) and match JAX's
+    run_sweep, makespan included."""
+    jg = _jax_gains("paper")
+    a = jlab.run_sweep(jlab.get_scenario(name).replace(n_intervals=20), jg,
+                       seed=1)
+    b = run_sweep(tsc.get_scenario(name).replace(n_intervals=20),
+                  _port_gains(jg), seed=1, device="cpu")
+    _assert_close(a.stats, b.stats, n_steps=20,
+                  n_nodes=b.scenario.n_nodes)
+    assert (b.stats.makespan > 20 * 0.1).all()     # extrapolated: unfinished
 
 
 def test_bad_arguments_raise():
