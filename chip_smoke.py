@@ -52,7 +52,18 @@ each, all at once) and drives the port's main paths on the card:
   makespans equal to the CPU's; ``halving_tune(spark-dag, makespan)``
   making the CPU's decision; ``runtime-churn`` card against CPU; and
   the graph instance's times beside the graph-free instance on the same
-  demand.
+  demand;
+* FleetPlane and the ChaosPlane harness (phase 17): ``arbitrate`` on the
+  card bit for bit the CPU's under every policy, with its invariants;
+  ``fleet_sweep_demand`` (plain PyTorch: the JAX package runs the fleet
+  carry as XLA) on the registry's fleets under every policy, at
+  ``benchmarks/fleet_bench.py``'s largest row and at the sweep bench's
+  width, card against CPU, with its time, launches an interval and idle
+  share; the live FleetPlane (HPCC + Spark) on the card, its budgets
+  equal to a CPU FleetPlane's every epoch; the chaos drill
+  (``repro_torch.launch.chaos_drill``) at full size with planes on the
+  card, its gates held and its supervised retune, killed and restarted,
+  launching the sweep kernel.
 
 Decode attention at the engines' shapes (phases 9 and 13) is timed three
 ways, also in a fresh process that has built no plane (``chip_smoke.py
@@ -96,10 +107,17 @@ from repro_torch.core.cluster_sim import (make_paper_config,  # noqa: E402
                                           paper_controller_params, simulate,
                                           simulate_fleet)
 from repro_torch.core.monitor import SimulatedMonitor  # noqa: E402
+from repro_torch.core.control import ControllerParams  # noqa: E402
 from repro_torch.core.plane import (MemoryPlane, NodeSpec,  # noqa: E402
                                     PlaneSpec)
 from repro_torch.core.store import StoreRegistry  # noqa: E402
-from repro_torch.core.traces import GiB, fleet_demand_traces  # noqa: E402
+from repro_torch.fleet import (FleetExtras, FleetPlane,  # noqa: E402
+                               FleetSpec, POLICIES, TenantSpec, arbitrate,
+                               fleet_sweep_demand, get_fleet_scenario)
+from repro_torch.fleet.arbiter import ksum  # noqa: E402
+from repro_torch.fleet.sweep import _floors_and_budgets  # noqa: E402
+from repro_torch.core.traces import (GiB,  # noqa: E402
+                                     fleet_demand_traces, hpcc_trace)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as kd  # noqa: E402
 from repro_torch.kernels import flash_attention as kf  # noqa: E402
@@ -117,6 +135,7 @@ from repro_torch.lab.sweep import (DEFAULT_CHUNK, GainSet,  # noqa: E402
                                    sweep_demand)
 from repro_torch.lab.tune import (grid_gains, halving_tune,  # noqa: E402
                                   retune_online, tune_gains)
+from repro_torch.launch import chaos_drill  # noqa: E402
 from repro_torch.launch.profile_serve import (count_syncs,  # noqa: E402
                                               device_us, tick_launches,
                                               watch_ticks)
@@ -1911,6 +1930,284 @@ def phase16():
                                "halving": tuned, "times": times}
 
 
+# ---- FleetPlane (two-level arbitration) and the ChaosPlane harness ----
+
+FLEET_M = 125 * GiB                        # Table I's node memory
+# 16 grid gains around Table I: 4 lam x 4 r0
+FLEET_GAINS = grid_gains(lam=(0.3, 0.5, 0.8, 1.2),
+                         r0=(0.90, 0.92, 0.95, 0.97))
+# the 4096-node fleet: 1e-3 GiB of conservation slack is the float32
+# rounding of K summed grants (the sweep's own bracket)
+SLACK_GIB = -1e-3
+
+
+def phase17a():
+    """arbitrate on the card against the port's CPU arbitrate, bit for
+    bit, and its invariants at every node."""
+    k, n = 8, 4096
+    log(f"phase 17a: arbitrate on the card, (K, N) = ({k}, {n}), every "
+        f"policy, rr_offset 0..{k - 1}, against the CPU bit for bit")
+    rng = np.random.default_rng(17)
+    desired = torch.from_numpy(
+        (rng.uniform(0.0, 80.0, (k, n)) * GiB).astype(np.float32))
+    # nodes from 40 GiB: some too small for the floors, which then scale
+    m = torch.from_numpy(
+        (rng.uniform(40.0, 160.0, n) * GiB).astype(np.float32))
+    w = rng.uniform(0.5, 4.0, k)
+    fl = rng.uniform(0.0, 12.0, k) * GiB
+    order = tuple(int(i) for i in rng.permutation(k))
+    f_eff, _ = _floors_and_budgets(torch.tensor(w, dtype=torch.float32),
+                                   torch.tensor(fl, dtype=torch.float32), m)
+    d_card, m_card = desired.to(CUDA), m.to(CUDA)
+    differing, cons, floor_slack, times = 0, np.inf, np.inf, {}
+    for policy in POLICIES:
+        for off in range(k):
+            kw = dict(weights=w, floors=fl, priority_order=order,
+                      policy=policy, rr_offset=off)
+            card = arbitrate(d_card, m_card, **kw).cpu()
+            cpu = arbitrate(desired, m, **kw)
+            differing += int((card != cpu).sum())
+            cons = min(cons, float((m - ksum(card)).min()))
+            floor_slack = min(floor_slack, float((card - f_eff).min()))
+        times[policy] = cuda_ms(lambda: arbitrate(d_card, m_card, **kw))
+    log(f"  card == CPU bit for bit: {differing == 0} ({differing} of "
+        f"{3 * k * k * n} elements differ); floor slack min "
+        f"{floor_slack:.1f} B (>= 0); conservation slack min {cons:.1f} B "
+        f"({cons / GiB:.3e} GiB, >= {SLACK_GIB} GiB: float32 sums of {k} "
+        f"grants); ms a call " + ", ".join(
+            f"{p} {t:.4f}" for p, t in times.items()))
+    check(differing == 0, "arbitrate: the card differs from the CPU")
+    check(floor_slack >= 0.0, f"arbitrate: floor slack {floor_slack}")
+    check(cons >= SLACK_GIB * GiB, f"arbitrate: conservation slack {cons}")
+    return {"bit_identical": differing == 0, "floor_slack_b": floor_slack,
+            "conservation_slack_b": cons, "ms": times}
+
+
+def fleet_case(tag, demand, kw, gains=FLEET_GAINS, warm=False):
+    """One fleet sweep on the card against the CPU: brackets, bits, the
+    invariants, and its time; launches per interval and idle share over
+    its first epoch under the profiler (the profiler's table of a whole
+    call takes minutes to build)."""
+    k, n, t = demand.shape
+    if warm:
+        fleet_sweep_demand(demand, gains, **kw)
+    t0 = time.perf_counter()
+    card, card_ex = fleet_sweep_demand(demand, gains, **kw)
+    ms = (time.perf_counter() - t0) * 1e3      # numpy out: synchronized
+    t0 = time.perf_counter()
+    cpu, cpu_ex = fleet_sweep_demand(demand, gains, device="cpu", **kw)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    bad = stats_mismatches(card, cpu, n_samples=n * t)
+    diff = [f for f, a, b in zip(FleetStats._fields + FleetExtras._fields,
+                                 card + card_ex, cpu + cpu_ex)
+            if not np.array_equal(a, b)]
+    check(not bad, f"{tag}: card against CPU: {bad}")
+    for f in FleetExtras._fields:
+        np.testing.assert_allclose(getattr(card_ex, f), getattr(cpu_ex, f),
+                                   rtol=2e-4, atol=1e-3, err_msg=f"{tag} {f}")
+    cons = float(card_ex.conservation_slack_gib.min())
+    floor = float(card_ex.floor_slack_gib.min())
+    check(cons >= SLACK_GIB and floor >= SLACK_GIB,
+          f"{tag}: slack conservation {cons}, floor {floor}")
+    t_prof = kw["epoch_intervals"]
+    wall, table = _profiled(lambda: fleet_sweep_demand(
+        demand, gains, horizon=t_prof, **kw))
+    busy = sum(device_us(e) for e in table) / 1e3
+    n_launch = sum(e.count for e in table)
+    r = dict(ms=ms, cpu_ms=cpu_ms, bit_identical=not diff,
+             fields_differing=diff, conservation_slack_gib=cons,
+             floor_slack_gib=floor,
+             launches_per_interval=n_launch / t_prof,
+             idle_share=(1.0 - busy / wall) if busy > 0 else None,
+             device_busy_ms=busy, profiled_intervals=t_prof,
+             shape=f"{k} x {n} x {t} x {len(gains)}")
+    log(f"  {tag} ({r['shape']}, {kw.get('policy')}): {ms:.1f} ms end to "
+        f"end (CPU {cpu_ms:.1f}); card == CPU bit for bit: {not diff}"
+        + (f" (differ: {diff})" if diff else "") + f"; slack min "
+        f"conservation {cons:.3e}, floor {floor:.3e} GiB; "
+        f"{r['launches_per_interval']:.1f} launches an interval, device "
+        f"busy {busy:.1f} ms of {wall:.1f} (idle "
+        + (f"{r['idle_share']:.1%}" if busy > 0 else "not measured: the "
+           "profiler saw no device time") + f", over the first {t_prof} "
+        "intervals)")
+    return r
+
+
+def phase17b():
+    """The fleet sweep on the card: the registry's fleets under every
+    policy, fleet_bench's largest row, and the sweep bench's width."""
+    log(f"phase 17b: fleet_sweep_demand on the card, {len(FLEET_GAINS)} "
+        f"grid gains, against the CPU")
+    out = {}
+    for name in ("tenant-churn", "hpcc-spark"):
+        fs_ = get_fleet_scenario(name)
+        demand = fs_.build_demand(seed=0)
+        for policy in POLICIES:
+            kw = dict(node_memory=fs_.node_memory_gib * GiB,
+                      weights=fs_.weights(), floors=fs_.floors_bytes(),
+                      policy=policy, priority_order=fs_.priority_order(),
+                      epoch_intervals=fs_.epoch_intervals,
+                      interval_s=fs_.interval_s)
+            out[f"{name} {policy}"] = fleet_case(name, demand, kw,
+                                                 warm=not out)
+    # benchmarks/fleet_bench.py's problem: per-tenant fleet traces,
+    # weights 3..1, an 8 GiB floor on the last tenant, 50-interval epochs,
+    # its 16 gains; its largest row, then the sweep bench's 4096 nodes
+    bench_gains = grid_gains(lam=np.linspace(0.1, 1.8, 4),
+                             r0=np.linspace(0.88, 0.98, 4))
+    for k, n, t in ((8, 1024, 500), (4, 4096, 1000)):
+        demand = np.stack([fleet_demand_traces(n, t, 0.1, seed=j * 7919)
+                           for j in range(k)])
+        floors = np.zeros(k)
+        floors[-1] = 8.0 * GiB
+        kw = dict(node_memory=FLEET_M, weights=np.linspace(3.0, 1.0, k),
+                  floors=floors, policy="proportional",
+                  epoch_intervals=50, interval_s=0.1)
+        out[f"{k}x{n}x{t}"] = fleet_case(f"{k} tenants x {n} nodes", demand,
+                                         kw, gains=bench_gains)
+    return out
+
+
+MIXED_EPOCH, MIXED_EPOCHS, MIXED_NODES = 20, 12, 5
+
+
+def mixed_fleet(device):
+    """``examples/mixed_workload.py::build_fleet``: HPCC + Spark over 5
+    nodes x 125 GiB, proportional, 20-interval epochs; both tenants'
+    planes on the array backend on ``device``."""
+    horizon, interval_s = MIXED_EPOCHS * MIXED_EPOCH, 0.1
+    hpcc = hpcc_trace(horizon * interval_s, interval_s, seed=0)
+    hpcc = np.tile(hpcc, -(-horizon // len(hpcc)))[:horizon] / GiB
+    spark = (30.0 + 2.0 * np.random.default_rng(1).standard_normal(
+        horizon)).clip(20.0)
+
+    def nodes(trace_gib):
+        return tuple(
+            NodeSpec(f"node{i}", monitor=SimulatedMonitor(
+                f"node{i}", total=FLEET_M,
+                usage=lambda t, tr=trace_gib, i=i:
+                    float(tr[min(t, len(tr) - 1)]) * GiB * (0.9 + 0.05 * i)))
+            for i in range(MIXED_NODES))
+
+    def plane(trace_gib):
+        return PlaneSpec(params=ControllerParams(
+            total_memory=FLEET_M, u_max=60 * GiB, interval_s=interval_s),
+            nodes=nodes(trace_gib), backend="array", device=device)
+
+    return FleetSpec(tenants=(
+        TenantSpec("hpcc", plane(hpcc), weight=3.0, priority=1,
+                   floor_gib=10.0),
+        TenantSpec("spark", plane(spark), weight=1.0, priority=0,
+                   floor_gib=22.0)),
+        policy="proportional", epoch_intervals=MIXED_EPOCH,
+        fleet_memory_gib=FLEET_M / GiB)
+
+
+def phase17c():
+    """The live FleetPlane on the card against a CPU FleetPlane of the
+    same spec, tick for tick."""
+    log(f"phase 17c: the live FleetPlane on the card (HPCC + Spark, "
+        f"{MIXED_NODES} nodes x 125 GiB, {MIXED_EPOCHS} epochs of "
+        f"{MIXED_EPOCH}) against the CPU")
+    card, cpu = FleetPlane(mixed_fleet(None)), FleetPlane(mixed_fleet("cpu"))
+    check(card.budgets() == cpu.budgets(), "initial budgets differ")
+    tick_ms, epochs_equal, table = [], 0, []
+    for t in range(MIXED_EPOCHS * MIXED_EPOCH):
+        epoch = card.epoch
+        t0 = time.perf_counter()
+        got = card.tick()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        want = cpu.tick()
+        b = card.budgets()
+        check(sum(b.values()) <= FLEET_M, f"tick {t}: budgets sum "
+              f"{sum(b.values()) / GiB} GiB > 125")
+        for name, acts in got.items():
+            check(all(a.epoch == epoch for a in acts),
+                  f"tick {t}: {name} action not stamped with epoch {epoch}")
+            check([(a.node, a.u_next) for a in acts]
+                  == [(a.node, a.u_next) for a in want[name]],
+                  f"tick {t}: {name}'s card actions differ from the CPU's")
+        if (t + 1) % MIXED_EPOCH == 0:
+            check(b == cpu.budgets(), f"epoch {card.epoch}: card budgets "
+                  f"{b} != CPU {cpu.budgets()}")
+            epochs_equal += 1
+            table.append((card.epoch, b["hpcc"] / GiB, b["spark"] / GiB))
+    with count_syncs() as syncs:
+        for _ in range(10):
+            card.tick()
+    r = dict(epochs_bit_identical=epochs_equal,
+             tick_host_ms_median=statistics.median(tick_ms),
+             tick_host_ms_max=max(tick_ms), syncs_per_tick=len(syncs) / 10,
+             budgets_gib=[(e, round(h, 4), round(s, 4)) for e, h, s in table])
+    log(f"  budgets equal the CPU's bit for bit at {epochs_equal} of "
+        f"{MIXED_EPOCHS} epochs; conservation held at every tick; every "
+        f"action stamped with its epoch; epoch (hpcc, spark) GiB: "
+        + ", ".join(f"{e} ({h:.1f}, {s:.1f})" for e, h, s in table))
+    log(f"  fleet tick: {r['tick_host_ms_median']:.3f} ms median, "
+        f"{r['tick_host_ms_max']:.3f} max (host clock), "
+        f"{r['syncs_per_tick']:.1f} syncs a tick")
+    check(epochs_equal == MIXED_EPOCHS, "not every epoch compared")
+    return r
+
+
+def phase17d():
+    """The ChaosPlane drill at full size with planes on the card; its
+    supervised retune round launches the sweep kernel."""
+    log("phase 17d: the ChaosPlane drill (16 nodes, the full catalog, "
+        "retune-kill; then the fleet's crashed tenant), planes on the card")
+    out, runs = {}, {}
+    for where, device in (("card", None), ("cpu", "cpu")):
+        args = type("DrillArgs", (), dict(smoke=False, seed=0,
+                                          device=device))()
+        failures = []
+        if device is None:
+            ks.LAUNCHES = 0                # the drill's retune starts here
+        t0 = time.perf_counter()
+        plane, chaos, counts = chaos_drill.phase_memory_plane(args, failures)
+        if device is None:
+            out["sweep_launches"] = ks.LAUNCHES
+        fleet, fleet_counts = chaos_drill.phase_fleet_plane(args, failures)
+        check(not failures, f"drill on the {where}: {failures}")
+        runs[where] = (chaos.counts(), counts, fleet_counts, fleet.budgets())
+        out[f"{where}_s"] = time.perf_counter() - t0
+    (inj, counts, fcounts, budgets), (c_inj, c_counts, c_fcounts,
+                                      c_budgets) = runs["card"], runs["cpu"]
+
+    def steady(c):
+        # retune-kill and the restarts it causes hit the supervised
+        # attempts inside the window, whose timing is the host clock's
+        return {k: v for k, v in c.items() if not k.startswith("retune")}
+
+    check(steady(inj) == steady(c_inj),
+          f"injected faults: card {inj} != CPU {c_inj}")
+    check(steady(counts) == steady(c_counts),
+          f"plane fault log: card {counts} != CPU {c_counts}")
+    check(fcounts == c_fcounts and budgets == c_budgets,
+          "the fleet phase differs from the CPU's")
+    check(inj.get("retune-kill", 0) >= 1, "the retune was never killed")
+    check(out["sweep_launches"] >= 1,
+          "the restarted retune never launched the sweep kernel")
+    out.update(injected=inj, injected_cpu=c_inj)
+    log(f"  gates held on the card and on the CPU; injected faults equal "
+        f"but for retune-kill (card {inj.get('retune-kill')}, CPU "
+        f"{c_inj.get('retune-kill')}): {steady(inj)}; the restarted "
+        f"retune launched the sweep kernel {out['sweep_launches']} "
+        f"time(s); {out['card_s']:.1f} s on the card, {out['cpu_s']:.1f} s "
+        f"on the CPU")
+    return out
+
+
+def phase17():
+    """Phase 17: returns the sweep kernel's launches in the drill's
+    retune (17d) and the numbers."""
+    t0 = time.perf_counter()
+    r = {"arbitrate": phase17a(), "sweep": phase17b(),
+         "plane": phase17c(), "drill": phase17d()}
+    r["seconds"] = time.perf_counter() - t0
+    log(f"phase 17 seconds (host clock): {r['seconds']:.1f}")
+    return r["drill"]["sweep_launches"], r
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--decode-times"]:
         print(json.dumps(fresh_decode_times(json.loads(sys.argv[2]))))
@@ -2090,13 +2387,17 @@ def main() -> None:
     t16 = time.perf_counter()
     n_graph, graph_err, graph = phase16()
     log(f"phase 16 seconds (host clock): {time.perf_counter() - t16:.1f}")
+    n_drill, fleet17 = phase17()
+    log(f"main path: sweep kernel launched {n_drill} times (phase 17d's "
+        f"restarted retune)")
     kernel["launches_by_path"] = {
         "run_sweep, sweep_demand, tune_gains (phases 2-4)":
         kernel["launches"], "serving retune round (phase 15a)": n_retune,
         "paper testbed replays and 4096-node tunings (phase 15b)":
         n_testbed,
         "simulate_fleet (phase 15c)": n_fleet,
-        "AppGraph sweeps, gates and tunings (phase 16)": n_graph}
+        "AppGraph sweeps, gates and tunings (phase 16)": n_graph,
+        "ChaosPlane drill's supervised retune (phase 17d)": n_drill}
     kernel["max_abs_err"] = max(kernel["max_abs_err"], graph_err)
     big = graph["times"][f"spark-dag {N_NODES}x1800"]
     kernel["app_graph"] = {
@@ -2116,6 +2417,7 @@ def main() -> None:
     decode["launches_by_path"][f"{ARCH} serving with the retune (phase "
                                f"15a)"] = n_decode_r
     log("retune on the card: " + json.dumps(kernel["retune"], default=str))
+    log("fleet and chaos on the card: " + json.dumps(fleet17, default=str))
     ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter()]
     log("seconds by phase (host clock): " + ", ".join(
         f"{name} {end - start:.1f}"

@@ -1,7 +1,8 @@
 """Configs of the port: controller presets and model architectures.
 
 ``dynims`` holds paper Table I and the ScenarioLab presets.
-:func:`get_config` resolves ``--arch <id>`` for the architectures the
+:func:`get_shape` resolves a run shape of :data:`SHAPES`, and
+:func:`get_config` ``--arch <id>`` for the architectures the
 port serves so far, each with its ``-smoke`` reduction: ``llama3.2-1b``
 (dense) and ``hymba-1.5b`` (hybrid: attention and Mamba in parallel).
 The other architectures of the JAX package come with their families
@@ -32,5 +33,13 @@ def get_config(name: str) -> ArchConfig:
     return cfg.reduced() if smoke else cfg
 
 
+def get_shape(name: str) -> InputShape:
+    """The run shape ``name`` (a key of :data:`SHAPES`)."""
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; available: {list(SHAPES)}")
+    return SHAPES[name]
+
+
 __all__ = ["ARCH_IDS", "ArchConfig", "DECODE_32K", "InputShape",
-           "LONG_500K", "PREFILL_32K", "SHAPES", "TRAIN_4K", "get_config"]
+           "LONG_500K", "PREFILL_32K", "SHAPES", "TRAIN_4K", "get_config",
+           "get_shape"]

@@ -10,7 +10,9 @@ loaded from its module on first use: the kernel module reads
   scenario);
 * :mod:`.sweep` / :mod:`.fused_sweep` -- :func:`run_sweep` and
   :func:`sweep_demand` over the sweep kernel;
-* :mod:`.score` -- :class:`FleetStats` and the objectives;
+* :mod:`.score` -- :class:`FleetStats`, :func:`compute_fleet_stats`
+  (the dense history's stats, which the fleet sweep's float64 oracle
+  scores with) and the objectives;
 * :mod:`.tune` -- :func:`tune_gains`, :func:`halving_tune`,
   :func:`tune_portfolio` and the ReplayLoop's :func:`retune_online`.
 
@@ -19,8 +21,7 @@ loaded from its module on first use: the kernel module reads
   sweep runs.
 
 The JAX package's engine selection (``ENGINES``, ``XLA_DEFAULT_CHUNK``,
-``CODES_BUDGET_BYTES``, ``resolve_devices``) and ``compute_fleet_stats``
-have no counterpart here.
+``CODES_BUDGET_BYTES``, ``resolve_devices``) has no counterpart here.
 """
 
 import importlib
@@ -32,9 +33,9 @@ _EXPORTS = {
                   "TRACE_FAMILIES", "get_scenario", "list_scenarios",
                   "register_scenario"),
     "score": ("FleetStats", "OVER_R0_EPS", "QUANT_BINS", "QUANT_LEVELS",
-              "QUANT_RANGE", "RUNTIME_WEIGHT", "SETTLE_TOL", "default_score",
-              "finalize_fleet_stats", "hpl_slowdown_curve", "kahan_add",
-              "makespan_score", "quantile_from_codes", "runtime_score",
+              "QUANT_RANGE", "RUNTIME_WEIGHT", "SETTLE_TOL",
+              "compute_fleet_stats", "default_score", "finalize_fleet_stats",
+              "hpl_slowdown_curve", "kahan_add", "makespan_score", "quantile_from_codes", "runtime_score",
               "stats_to_dict", "utilization_codes"),
     "sweep": ("GainSet", "SweepPlan", "SweepResult", "paper_law_mask",
               "plan_specialization", "run_sweep", "sweep_demand"),

@@ -84,6 +84,82 @@ class FleetStats(NamedTuple):
     makespan: Array                  # AppGraph end-to-end makespan, s
 
 
+def _quantile(x: torch.Tensor, q: float) -> torch.Tensor:
+    """Linear-interpolated quantile of all of ``x``, in float32 as
+    ``jnp.quantile`` computes it (``torch.quantile`` refuses inputs over
+    16M elements)."""
+    flat = x.reshape(-1).sort().values
+    pos = f32(q, x.device) * f32(flat.numel() - 1, x.device)
+    lo = torch.floor(pos)
+    high_weight = pos - lo
+    low_weight = f32(1.0, x.device) - high_weight
+    return (flat[lo.to(torch.int64)] * low_weight
+            + flat[torch.ceil(pos).to(torch.int64)] * high_weight)
+
+
+def compute_fleet_stats(
+    utils: Array,
+    caps: Array,
+    *,
+    r0: Union[float, Array],
+    interval_s: float,
+    p99_utilization: Optional[Array] = None,
+    hit_ratio: Optional[Array] = None,
+    evicted_bytes: Optional[Array] = None,
+    app_runtime: Optional[Array] = None,
+    makespan: Optional[Array] = None,
+) -> FleetStats:
+    """Reduce a ``(T, N)`` closed-loop history to :class:`FleetStats`.
+
+    ``utils`` is the observed utilization ratio ``v / M`` per interval
+    and node; ``caps`` the granted storage capacity in bytes.  Numpy or
+    torch input; every field is a float32 0-d tensor on the input's
+    device (the CPU for numpy), computed in float32 as the reference's
+    ``jnp`` form computes it with x64 off.  The p99 is the linear
+    quantile of the dense history unless given; the CacheLoop fields
+    take their neutral values unless given.  The fleet sweep's float64
+    oracle (``fleet.sweep.fleet_reference``) scores its histories here.
+    """
+    utils = torch.as_tensor(utils).to(torch.float32)
+    caps = torch.as_tensor(caps).to(torch.float32)
+    dev = utils.device
+    t = utils.shape[0]
+    r0 = f32(r0, dev)
+    over = torch.clamp_min(utils - r0, 0.0)
+    fleet_max = utils.amax(dim=1)                          # (T,)
+    bad = fleet_max > r0 + f32(SETTLE_TOL, dev)
+    idx = torch.nonzero(bad)
+    last_bad = int(idx[-1, 0]) if idx.numel() else -1
+    if p99_utilization is None:
+        p99_utilization = _quantile(utils, 0.99)
+    ideal_s = t * interval_s
+    if app_runtime is None:
+        app_runtime = f32(ideal_s, dev)
+    app_runtime = f32(app_runtime, dev)
+    inv = f32(GiB, dev)
+    return FleetStats(
+        mean_utilization=utils.mean(),
+        p99_utilization=f32(p99_utilization, dev),
+        max_utilization=utils.amax(),
+        frac_intervals_over_r0=(utils > r0 + f32(OVER_R0_EPS, dev))
+        .to(torch.float32).mean(),
+        max_over_r0=over.amax(),
+        pressure_violation_rate=(utils > 1.0).to(torch.float32).mean(),
+        mean_capacity_gib=caps.mean() / inv,
+        capacity_std_gib=caps.std(correction=0) / inv,
+        granted_volume_gib_s=(caps.mean(dim=1).sum()
+                              * f32(interval_s, dev) / inv),
+        settle_intervals=torch.tensor(last_bad + 1, dtype=torch.int32,
+                                      device=dev),
+        hit_ratio=f32(1.0 if hit_ratio is None else hit_ratio, dev),
+        evicted_bytes=f32(0.0 if evicted_bytes is None else evicted_bytes,
+                          dev),
+        app_runtime=app_runtime,
+        app_slowdown=app_runtime / f32(ideal_s, dev),
+        makespan=f32(ideal_s if makespan is None else makespan, dev),
+    )
+
+
 def kahan_add(total: torch.Tensor, comp: torch.Tensor,
               x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """One compensated-summation step: ``total + x`` carrying ``comp``."""
@@ -285,7 +361,9 @@ def finalize_fleet_stats(
         max_over_r0=torch.clamp_min(max_util - r0, 0.0),
         pressure_violation_rate=viol_rate,
         mean_capacity_gib=caps_mean,
-        capacity_std_gib=torch.sqrt(caps_var),
+        # float64, rounded once: correctly rounded on both devices (the
+        # CPU's float32 sqrt is not, in one of ~160 elements)
+        capacity_std_gib=torch.sqrt(caps_var.double()).float(),
         granted_volume_gib_s=(caps_total / f32(n, dev)
                               * float(np.float32(interval_s))),
         settle_intervals=(last_bad.amax(-1) + 1).to(torch.int32),

@@ -16,9 +16,9 @@ their demand until the heartbeat resumes.
 
 The result is registered in the scenario registry as ``runtime-churn``
 (a ``replay``-family :class:`~repro_torch.lab.scenarios.ScenarioSpec`)
--- the path by which fault injection reaches lab sweeps.  (The JAX
-package also composes it into the multi-tenant ``tenant-churn`` fleet
-scenario, whose fleet modules the port does not have yet.)
+-- the path by which fault injection reaches lab sweeps -- and composed
+into the multi-tenant ``tenant-churn`` fleet scenario
+(:mod:`repro_torch.fleet.scenario`).
 """
 
 from __future__ import annotations

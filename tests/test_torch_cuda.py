@@ -513,3 +513,61 @@ def test_a_nonblocking_round_while_the_engine_steps(card):
     epochs = [a.epoch for a in acts]
     assert epochs == sorted(epochs) and epochs[-1] == eng.plane.epoch
     assert len(eng.finished) == 18
+
+
+# ---- FleetPlane ---------------------------------------------------------
+
+def test_fleet_sweep_on_the_card_equals_the_cpu(card):
+    from repro_torch.fleet import POLICIES, fleet_sweep_demand
+    rng = np.random.default_rng(0)
+    demand = rng.uniform(8.0, 48.0, (3, 40, 120)) * GiB
+    gains = grid_gains(lam=(0.5, 1.2), r0=(0.92, 0.95), lam_grant=(None, 0.3),
+                       deadband=(0.0, 0.01), feedforward=(0.0, 0.5))
+    for policy in POLICIES:
+        kw = dict(node_memory=125 * GiB, weights=np.array([3.0, 1.5, 1.0]),
+                  floors=np.array([10.0, 8.0, 0.0]) * GiB, policy=policy,
+                  priority_order=(2, 0, 1), epoch_intervals=30)
+        got = fleet_sweep_demand(demand, gains, device=card, **kw)
+        want = fleet_sweep_demand(demand, gains, device="cpu", **kw)
+        names = got[0]._fields + got[1]._fields
+        assert [f for f, a, b in zip(names, got[0] + got[1],
+                                     want[0] + want[1])
+                if not np.array_equal(a, b)] == [], policy
+
+
+def _card_fleet_spec(device):
+    from repro_torch.fleet import FleetSpec, TenantSpec
+
+    def tenant(name, base, **kw):
+        nodes = tuple(
+            NodeSpec(f"{name}-n{i}", monitor=SimulatedMonitor(
+                f"{name}-n{i}", total=125 * GiB,
+                usage=lambda t, b=base, i=i: (b + 15.0 * np.sin(0.3 * t + i))
+                * GiB))
+            for i in range(4))
+        return TenantSpec(name, PlaneSpec(
+            params=ControllerParams(total_memory=125 * GiB, u_max=60 * GiB),
+            nodes=nodes, device=device), **kw)
+
+    return FleetSpec(tenants=(tenant("heavy", 45.0, weight=3.0,
+                                     floor_gib=10.0),
+                              tenant("light", 20.0, weight=1.0,
+                                     floor_gib=8.0)),
+                     epoch_intervals=5)
+
+
+def test_fleet_plane_ticks_on_the_card(card):
+    from repro_torch.fleet import FleetPlane
+    on_card = FleetPlane(_card_fleet_spec(card))
+    on_cpu = FleetPlane(_card_fleet_spec("cpu"))
+    for tick in range(40):
+        a, b = on_card.tick(), on_cpu.tick()
+        for name in b:
+            assert [(x.node, x.u_next, x.epoch) for x in a[name]] == \
+                [(x.node, x.u_next, x.epoch) for x in b[name]], tick
+        assert on_card.budgets() == on_cpu.budgets(), tick
+    assert on_card.epoch == 8
+    torch.cuda.synchronize()
+    with count_syncs() as syncs:
+        on_card.tick()
+    assert len(syncs) == 2                  # one readback per tenant

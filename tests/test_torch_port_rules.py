@@ -13,6 +13,9 @@
   launches a kernel.
 * Each kernel library is built with its own flags and declarations;
   the sweep's flags, on which its bit parity rests, stay as they were.
+* The fleet and chaos copies: the fleet scenarios build demand equal
+  byte for byte, their specs equal the JAX package's field by field,
+  and the fault catalog is JAX's.
 """
 
 import ast
@@ -69,7 +72,8 @@ def test_port_imports_nothing_of_jax_or_repro(path):
 def test_import_rule_covers_every_package_of_the_port():
     """Each subpackage of the port (the runtime copies too) is walked."""
     walked = {p.parent.name for p in _port_files()}
-    for pkg in ("core", "kernels", "lab", "runtime", "serving"):
+    for pkg in ("core", "fleet", "kernels", "lab", "launch", "runtime",
+                "serving"):
         assert pkg in walked
 
 
@@ -171,6 +175,85 @@ def test_entry_points_raise_without_cuda_when_no_device_given(monkeypatch):
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+def test_fleet_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch import fleet as tf
+    from repro_torch.core import NodeSpec, PlaneSpec, SimulatedMonitor
+    from repro_torch.launch import chaos_drill
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = ttu.grid_gains(lam=(0.5,), r0=(0.95,))
+    demand = np.full((2, 3, 8), 30.0 * 2**30)
+    node = NodeSpec("n0", monitor=SimulatedMonitor(
+        "n0", total=125 * 2**30, usage=lambda k: 2**30))
+    tenant = tf.TenantSpec("t", PlaneSpec(params=td.PAPER_TABLE_I,
+                                          nodes=(node,)))
+    calls = [
+        lambda: tf.fleet_sweep_demand(demand, g, node_memory=125 * 2**30,
+                                      weights=np.ones(2),
+                                      floors=np.zeros(2), epoch_intervals=4),
+        lambda: tf.run_fleet_sweep("tenant-churn", g),
+        lambda: tf.FleetPlane(tf.FleetSpec(tenants=(tenant,))),
+        lambda: chaos_drill.main(["--smoke"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+@pytest.mark.parametrize("name", ["hpcc-spark", "tenant-churn"])
+def test_fleet_scenario_copies_build_identical_demand(name):
+    from repro.fleet import get_fleet_scenario as jax_fleet
+    from repro_torch.fleet import get_fleet_scenario
+    js, ts = jax_fleet(name), get_fleet_scenario(name)
+    for seed in (0, 5):
+        a, b = js.build_demand(seed=seed), ts.build_demand(seed=seed)
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.tobytes() == b.tobytes(), (name, seed)
+    assert ts.weights().tobytes() == js.weights().tobytes()
+    assert ts.floors_bytes().tobytes() == js.floors_bytes().tobytes()
+    assert ts.priority_order() == js.priority_order()
+    assert (ts.n_tenants, ts.n_nodes, ts.n_intervals, ts.interval_s) == \
+        (js.n_tenants, js.n_nodes, js.n_intervals, js.interval_s)
+
+
+def _fields(cls):
+    return [(f.name, f.default, str(f.type)) for f in dataclasses.fields(cls)]
+
+
+def test_fleet_specs_equal_the_jax_specs_field_by_field():
+    import repro.fleet as JF
+    import repro_torch.fleet as TF
+    for name in ("TenantSpec", "FleetSpec", "FleetScenario", "FleetTenant",
+                 "TenantTelemetry", "FleetGrant"):
+        assert _fields(getattr(TF, name)) == _fields(getattr(JF, name)), name
+    assert TF.POLICIES == JF.POLICIES
+    assert TF.MIN_TENANT_BUDGET == JF.MIN_TENANT_BUDGET
+    assert sorted(TF.__all__) == sorted(JF.__all__)
+    assert TF.list_fleet_scenarios() == JF.list_fleet_scenarios()
+    for name in TF.list_fleet_scenarios():
+        ts, js = TF.get_fleet_scenario(name), JF.get_fleet_scenario(name)
+        for f in ("name", "policy", "epoch_intervals", "node_memory_gib",
+                  "description"):
+            assert getattr(ts, f) == getattr(js, f), (name, f)
+        for tt, jt in zip(ts.tenants, js.tenants, strict=True):
+            assert (tt.name, tt.weight, tt.priority, tt.floor_gib) == \
+                (jt.name, jt.weight, jt.priority, jt.floor_gib)
+            if isinstance(jt.scenario, str):
+                assert tt.scenario == jt.scenario
+            else:
+                assert dataclasses.asdict(tt.scenario) == \
+                    dataclasses.asdict(jt.scenario)
+
+
+def test_chaos_catalog_equals_the_jax_catalog():
+    import repro.runtime as JR
+    import repro_torch.runtime as TR
+    assert TR.FAULT_KINDS == JR.FAULT_KINDS
+    assert TR.TELEMETRY_KINDS == JR.TELEMETRY_KINDS
+    assert TR.ACTUATION_KINDS == JR.ACTUATION_KINDS
+    for name in ("FaultSpec", "ChaosSpec", "InjectedFault"):
+        assert _fields(getattr(TR, name)) == _fields(getattr(JR, name)), name
 
 
 def test_serving_entry_points_raise_without_cuda(monkeypatch):
