@@ -63,7 +63,16 @@ each, all at once) and drives the port's main paths on the card:
   equal to a CPU FleetPlane's every epoch; the chaos drill
   (``repro_torch.launch.chaos_drill``) at full size with planes on the
   card, its gates held and its supervised retune, killed and restarted,
-  launching the sweep kernel.
+  launching the sweep kernel;
+* the training tenant (phase 18): llama3.2-1b trained at full width
+  for 6 steps through the training CLI's wiring (plain PyTorch under
+  autograd: no TPU kernel lies on this path), its shard cache under a
+  live plane, an async checkpoint at the end: the loss finite and
+  falling, ms a step, tokens/s, peak memory, the device's idle share,
+  the plane's ticks, the checkpoint's bytes and seconds; the smoke model
+  on the card against the CPU, and a restart on the card; the kernels
+  refusing inputs that require grad, and the trained model's forward
+  through flash attention against its training forward.
 
 Decode attention at the engines' shapes (phases 9 and 13) is timed three
 ways, also in a fresh process that has built no plane (``chip_smoke.py
@@ -85,9 +94,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -137,13 +148,14 @@ from repro_torch.lab.tune import (grid_gains, halving_tune,  # noqa: E402
                                   retune_online, tune_gains)
 from repro_torch.launch import chaos_drill  # noqa: E402
 from repro_torch.launch.profile_serve import (count_syncs,  # noqa: E402
-                                              device_us, tick_launches,
-                                              watch_ticks)
+                                              device_us, on_device,
+                                              tick_launches, watch_ticks)
 from repro_torch.launch.serve import (FULL_WIDTH,  # noqa: E402
                                       FULL_WIDTH_HYMBA, build_engine, serve)
+from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.launch.time_sweep import (_profiled,  # noqa: E402
                                            device_ms, time_fused_sweep)
-from repro_torch.models import decode as D  # noqa: E402
+from repro_torch.models import Model, decode as D  # noqa: E402
 from repro_torch.models.transformer import layer_windows  # noqa: E402
 from repro_torch.serving import ServingConfig, ServingEngine  # noqa: E402
 
@@ -2208,6 +2220,326 @@ def phase17():
     return r["drill"]["sweep_launches"], r
 
 
+# Phase 18: the training tenant.  18a trains llama3.2-1b at full width
+# through the training CLI's wiring; 18b the smoke model on the card
+# against the CPU; 18c the kernels' refusal of autograd and the trained
+# model's training forward against its kernel forward (B2).
+TRAIN_FULL = dict(arch="llama3.2-1b", steps=6, batch=8, seq=1024,
+                  microbatches=2)
+TRAIN_SMOKE = dict(arch="llama3.2-1b-smoke", steps=8, batch=4, seq=32,
+                   microbatches=2)
+TRAIN_PROFILED = (4, 5)          # 18a's steps under the profiler
+TRAIN_CARD_CPU_RTOL = 1e-5       # 18b: the smoke losses, card against CPU
+
+
+def train_args(w, tmp, device=None):
+    device = str(CUDA) if device is None else str(device)
+    return ttrain.parse_args([
+        "--arch", w["arch"], "--steps", str(w["steps"]),
+        "--batch-size", str(w["batch"]), "--seq-len", str(w["seq"]),
+        "--microbatches", str(w["microbatches"]),
+        "--data-dir", os.path.join(tmp, "corpus"),
+        "--checkpoint-dir", os.path.join(tmp, "ckpt"), "--device", device])
+
+
+def host_available_bytes():
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("/proc/meminfo has no MemAvailable")
+
+
+def profile_steps(trainer, steps):
+    """Run the trainer's steps ``steps`` (consecutive) under the profiler:
+    the window opens before the first one's step function (the device
+    idle) and closes after the last one's, synchronized.  Returns a dict
+    that the window's wall ms and its profiler fill in; ``window_rows``
+    reads the profiler after the run."""
+    inner, first, last = trainer._step_fn, steps[0], steps[-1]
+    out, calls = {}, iter(itertools.count())
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+
+    def stepped(params, state, batch):
+        step = next(calls)
+        if step == first:
+            torch.cuda.synchronize()
+            prof.start()
+            out["t0"] = time.perf_counter()
+        result = inner(params, state, batch)
+        if step == last:
+            torch.cuda.synchronize()
+            out["wall_ms"] = (time.perf_counter() - out.pop("t0")) * 1e3
+            prof.stop()
+            out["prof"] = prof
+        return result
+
+    trainer._step_fn = stepped
+    return out
+
+
+def window_rows(window):
+    """The profiled window's device busy ms, kernels and copies, and the
+    top six by device time."""
+    rows = [e for e in window.pop("prof").key_averages() if on_device(e)
+            and e.key != "Activity Buffer Request"]
+    window["busy_ms"] = sum(device_us(e) for e in rows) / 1e3
+    window["launches"] = sum(e.count for e in rows)
+    window["top"] = [(e.key[:50], round(device_us(e) / 1e3, 3), e.count)
+                     for e in sorted(rows, key=device_us, reverse=True)[:6]]
+    return window
+
+def time_adamw(trainer, state):
+    """One ``adamw_update`` over the whole model at the trained state
+    (the moments standing in for gradients), timed with CUDA events,
+    and its bound: 28 bytes a parameter at the card's memory rate."""
+    from repro_torch.optim import adamw_update
+    params = {n: p.detach() for n, p in trainer.model.named_parameters()}
+    lr = torch.tensor(3e-4, device=CUDA)
+    ms = cuda_ms(lambda: adamw_update(state.adam.mu, state.adam, params,
+                                      lr=lr), reps=3, warm=1)
+    n = sum(p.numel() for p in params.values())
+    return {"ms": ms, "bound_ms": 28 * n / PEAK_BYTES_S * 1e3}
+
+
+def phase18a(smi):
+    """Train llama3.2-1b at full width; returns the trained model and the
+    numbers."""
+    w = TRAIN_FULL
+    cfg = get_config(w["arch"])
+    log(f"phase 18a: train {cfg.name} at full width ({cfg.n_layers} layers,"
+        f" d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, tied; float32, no TF32; seed "
+        f"0) through launch/train.py's wiring: batch {w['batch']} x "
+        f"{w['seq']}, {w['microbatches']} microbatches, remat full, "
+        f"attention auto (dense), {w['steps']} steps, the shard cache under "
+        f"MemoryPlane(host_cache_params(64 GiB)), an async checkpoint at "
+        f"the end; on {smi}")
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    tmp = tempfile.mkdtemp(prefix="repro-torch-train-")
+    try:
+        trainer = ttrain.build(train_args(w, tmp), async_checkpoint=True,
+                               log_every=1)
+        model, pipe, plane = trainer.model, trainer.pipeline, trainer.plane
+        n_params = sum(p.numel() for p in model.parameters())
+        ckpt_need = 3 * 4 * n_params         # params, mu, nu in float32
+        disk = shutil.disk_usage(tmp).free
+        ram = host_available_bytes()
+        log(f"  params {n_params:,}; corpus {pipe.store.manifest}; the "
+            f"checkpoint needs {ckpt_need / 1e9:.2f} GB: temp disk "
+            f"{disk / 1e9:.1f} GB free, host RAM {ram / 1e9:.1f} GB "
+            f"available")
+        check(disk > 1.1 * ckpt_need and ram > 1.1 * ckpt_need,
+              f"the machine cannot hold the {ckpt_need / 1e9:.2f} GB "
+              f"checkpoint: {disk / 1e9:.1f} GB of temp disk, "
+              f"{ram / 1e9:.1f} GB of RAM")
+        window = profile_steps(trainer, TRAIN_PROFILED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ks.LAUNCHES = kd.LAUNCHES = kf.LAUNCHES = kscan.LAUNCHES = 0
+        t0 = time.monotonic()
+        _, state = trainer.fit()
+        t_end = time.monotonic()
+        launched = {"sweep": ks.LAUNCHES, "decode": kd.LAUNCHES,
+                    "flash": kf.LAUNCHES, "scan": kscan.LAUNCHES}
+        check(not any(launched.values()), f"the training path launched "
+              f"{launched}")
+        peak = torch.cuda.max_memory_allocated()
+        window_rows(window)
+        opt = time_adamw(trainer, state)
+        del state
+        pipe.close()
+        rows = trainer.metrics_log
+        losses = [r["loss"] for r in rows]
+        check(len(rows) == w["steps"] and all(map(math.isfinite, losses)),
+              f"losses {losses}")
+        check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+        ends = [t0] + trainer.logged_at
+        step_ms = [(b - a) * 1e3 for a, b in zip(ends, ends[1:])]
+        plain = [step_ms[i] for i in range(1, w["steps"])
+                 if i not in TRAIN_PROFILED]
+        med = statistics.median(plain)
+        slowest = max(plain)
+        tokens = w["batch"] * w["seq"]
+        step_dir = os.path.join(tmp, "ckpt", f"step-{w['steps']:09d}")
+        ckpt_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                         for f in os.listdir(step_dir))
+        ckpt_s = t_end - trainer.logged_at[-1]
+        health = plane.health()
+        idle = 1.0 - window["busy_ms"] / window["wall_ms"]
+        log(f"  losses {[round(x, 4) for x in losses]}: finite, "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+        log(f"  ms a step (host clock, each ending in its metrics' read): "
+            f"{[round(x, 1) for x in step_ms]} (step 0 the first call's "
+            f"setup; steps {TRAIN_PROFILED} under the profiler, the last "
+            f"also its stop); unprofiled steps median {med:.1f}, max "
+            f"{slowest:.1f}; "
+            f"{tokens / med * 1e3:.1f} tokens/s; lr peak "
+            f"{max(r['lr'] for r in rows):.2e}")
+        log(f"  peak memory allocated {peak / 1e9:.2f} GB "
+            f"(torch.cuda.max_memory_allocated)")
+        log(f"  profiler window, steps {TRAIN_PROFILED}: {window['wall_ms']:.1f}"
+            f" ms, device busy {window['busy_ms']:.1f} ms, idle "
+            f"{idle:.1%}, {window['launches']} kernels and copies; top "
+            f"{window['top']}")
+        log(f"  adamw_update alone on the run's moments: {opt['ms']:.2f} ms "
+            f"(CUDA events) against a {opt['bound_ms']:.2f} ms bound "
+            f"(bytes: read p, g, m, v, write p, m, v), "
+            f"{opt['ms'] / med:.1%} of a step")
+        log(f"  plane: {health.ticks} ticks, {len(plane.actions())} actions,"
+            f" {health.summary()}; cache hit ratio {pipe.hit_ratio:.3f}, "
+            f"store reads {pipe.store.reads}")
+        check(health.ticks == w["steps"], f"{health.ticks} plane ticks for "
+              f"{w['steps']} steps")
+        log(f"  checkpoint: {ckpt_bytes / 1e9:.3f} GB written in "
+            f"{ckpt_s:.1f} s after the last step's read (staging and "
+            f"write; host clock)")
+        return model, {
+            "arch": cfg.name, "params": n_params, "tokens_per_step": tokens,
+            "losses": losses, "step_ms": step_ms, "step_ms_median": med,
+            "step_ms_max": slowest, "tokens_s": tokens / med * 1e3,
+            "adamw_ms": opt["ms"], "adamw_bound_ms": opt["bound_ms"],
+            "peak_gb": peak / 1e9, "idle_share": idle,
+            "profiled_ms": window["wall_ms"], "busy_ms": window["busy_ms"],
+            "launches_2_steps": window["launches"],
+            "plane_ticks": health.ticks, "plane_actions": len(
+                plane.actions()), "cache_hit": pipe.hit_ratio,
+            "checkpoint_gb": ckpt_bytes / 1e9, "checkpoint_s": ckpt_s}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def smoke_trainer(w, tmp, ckpt, model, device, steps=None,
+                  schedule_steps=None):
+    """A trainer over the smoke corpus with ``model`` on ``device``."""
+    args = train_args(dict(w, steps=schedule_steps or w["steps"]), tmp,
+                      device)
+    args.checkpoint_dir = os.path.join(tmp, ckpt)
+    return ttrain.build(args, model=model, steps=steps or w["steps"],
+                        checkpoint_every=4, log_every=1)
+
+
+def phase18b():
+    """The smoke model on the card against the CPU, and restart on the
+    card."""
+    w = TRAIN_SMOKE
+    cfg = get_config(w["arch"])
+    log(f"phase 18b: {cfg.name} for {w['steps']} steps on the card and on "
+        f"the CPU from the same init; restart on the card (straight against "
+        f"4 steps, a crash and resume to {w['steps']})")
+    init = Model(cfg, seed=0, device="cpu")
+
+    def copy_of(device):
+        m = Model(cfg, device=device, init=False)
+        with torch.no_grad():
+            for p, q in zip(m.parameters(), init.parameters()):
+                p.copy_(q)
+        return m
+
+    tmp = tempfile.mkdtemp(prefix="repro-torch-smoke-")
+    try:
+        runs = []
+        for i, dev in enumerate((torch.device("cpu"), CUDA)):
+            tr = smoke_trainer(w, tmp, f"ck-{i}", copy_of(dev), dev)
+            params, _ = tr.fit()
+            tr.pipeline.close()
+            runs.append(([r["loss"] for r in tr.metrics_log], params))
+        (lc, _), (lg, straight) = runs
+        rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+        check(rel <= TRAIN_CARD_CPU_RTOL, f"card losses {lg} against CPU "
+              f"{lc}: {rel:.3e} relative (bound {TRAIN_CARD_CPU_RTOL})")
+        log(f"  losses card {[round(x, 6) for x in lg]}; CPU "
+            f"{[round(x, 6) for x in lc]}; max relative difference "
+            f"{rel:.3e} (bound {TRAIN_CARD_CPU_RTOL})")
+        tr = smoke_trainer(w, tmp, "ck-crash", copy_of(CUDA), CUDA,
+                           steps=4, schedule_steps=w["steps"])
+        tr.fit()
+        tr.pipeline.close()
+        junk = Model(cfg, seed=42, device=CUDA)
+        tr = smoke_trainer(w, tmp, "ck-crash", junk, CUDA)
+        resumed, _ = tr.resume()
+        tr.pipeline.close()
+        worst = 0.0
+        for name, a in straight.items():
+            b = resumed[name]
+            check(torch.allclose(b, a, atol=1e-6, rtol=1e-5),
+                  f"resumed {name} differs from the straight run")
+            worst = max(worst, float((a - b).abs().max()))
+        log(f"  restart on the card: resumed at step 4, final parameters "
+            f"within atol 1e-6, rtol 1e-5 of the straight run (max |diff| "
+            f"{worst:.3e}; the embedding's backward adds with atomics)")
+        return {"loss_rel_card_cpu": rel, "restart_max_abs": worst}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase18c(model):
+    """The kernels refuse autograd; the trained model's training forward
+    against its kernel forward.  Returns flash attention's launches."""
+    log("phase 18c: the kernels refuse inputs that require grad; the "
+        "trained model's training forward (plain dense attention) against "
+        "Model.forward (flash attention, B2, f32 3xTF32), 2 x 256 tokens")
+    gen = torch.Generator(device=CUDA).manual_seed(18)
+    kc = torch.randn((1, 64, 2, 64), generator=gen, device=CUDA)
+    a = torch.rand((1, 16, 8, 4), generator=gen, device=CUDA)
+    lens = torch.tensor([64], dtype=torch.int32, device=CUDA)
+    h0 = torch.zeros((1, 8, 4), device=CUDA)
+    calls = {
+        "flash_attention": (lambda x: kf.flash_attention(x, kc, kc),
+                            torch.randn((1, 64, 4, 64), generator=gen,
+                                        device=CUDA)),
+        "decode_attention": (lambda x: kd.decode_attention(x, kc, kc, lens),
+                             torch.randn((1, 4, 64), generator=gen,
+                                         device=CUDA)),
+        "ssm_scan": (lambda x: kscan.ssm_scan(x, a, h0), a.clone()),
+    }
+    before = (kf.LAUNCHES, kd.LAUNCHES, kscan.LAUNCHES)
+    for name, (call, x) in calls.items():
+        x.requires_grad_(True)
+        try:
+            call(x)
+        except RuntimeError as exc:
+            check("no backward" in str(exc), f"{name}: {exc}")
+        else:
+            raise AssertionError(f"{name} took an input that requires grad")
+    check((kf.LAUNCHES, kd.LAUNCHES, kscan.LAUNCHES) == before,
+          "a refused call launched a kernel")
+    log(f"  {', '.join(calls)}: each raised under autograd, no launch")
+    cfg = model.cfg
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen,
+                           device=CUDA)
+    with torch.no_grad():
+        ref = model.forward_train(tokens)
+        kf.LAUNCHES = 0                    # the kernel forward starts here
+        got = model(tokens)
+        launches = kf.LAUNCHES
+    check(launches == cfg.n_layers, f"the forward launched flash attention "
+          f"{launches} times for {cfg.n_layers} layers")
+    check(bool(torch.isfinite(got).all()), "non-finite kernel logits")
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    check(rel < 5e-3, f"kernel forward against training forward: {rel:.3e} "
+          f"relative (bound 5e-3)")
+    log(f"  flash attention launched {launches} times; max relative "
+        f"difference {rel:.3e} (phase 8's bound 5e-3)")
+    return launches, {"forward_vs_train_rel": rel}
+
+
+def phase18(smi):
+    """Phase 18: returns flash attention's launches in 18c and the
+    numbers."""
+    t0 = time.perf_counter()
+    model, full = phase18a(smi)
+    r = {"full_width": full, "smoke": phase18b()}
+    n_flash, r["kernel_forward"] = phase18c(model)
+    del model
+    torch.cuda.empty_cache()
+    r["seconds"] = time.perf_counter() - t0
+    log(f"phase 18 seconds (host clock): {r['seconds']:.1f}")
+    return n_flash, r
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--decode-times"]:
         print(json.dumps(fresh_decode_times(json.loads(sys.argv[2]))))
@@ -2390,6 +2722,13 @@ def main() -> None:
     n_drill, fleet17 = phase17()
     log(f"main path: sweep kernel launched {n_drill} times (phase 17d's "
         f"restarted retune)")
+    n_flash_t, training = phase18(smi)
+    log(f"main path: phase 18a's training launched none of the four "
+        f"kernels; flash attention launched {n_flash_t} times (phase 18c's "
+        f"kernel forward of the trained model)")
+    flash["launches"] += n_flash_t
+    flash["launches_by_path"][f"{ARCH} trained model's forward (phase "
+                              f"18c)"] = n_flash_t
     kernel["launches_by_path"] = {
         "run_sweep, sweep_demand, tune_gains (phases 2-4)":
         kernel["launches"], "serving retune round (phase 15a)": n_retune,
@@ -2418,6 +2757,7 @@ def main() -> None:
                                f"15a)"] = n_decode_r
     log("retune on the card: " + json.dumps(kernel["retune"], default=str))
     log("fleet and chaos on the card: " + json.dumps(fleet17, default=str))
+    log("training on the card: " + json.dumps(training, default=str))
     ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter()]
     log("seconds by phase (host clock): " + ", ".join(
         f"{name} {end - start:.1f}"

@@ -5,8 +5,11 @@ The controller's gains -- :class:`GainSet` and :class:`ControllerParams`
 or a field-by-field dict).  A model's parameter pytree crosses over as
 ``jax.tree.map(np.asarray, params)``, its layers stacked flat or in the
 grouped local:global stack, into the port's :class:`Model`
-(:func:`model_params_from_numpy`).  Both packages then compute on
-identical numbers while neither imports the other.
+(:func:`model_params_from_numpy`), and an optimizer's ``AdamWState``
+(stacked moments and the step) into the port's
+(:func:`train_state_from_numpy`), so a JAX checkpoint resumes in the
+port.  Both packages then compute on identical numbers while neither
+imports the other.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from .core.control import ControllerParams
 from .device import DeviceLike
 from .lab.sweep import GainSet
 from .models.transformer import Model
+from .optim.adamw import AdamWState
 
 
 def gainset_from_numpy(fields: Mapping[str, np.ndarray]) -> GainSet:
@@ -103,6 +107,26 @@ def _named(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+def _port_arrays(tree: Mapping, cfg: ArchConfig) -> Dict[str, np.ndarray]:
+    """A parameter-shaped JAX tree's arrays under the port's names."""
+    layers = _layer_trees(tree["layers"], cfg)
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"the tree stacks {len(layers)} layers, {cfg.name} "
+                         f"has {cfg.n_layers}")
+    arrays = _named({k: v for k, v in tree.items() if k != "layers"})
+    for i, layer in enumerate(layers):
+        arrays.update(_named(layer, f"layers.{i}."))
+    return arrays
+
+
+def _check_names(want, have) -> None:
+    missing, extra = set(want) - set(have), set(have) - set(want)
+    if missing or extra:
+        raise ValueError(f"parameters missing from the tree: "
+                         f"{sorted(missing)}; parameters the port does not "
+                         f"carry: {sorted(extra)}")
+
+
 def model_params_from_numpy(tree: Mapping, cfg: ArchConfig, *,
                             device: DeviceLike = None) -> Model:
     """A :class:`Model` holding the JAX parameter pytree's numbers.
@@ -118,19 +142,9 @@ def model_params_from_numpy(tree: Mapping, cfg: ArchConfig, *,
     dtype = torch.from_numpy(
         np.empty(0, np.asarray(tree["embed"]["tokens"]).dtype)).dtype
     model = Model(cfg, dtype=dtype, device=device, init=False)
-    layers = _layer_trees(tree["layers"], cfg)
-    if len(layers) != cfg.n_layers:
-        raise ValueError(f"the tree stacks {len(layers)} layers, {cfg.name} "
-                         f"has {cfg.n_layers}")
-    arrays = _named({k: v for k, v in tree.items() if k != "layers"})
-    for i, layer in enumerate(layers):
-        arrays.update(_named(layer, f"layers.{i}."))
+    arrays = _port_arrays(tree, cfg)
     params = dict(model.named_parameters())
-    missing, extra = set(params) - set(arrays), set(arrays) - set(params)
-    if missing or extra:
-        raise ValueError(f"parameters missing from the tree: "
-                         f"{sorted(missing)}; parameters the port does not "
-                         f"carry: {sorted(extra)}")
+    _check_names(params, arrays)
     with torch.no_grad():
         for name, param in params.items():
             src = torch.from_numpy(np.array(arrays[name]))
@@ -139,3 +153,32 @@ def model_params_from_numpy(tree: Mapping, cfg: ArchConfig, *,
                                  f"the port has {tuple(param.shape)}")
             param.copy_(src)
     return model
+
+
+def train_state_from_numpy(adam_tree, model: Model) -> AdamWState:
+    """The port's :class:`AdamWState` from JAX's, as numpy.
+
+    ``adam_tree`` is JAX's ``AdamWState`` (or a mapping with its fields)
+    after ``jax.tree.map(np.asarray, ...)`` or a restored checkpoint's
+    ``"opt"``: ``mu`` and ``nu`` parameter-shaped, stacked as the
+    parameters are (:func:`_layer_trees`), ``step`` an int32 scalar.
+    The moments land under the model's parameter names, float32, on the
+    model's device.  Raises on a missing, extra or misshapen array.
+    """
+    get = (adam_tree.get if isinstance(adam_tree, Mapping)
+           else lambda k: getattr(adam_tree, k))
+    params = dict(model.named_parameters())
+    moments = {}
+    for field in ("mu", "nu"):
+        arrays = _port_arrays(get(field), model.cfg)
+        _check_names(params, arrays)
+        moments[field] = {}
+        for name, p in params.items():
+            a = np.asarray(arrays[name], np.float32)
+            if a.shape != tuple(p.shape):
+                raise ValueError(f"{field} {name}: shape {a.shape} where "
+                                 f"the port has {tuple(p.shape)}")
+            moments[field][name] = torch.from_numpy(a.copy()).to(p.device)
+    step = torch.tensor(int(np.asarray(get("step"))), dtype=torch.int32,
+                        device=model.device)
+    return AdamWState(step=step, mu=moments["mu"], nu=moments["nu"])

@@ -180,6 +180,7 @@ def vectorized_step(
     feedforward: float = 0.0,
     inv_total_memory: Optional[Scalar] = None,
     inv_r0: Optional[Scalar] = None,
+    lam_inv_r0: Optional[Scalar] = None,
 ) -> torch.Tensor:
     """Eq. 1 applied to ``N`` node controllers at once.
 
@@ -188,7 +189,10 @@ def vectorized_step(
     / ``inv_r0`` are precomputed reciprocals for hot loops: two
     divisions per interval become multiplies.  ``lam_grant=None`` and a
     Python ``deadband == 0.0`` are resolved here, before any arithmetic,
-    as the JAX form resolves them at trace time.
+    as the JAX form resolves them at trace time.  ``lam_inv_r0``, the
+    float32 product ``lam * (1 / r0)``, takes XLA's form for a
+    one-element fleet with constant gains: ``u - (v_eff * err) *
+    lam_inv_r0``, contracted (ROADMAP C18).
     """
     u = torch.as_tensor(u, dtype=torch.float32)
     dev = u.device
@@ -204,11 +208,17 @@ def vectorized_step(
         lam_eff = f32(lam, dev)
     else:
         lam_eff = torch.where(err < 0, f32(lam_grant, dev), f32(lam, dev))
-    if inv_r0 is not None:
-        scaled_err = err * f32(inv_r0, dev)
+    if lam_inv_r0 is not None:
+        if lam_grant is not None:
+            raise ValueError("lam_inv_r0 folds a constant lam; it cannot "
+                             "take an asymmetric lam_grant")
+        u_next = fma(-(v_eff * err), f32(lam_inv_r0, dev), u)
     else:
-        scaled_err = err / f32(r0, dev)
-    u_next = fma(-(lam_eff * v_eff), scaled_err, u)     # u - delta
+        if inv_r0 is not None:
+            scaled_err = err * f32(inv_r0, dev)
+        else:
+            scaled_err = err / f32(r0, dev)
+        u_next = fma(-(lam_eff * v_eff), scaled_err, u)     # u - delta
     if not (isinstance(deadband, (int, float)) and deadband == 0.0):
         # With no deadband the hold could only trigger at err == 0,
         # where delta is 0 anyway -- identical result, fewer ops.

@@ -689,9 +689,12 @@ def make_fused_step(params: ControllerParams, device: DeviceLike = None):
     float32 reciprocal and contracts the law's multiply-adds into FMAs;
     the step does the same (``inv_r0``, and ``fma`` inside
     :func:`~repro_torch.core.control.vectorized_step`), so on the CPU
-    its ``u_next`` equals JAX's bit for bit.  Call it with the device's
-    current stream set as the caller will run it (the constants are
-    filled on that stream).
+    its ``u_next`` equals JAX's bit for bit.  For a one-node fleet XLA
+    goes further and folds ``lam`` and ``1 / r0`` into one constant
+    (``u - (v_eff * err) * f32(lam / r0)``, contracted; ROADMAP C18); the
+    step does that too when ``u`` holds one node.  Call it with the
+    device's current stream set as the caller will run it (the constants
+    are filled on that stream).
     """
     dev = resolve_device(device)
     ff = params.feedforward
@@ -699,6 +702,9 @@ def make_fused_step(params: ControllerParams, device: DeviceLike = None):
     inv_r0 = f32(np.float32(1.0) / np.float32(params.r0), dev)
     lam_grant = (None if params.lam_grant is None
                  else f32(params.lam_grant, dev))
+    lam_inv_r0 = (None if lam_grant is not None else f32(
+        np.float32(params.lam) * (np.float32(1.0) / np.float32(params.r0)),
+        dev))
     # a Python 0.0 lets vectorized_step skip the hold, as JAX's trace does
     deadband = (params.deadband if params.deadband == 0.0
                 else f32(params.deadband, dev))
@@ -710,7 +716,8 @@ def make_fused_step(params: ControllerParams, device: DeviceLike = None):
         u_next = vectorized_step(
             u, v, total_memory=m, r0=r0, lam=lam, u_min=u_min,
             u_max=u_max, lam_grant=lam_grant, deadband=deadband,
-            v_prev=vp, feedforward=ff, inv_r0=inv_r0)
+            v_prev=vp, feedforward=ff, inv_r0=inv_r0,
+            lam_inv_r0=lam_inv_r0 if u.shape[-1] == 1 else None)
         return torch.where(mask, u_next, u)
 
     return fused

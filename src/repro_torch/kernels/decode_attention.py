@@ -11,6 +11,8 @@ head ``h`` reads kv head ``h // (H // KV)``.
   take :func:`decode_attention_plain`; CUDA tensors launch the kernel in
   ``csrc/decode_attention.cu`` (built at first use by
   :mod:`repro_torch.kernels._build`) or raise.  Nothing falls back.
+  Inputs that require grad raise under grad mode: the kernel has no
+  backward.
 * :func:`decode_attention_plain` is ``decode_attention_ref`` of the JAX
   package in float32, except that cache rows outside the kept range are
   zeroed before use: the kernel never reads them, so a NaN written there
@@ -42,6 +44,8 @@ import functools
 from typing import Dict
 
 import torch
+
+from . import refuse_autograd
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
@@ -199,8 +203,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """q (B, H, hd), caches (B, S, KV, hd), lengths (B,) -> (B, H, hd).
 
     CPU tensors run :func:`decode_attention_plain`; CUDA tensors launch
-    the kernel.  Any other device raises.
+    the kernel.  Any other device raises, and so do inputs that require
+    grad while grad mode is on.
     """
+    refuse_autograd("decode_attention", (q, k_cache, v_cache),
+                    "the differentiable plain path, repro_torch.models."
+                    "attention.attention_dense over the cache")
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, lengths,
                                       window=window)

@@ -12,6 +12,8 @@ float32, out in q's type.  Query head ``h`` reads kv head
 * :func:`flash_attention` dispatches on where ``q`` lies: CPU tensors
   take :func:`flash_attention_plain`; CUDA tensors launch the kernel in
   ``csrc/flash_attention.cu`` or raise.  Nothing falls back.
+  Inputs that require grad raise under grad mode: the kernel has no
+  backward.
 * :func:`flash_attention_plain` is ``attention_ref`` of the JAX package:
   materialized float32 logits, masked, softmax.
 * :data:`LAUNCHES` counts kernel launches, and only those.
@@ -25,6 +27,8 @@ as 3xTF32 on them, near f32 accuracy.
 from __future__ import annotations
 
 import torch
+
+from . import refuse_autograd
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
@@ -121,8 +125,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B, Sq, H, hd), k/v (B, Skv, KV, hd) -> (B, Sq, H, hd).
 
     CPU tensors run :func:`flash_attention_plain`; CUDA tensors launch
-    the kernel.  Any other device raises.
+    the kernel.  Any other device raises, and so do inputs that require
+    grad while grad mode is on.
     """
+    refuse_autograd("flash_attention", (q, k, v),
+                    "the differentiable plain path, repro_torch.models."
+                    "attention.attention_dense or attention_chunked "
+                    "(Model.forward_train)")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":

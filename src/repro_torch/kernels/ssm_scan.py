@@ -10,6 +10,8 @@ every ``h_t`` comes back, ``(B, S, C, N)`` float32.
   :func:`ssm_scan_plain`; CUDA tensors launch the kernel in
   ``csrc/ssm_scan.cu`` (built at first use by
   :mod:`repro_torch.kernels._build`) or raise.  Nothing falls back.
+  Inputs that require grad raise under grad mode: the kernel has no
+  backward.
 * :func:`ssm_scan_plain` walks time on tensors in float32, with the
   product and the sum rounded separately, as the kernel rounds them:
   the two agree bit for bit.
@@ -22,6 +24,8 @@ Types: decay and drive alike in float32 or bfloat16, h0 float32.  Any
 from __future__ import annotations
 
 import torch
+
+from . import refuse_autograd
 
 # Kernel launches since import (or since a caller reset it).
 LAUNCHES = 0
@@ -86,8 +90,12 @@ def ssm_scan(decay: torch.Tensor, drive: torch.Tensor,
     """decay/drive (B, S, C, N), h0 (B, C, N) -> (B, S, C, N) float32.
 
     CPU tensors run :func:`ssm_scan_plain`; CUDA tensors launch the
-    kernel.  Any other device raises.
+    kernel.  Any other device raises, and so do inputs that require grad
+    while grad mode is on.
     """
+    refuse_autograd("ssm_scan", (decay, drive, h0),
+                    "the differentiable plain path, ssm_scan_plain (a "
+                    "trainable Mamba scan is queued: ROADMAP A5)")
     if decay.device.type == "cpu":
         return ssm_scan_plain(decay, drive, h0)
     if decay.device.type != "cuda":

@@ -1,17 +1,19 @@
 """Grouped-query attention: projections, self-attention, decode.
 
-The port of ``repro/models/attention.py`` for the dense family.  Where
-the JAX package chooses between materialized logits and a chunked scan
-(``attention_dense``/``attention_chunked``), the port's self-attention
-is the flash kernel (B2) over positions ``arange(S)``; one token
-against a cache is the decode kernel (B3).  Weights keep the JAX
+The port of ``repro/models/attention.py`` for the dense family.  The
+inference self-attention is the flash kernel (B2) over positions
+``arange(S)``; one token against a cache is the decode kernel (B3).
+Neither kernel has a backward, so training takes JAX's two plain paths
+under autograd: ``attention_dense`` (materialized logits) and
+``attention_chunked`` (the online-softmax carry over KV chunks), chosen
+by JAX's rule (:func:`self_attention_train`).  Weights keep the JAX
 layouts: ``wq`` (d, H, hd), ``wk``/``wv`` (d, KV, hd), ``wo`` (H, hd, d).
 ``make_mask`` is the flash kernel module's, whose plain version uses it.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -20,8 +22,14 @@ from ..kernels.decode_attention import decode_attention
 from ..kernels.flash_attention import flash_attention, make_mask
 from .layers import apply_rope, matmul_f32
 
-__all__ = ["attention_decode", "make_mask", "out_project", "qkv_project",
-           "self_attention", "update_kv_cache"]
+__all__ = ["attention_chunked", "attention_decode", "attention_dense",
+           "make_mask", "out_project", "qkv_project", "self_attention",
+           "self_attention_train", "update_kv_cache"]
+
+F32 = torch.float32
+NEG_INF = -1e30
+# attn_impl="auto" takes the dense path up to this many (query, key) pairs
+DENSE_MAX_PAIRS = 2048 * 2048
 
 
 def _no_softcap(cfg: ArchConfig) -> None:
@@ -66,6 +74,100 @@ def self_attention(p, x: torch.Tensor, cfg: ArchConfig,
     pos = torch.arange(x.shape[1], device=x.device)
     q, k, v = qkv_project(p, x, x, cfg, pos, pos)
     o = flash_attention(q, k, v, causal=True, window=window)
+    return out_project(p, o, x.dtype)
+
+
+def attention_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: Optional[torch.Tensor],
+                    cfg: ArchConfig) -> torch.Tensor:
+    """q (B, Sq, H, hd), k/v (B, Skv, KV, hd), mask (Sq, Skv) or None.
+
+    Materialized float32 logits, masked to -1e30, softmax, cast to v's
+    type (attention.py ``attention_dense``); differentiable.
+    """
+    _no_softcap(cfg)
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, sq, kvh, g, hd)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.to(F32),
+                          k.to(F32)) / (hd ** 0.5)
+    if mask is not None:
+        logits = torch.where(mask, logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    o = torch.einsum("bkgqs,bskd->bqkgd", w.to(F32), v.to(F32))
+    return o.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      q_pos: torch.Tensor, k_pos: torch.Tensor,
+                      cfg: ArchConfig, *, causal: bool, window: int = 0,
+                      chunk: int = 1024) -> torch.Tensor:
+    """Flash-style attention in plain PyTorch, O(Sq * chunk) logits.
+
+    The online-softmax carry (running max ``m``, sum ``l``, weighted
+    values ``acc``) over KV chunks of ``attention.py
+    attention_chunked``; the last chunk is padded with keys at position
+    -1e9, which no mask admits.  Differentiable: autograd keeps each
+    chunk's probabilities.
+    """
+    _no_softcap(cfg)
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    chunk = min(chunk, skv)
+    n_chunks = -(-skv // chunk)
+    pad = n_chunks * chunk - skv
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = torch.nn.functional.pad(k_pos, (0, pad), value=-10 ** 9)
+    qg = q.reshape(b, sq, kvh, g, hd).to(F32).permute(0, 2, 3, 1, 4)
+    kc = k.reshape(b, n_chunks, chunk, kvh, hd).permute(1, 0, 3, 2, 4)
+    vc = v.reshape(b, n_chunks, chunk, kvh, hd).permute(1, 0, 3, 2, 4)
+    kpc = k_pos.reshape(n_chunks, chunk)
+    m = torch.full((b, kvh, g, sq), NEG_INF, dtype=F32, device=q.device)
+    l = torch.zeros((b, kvh, g, sq), dtype=F32, device=q.device)
+    acc = torch.zeros((b, kvh, g, sq, hd), dtype=F32, device=q.device)
+    scale = 1.0 / (hd ** 0.5)
+    for j in range(n_chunks):
+        s = torch.einsum("bkgqd,bkcd->bkgqc", qg, kc[j].to(F32)) * scale
+        mask = make_mask(q_pos, kpc[j], causal=causal, window=window)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgqc,bkcd->bkgqd", p, vc[j].to(F32))
+        m = m_new
+    o = acc / l.clamp(min=1e-30)[..., None]
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
+    return o.to(q.dtype)
+
+
+def self_attention_train(p, x: torch.Tensor, cfg: ArchConfig, window: int,
+                         *, impl: str = "auto",
+                         chunk: int = 1024) -> torch.Tensor:
+    """Causal self-attention of (B, S, d) for training, differentiable.
+
+    ``impl`` is JAX's ``Model.attn_impl``: "auto" takes the dense path
+    when Sq * Skv <= 2048^2, else the chunked one (``Model._attend``).
+    """
+    pos = torch.arange(x.shape[1], device=x.device)
+    q, k, v = qkv_project(p, x, x, cfg, pos, pos)
+    sq, skv = q.shape[1], k.shape[1]
+    if impl == "auto":
+        impl = "dense" if sq * skv <= DENSE_MAX_PAIRS else "chunked"
+    if impl == "dense":
+        o = attention_dense(q, k, v, make_mask(pos, pos, causal=True,
+                                               window=window), cfg)
+    elif impl == "chunked":
+        o = attention_chunked(q, k, v, pos, pos, cfg, causal=True,
+                              window=window, chunk=chunk)
+    else:
+        raise ValueError(f"attn_impl must be auto, dense or chunked; got "
+                         f"{impl!r}")
     return out_project(p, o, x.dtype)
 
 

@@ -15,25 +15,63 @@ JAX package's names and layouts, so
 :func:`repro_torch.convert.model_params_from_numpy` copies them tensor
 for tensor.  They are initialized from an explicit ``torch.Generator``
 seeded by ``seed`` on the model's device; the numbers differ from
-``jax.random``'s, the kinds and scales do not.  Nothing here trains:
-parameters carry no gradient.
+``jax.random``'s, the kinds and scales do not.
+
+Two forwards: :meth:`Model.forward`, the kernels' (flash attention,
+B2, and the scan, B4), which serving calls; and
+:meth:`Model.forward_train`, plain PyTorch under autograd for the dense
+family (JAX's ``attention_dense``/``attention_chunked`` by its
+``attn_impl`` rule, each layer under the ``remat`` policy), which
+:meth:`Model.loss` and the trainer call.  The kernels have no backward
+and refuse inputs that require grad.  Parameters are created with
+``requires_grad=False``; the train step turns it on.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ArchConfig
 from ..device import DeviceLike, resolve_device
-from .attention import self_attention
-from .layers import embed_tokens, rms_norm, swiglu_mlp, unembed
+from .attention import self_attention, self_attention_train
+from .layers import (cross_entropy, embed_tokens, rms_norm, swiglu_mlp,
+                     unembed)
 from .ssm import Mamba, mamba_apply
 
 F32 = torch.float32
+REMAT_POLICIES = ("full", "dots", "none")
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Keep the matrix products' outputs, recompute everything else
+    (``jax.checkpoint_policies.checkpoint_dots``)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, policy: str):
+    """``fn`` under JAX's remat policy (transformer.py ``_remat``):
+    "full" saves only the layer's inputs, "dots" also its products,
+    "none" everything autograd keeps."""
+    if policy == "none":
+        return fn
+    if policy == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _save_dots)
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=ctx)
+    if policy == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    raise ValueError(f"remat must be one of {REMAT_POLICIES}; got "
+                     f"{policy!r}")
 
 
 def init_tensor(shape: Tuple[int, ...], kind: str, gen: torch.Generator,
@@ -171,15 +209,25 @@ class Model(nn.Module):
     ``device=None`` means the card, and raises without one;
     ``device="cpu"`` runs the kernels' plain versions.  ``init=False``
     leaves the parameters unset (``torch.empty``) for a caller that
-    fills them, as the converter does.
+    fills them, as the converter does.  ``remat``, ``attn_impl`` and
+    ``attn_chunk`` are JAX's ``Model`` fields and shape only
+    :meth:`forward_train`.
     """
 
     def __init__(self, cfg: ArchConfig, *, seed: int = 0,
                  dtype: torch.dtype = torch.float32,
-                 device: DeviceLike = None, init: bool = True):
+                 device: DeviceLike = None, init: bool = True,
+                 remat: str = "full", attn_impl: str = "auto",
+                 attn_chunk: int = 1024):
         super().__init__()
         check_supported(cfg)
+        if remat not in REMAT_POLICIES:
+            raise ValueError(f"remat must be one of {REMAT_POLICIES}; got "
+                             f"{remat!r}")
         self.cfg = cfg
+        self.remat = remat
+        self.attn_impl = attn_impl
+        self.attn_chunk = attn_chunk
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -233,3 +281,50 @@ class Model(nn.Module):
                 x = x + self_attention(layer.attn, h, cfg, window)
             x = layer.mlp_block(x)
         return self.logits(x)
+
+    # ------------------------------------------------------------------ #
+    # training
+    # ------------------------------------------------------------------ #
+    def _train_layer(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Layer ``i`` of the dense stack (``_self_layer``), plain torch."""
+        layer = self.layers[i]
+        h = rms_norm(x, layer.attn_norm)
+        x = x + self_attention_train(layer.attn, h, self.cfg,
+                                     self.windows[i], impl=self.attn_impl,
+                                     chunk=self.attn_chunk)
+        return layer.mlp_block(x)
+
+    def forward_train(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (B, S) -> logits (B, S, padded_vocab), float32, under
+        autograd: no kernel, every layer under the ``remat`` policy.
+
+        Dense family only.  The hybrid's Mamba branch runs the scan
+        kernel (B4), which has no backward, and JAX trains it through a
+        ``lax.scan``; a differentiable plain scan is queued (ROADMAP A5).
+        """
+        if self.cfg.family != "dense":
+            raise NotImplementedError(
+                f"{self.cfg.name}: training the {self.cfg.family} family "
+                f"is not ported; its Mamba branch needs a differentiable "
+                f"scan (ROADMAP A5)")
+        x = embed_tokens(self.tokens, tokens, self.dtype)
+        for i in range(len(self.layers)):
+            x = _remat(functools.partial(self._train_layer, i),
+                       self.remat)(x)
+        return self.logits(x)
+
+    def loss(self, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """CE + aux losses (``Model.loss``).  ``batch["labels"]``, when
+        present, is already position-aligned (``labels[i]`` is the target
+        of position ``i``: the pipeline emits next-token labels); only
+        the ``tokens`` fallback needs the one-position shift.  The dense
+        family has no auxiliary loss: ``aux`` is a float32 zero."""
+        logits = self.forward_train(batch["tokens"])
+        labels = batch.get("labels")
+        if labels is None:
+            ce = cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
+        else:
+            ce = cross_entropy(logits, labels)
+        aux = torch.zeros((), dtype=F32, device=logits.device)
+        return ce + aux, {"ce": ce, "aux": aux}

@@ -5,7 +5,7 @@ heartbeat monitor, the straggler detector and the churn demand they
 drive (the scenario registry replays it as ``runtime-churn``), and the
 ChaosPlane harness, which injects a seed-deterministic fault schedule
 into a live ``MemoryPlane`` or ``FleetPlane``.  The elastic mesh
-planner comes with the training substrate (ROADMAP A5).
+planner comes with the sharding substrate (ROADMAP A5.4).
 """
 
 from .chaos import (ACTUATION_KINDS, ChaosError, ChaosHandle, ChaosSpec,

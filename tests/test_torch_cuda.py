@@ -15,6 +15,9 @@ several; with the cache to 1e-6 and an equal makespan.  The live plane on the
 card: the device monitor's counters follow a tensor, a card plane's
 actions equal a CPU plane's bit for bit, a tick adds one sync (its
 readback), and it does not wait for work queued on the default stream.
+Training: the kernels refuse CUDA inputs that require grad, a batch
+staged through the pipeline's pinned buffer arrives intact, and a few
+train steps of the smoke model on the card follow the CPU's.
 """
 
 import time
@@ -571,3 +574,55 @@ def test_fleet_plane_ticks_on_the_card(card):
     with count_syncs() as syncs:
         on_card.tick()
     assert len(syncs) == 2                  # one readback per tenant
+
+
+@pytest.mark.parametrize("kernel", ["flash", "decode", "scan"])
+def test_kernels_refuse_cuda_inputs_that_require_grad(card, kernel):
+    g = torch.Generator(device=card).manual_seed(0)
+    kc = torch.randn((1, 6, 2, 16), generator=g, device=card)
+    a = torch.rand((1, 5, 3, 2), generator=g, device=card)
+    lens = torch.tensor([5], dtype=torch.int32, device=card)
+    h0 = torch.zeros((1, 3, 2), device=card)
+    call, x = {
+        "flash": (lambda x: fa.flash_attention(x, kc, kc),
+                  torch.randn((1, 6, 4, 16), generator=g, device=card)),
+        "decode": (lambda x: da.decode_attention(x, kc, kc, lens),
+                   torch.randn((1, 4, 16), generator=g, device=card)),
+        "scan": (lambda x: ks_scan.ssm_scan(x, a, h0), a.clone()),
+    }[kernel]
+    x.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        call(x)
+    with torch.no_grad():
+        assert torch.isfinite(call(x)).all()
+
+
+def test_training_on_the_card_follows_the_cpu(card, tmp_path):
+    from repro_torch.data import (DataPipeline, PipelineConfig, ShardStore,
+                                  write_corpus)
+    from repro_torch.train import Trainer, TrainerConfig, TrainStepConfig
+    write_corpus(str(tmp_path / "c"), n_shards=4, tokens_per_shard=1024,
+                 vocab_size=503)
+    cfg = get_config("llama3.2-1b-smoke")
+    cpu = Model(cfg, seed=0, device="cpu")
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        model = Model(cfg, seed=0, device=dev)
+        with torch.no_grad():
+            for p, q in zip(model.parameters(), cpu.parameters()):
+                p.copy_(q)
+        pipe = DataPipeline(ShardStore(str(tmp_path / "c")), PipelineConfig(
+            batch_size=4, seq_len=32, prefetch_depth=0, dynims=False))
+        batch = pipe.batch(0)
+        staged = pipe.to_device(batch, dev)
+        for k, v in batch.items():
+            assert np.array_equal(staged[k].cpu().numpy(), v)
+        tr = Trainer(model, pipe, TrainStepConfig(microbatches=2,
+                                                  warmup_steps=2,
+                                                  total_steps=4),
+                     TrainerConfig(steps=4, checkpoint_every=4, log_every=1,
+                                   checkpoint_dir=str(tmp_path / dev)),
+                     device=dev)
+        tr.fit()
+        losses[dev] = [r["loss"] for r in tr.metrics_log]
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)

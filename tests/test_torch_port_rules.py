@@ -16,6 +16,11 @@
 * The fleet and chaos copies: the fleet scenarios build demand equal
   byte for byte, their specs equal the JAX package's field by field,
   and the fault catalog is JAX's.
+* The training copies: ``write_corpus`` writes JAX's bytes, the
+  pipeline, step and trainer configs equal JAX's field by field, and
+  the trainer, the pipeline's staging, the training CLI and a
+  checkpoint's restore raise without a card.  The kernels refuse
+  inputs that require grad, since they have no backward.
 """
 
 import ast
@@ -72,8 +77,8 @@ def test_port_imports_nothing_of_jax_or_repro(path):
 def test_import_rule_covers_every_package_of_the_port():
     """Each subpackage of the port (the runtime copies too) is walked."""
     walked = {p.parent.name for p in _port_files()}
-    for pkg in ("core", "fleet", "kernels", "lab", "launch", "runtime",
-                "serving"):
+    for pkg in ("checkpoint", "core", "data", "fleet", "kernels", "lab",
+                "launch", "optim", "runtime", "serving", "train"):
         assert pkg in walked
 
 
@@ -381,3 +386,120 @@ def test_convert_checks_gainset_fields():
 
 def test_build_dir_is_ignored_by_git():
     assert "build/" in (REPO / ".gitignore").read_text().split()
+
+
+@pytest.mark.parametrize("kw", [
+    dict(n_shards=6, tokens_per_shard=2048, vocab_size=101, seed=3),
+    dict(n_shards=3, tokens_per_shard=500, vocab_size=128256, seed=0,
+         zipf_exponent=0.0)], ids=["zipf", "uniform"])
+def test_write_corpus_copy_writes_jax_bytes(tmp_path, kw):
+    from repro.data import write_corpus as jax_write_corpus
+    from repro_torch.data import write_corpus
+    man = write_corpus(str(tmp_path / "p"), **kw)
+    assert man.__dict__ == jax_write_corpus(str(tmp_path / "j"), **kw).__dict__
+    names = sorted(p.name for p in (tmp_path / "p").iterdir())
+    assert names == sorted(p.name for p in (tmp_path / "j").iterdir())
+    assert "manifest.json" in names and len(names) == kw["n_shards"] + 1
+    for name in names:
+        assert (tmp_path / "p" / name).read_bytes() == \
+            (tmp_path / "j" / name).read_bytes(), name
+
+
+def _defaults(cls):
+    out = []
+    for f in dataclasses.fields(cls):
+        d = f.default
+        out.append((f.name, getattr(d, "__name__", d), str(f.type)))
+    return out
+
+
+def test_training_configs_equal_the_jax_configs_field_by_field():
+    """Names, defaults (a schedule by its function's name) and types."""
+    import repro.data as JD
+    import repro.train as JT
+    import repro_torch.data as TD
+    import repro_torch.train as TT
+    assert _defaults(TD.PipelineConfig) == _defaults(JD.PipelineConfig)
+    assert _defaults(TT.TrainStepConfig) == _defaults(JT.TrainStepConfig)
+    assert _defaults(TT.TrainerConfig) == _defaults(JT.TrainerConfig)
+    assert TT.TrainStepConfig().schedule.__module__ == \
+        "repro_torch.optim.schedules"
+
+
+def test_training_package_names_equal_jax_less_the_sharding_ones():
+    import repro.checkpoint as JC
+    import repro.data as JD
+    import repro.optim as JO
+    import repro.train as JT
+    import repro_torch.checkpoint as TC
+    import repro_torch.data as TD
+    import repro_torch.optim as TO
+    import repro_torch.train as TT
+    for ref, port in ((JC, TC), (JD, TD), (JT, TT)):
+        assert sorted(port.__all__) == sorted(ref.__all__)
+    assert sorted(TO.__all__) == sorted(set(JO.__all__) - {"opt_state_specs"})
+
+
+def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import (DataPipeline, PipelineConfig, ShardStore,
+                                  write_corpus)
+    from repro_torch.launch import train as ttrain
+    from repro_torch.train import Trainer, TrainerConfig, TrainStepConfig
+    write_corpus(str(tmp_path / "c"), n_shards=2, tokens_per_shard=256,
+                 vocab_size=503)
+    pipe = DataPipeline(ShardStore(str(tmp_path / "c")), PipelineConfig(
+        batch_size=2, seq_len=8, prefetch_depth=0, dynims=False))
+    model = Model(get_config("llama3.2-1b-smoke"), device="cpu")
+    ckpt = CheckpointManager(str(tmp_path / "ck"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: Trainer(model, pipe, TrainStepConfig(), TrainerConfig(
+            checkpoint_dir=str(tmp_path / "ck"))),
+        lambda: pipe.to_device(pipe.batch(0)),
+        lambda: ttrain.main(["--steps", "1"]),
+        lambda: ckpt.restore_latest({"a": torch.zeros(1)}),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_trainer_refuses_a_model_on_another_device(tmp_path):
+    from repro_torch.train import Trainer, TrainerConfig, TrainStepConfig
+    model = Model(get_config("llama3.2-1b-smoke"), device="cpu")
+    with pytest.raises(ValueError, match="lies on cpu"):
+        Trainer(model, None, TrainStepConfig(),
+                TrainerConfig(checkpoint_dir=str(tmp_path)), device="meta")
+
+
+def _grad_inputs():
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((1, 6, 4, 16), generator=g)
+    dq = torch.randn((1, 4, 16), generator=g)
+    kc = torch.randn((1, 6, 2, 16), generator=g)
+    a = torch.rand((1, 5, 3, 2), generator=g)
+    return q, dq, kc, a
+
+
+@pytest.mark.parametrize("kernel", ["flash", "decode", "scan"])
+def test_kernel_wrappers_refuse_inputs_that_require_grad(kernel):
+    """No kernel has a backward: under grad mode an input that requires
+    grad raises (naming the plain path to use), on the CPU as on the
+    card; under no_grad, or with no input requiring grad, it runs."""
+    from repro_torch.kernels import ssm_scan as kscan
+    q, dq, kc, a = _grad_inputs()
+    lens = torch.tensor([5], dtype=torch.int32)
+    h0 = torch.zeros((1, 3, 2))
+    call = {
+        "flash": lambda x: fa.flash_attention(x, kc, kc),
+        "decode": lambda x: da.decode_attention(x, kc, kc, lens),
+        "scan": lambda x: kscan.ssm_scan(x, a, h0),
+    }[kernel]
+    x = {"flash": q, "decode": dq, "scan": a}[kernel].clone()
+    plain = call(x)
+    x.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward.*differentiable"):
+        call(x)
+    with torch.no_grad():
+        assert torch.equal(call(x), plain)
