@@ -72,7 +72,16 @@ each, all at once) and drives the port's main paths on the card:
   the plane's ticks, the checkpoint's bytes and seconds; the smoke model
   on the card against the CPU, and a restart on the card; the kernels
   refusing inputs that require grad, and the trained model's forward
-  through flash attention against its training forward.
+  through flash attention against its training forward;
+* the dense features and hybrid training (phase 19): flash and decode
+  attention at gemma3-1b's head dim of 256 and qwen2-1.5b's group of 6
+  against their plain versions (0 spills in the new instances) and
+  timed beside their bounds and SDPA; gemma3-1b and qwen2-1.5b served
+  at full width through the burst under the plane, their forwards
+  against decode and against the training forward; hymba-1.5b,
+  gemma3-1b and qwen2-1.5b trained at full width for 4 steps (no kernel
+  launched; hymba's ms a step, tokens/s, peak memory and idle share);
+  the three smoke models trained on the card and the CPU alike.
 
 Decode attention at the engines' shapes (phases 9 and 13) is timed three
 ways, also in a fresh process that has built no plane (``chip_smoke.py
@@ -151,7 +160,8 @@ from repro_torch.launch.profile_serve import (count_syncs,  # noqa: E402
                                               device_us, on_device,
                                               tick_launches, watch_ticks)
 from repro_torch.launch.serve import (FULL_WIDTH,  # noqa: E402
-                                      FULL_WIDTH_HYMBA, build_engine, serve)
+                                      FULL_WIDTH_GEMMA3, FULL_WIDTH_HYMBA,
+                                      FULL_WIDTH_QWEN2, build_engine, serve)
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.launch.time_sweep import (_profiled,  # noqa: E402
                                            device_ms, time_fused_sweep)
@@ -786,16 +796,16 @@ def forward_decode_rel(model, tokens):
     return float((fwd - dec).abs().max() / fwd.abs().max()), launches
 
 
-def forward_against_decode(phase, model, batch, seq):
+def forward_against_decode(phase, model, batch, seq, mixed=True):
     """Forward (flash, and scan in a hybrid) against decode (decode
-    attention) on ``batch`` x ``seq`` tokens with an f32 cache, then
-    mixed progress against isolated serving.  Returns the forward's
-    launches of the flash and scan kernels."""
+    attention) on ``batch`` x ``seq`` tokens with an f32 cache, then,
+    with ``mixed``, mixed progress against isolated serving.  Returns
+    the forward's launches of the flash and scan kernels."""
     cfg = model.cfg
     hybrid = cfg.family == "hybrid"
     log(f"phase {phase}: forward ({'flash + scan' if hybrid else 'flash'}) "
         f"against decode (decode attention) at full width, {batch} x {seq} "
-        f"tokens, f32 cache; mixed progress")
+        f"tokens, f32 cache" + ("; mixed progress" if mixed else ""))
     gen = torch.Generator(device=CUDA).manual_seed(phase)
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
                            device=CUDA)
@@ -807,6 +817,8 @@ def forward_against_decode(phase, model, batch, seq):
           f"(bound 5e-3)")
     log(f"  forward launches {launches}; forward vs decode: max relative "
         f"diff {rel:.3e} (bound 5e-3)")
+    if not mixed:
+        return launches
 
     rng = np.random.default_rng(phase)
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 9, 3)]
@@ -2250,17 +2262,20 @@ def host_available_bytes():
     raise RuntimeError("/proc/meminfo has no MemAvailable")
 
 
-def profile_steps(trainer, steps):
+def profile_steps(trainer, steps, host_ops=True):
     """Run the trainer's steps ``steps`` (consecutive) under the profiler:
     the window opens before the first one's step function (the device
     idle) and closes after the last one's, synchronized.  Returns a dict
     that the window's wall ms and its profiler fill in; ``window_rows``
-    reads the profiler after the run."""
+    reads the profiler after the run.  Without ``host_ops`` only the
+    device's activity is recorded: a step of ~10^5 launches would
+    otherwise take the profiler minutes to read."""
     inner, first, last = trainer._step_fn, steps[0], steps[-1]
     out, calls = {}, iter(itertools.count())
-    prof = torch.profiler.profile(activities=[
-        torch.profiler.ProfilerActivity.CPU,
-        torch.profiler.ProfilerActivity.CUDA])
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    if host_ops:
+        activities.append(torch.profiler.ProfilerActivity.CPU)
+    prof = torch.profiler.profile(activities=activities)
 
     def stepped(params, state, batch):
         step = next(calls)
@@ -2540,6 +2555,249 @@ def phase18(smi):
     return n_flash, r
 
 
+# Phase 19: the dense features and hybrid training.  19a B2 and B3 at
+# head dim 256 (gemma3-1b's) against their plain versions and timed;
+# 19b gemma3-1b and qwen2-1.5b served and their forwards against decode
+# and the training forward; 19c the three models trained at full width;
+# 19d the smoke models, card against CPU.
+GEMMA3 = get_config(FULL_WIDTH_GEMMA3["arch"])
+QWEN2 = get_config(FULL_WIDTH_QWEN2["arch"])
+# gemma3's heads (4/1 of 256) at ragged lengths, windowed and global,
+# non-causal with Sq < Skv; two head sets (16/4) and qwen2's group of 6
+# (the 8-slot instance, two slots empty); windows that start mid-tile
+HD256_FLASH = [(2, 77, 77, 4, 1, 256, True, 0),
+               (1, 77, 300, 4, 2, 256, False, 0),
+               (2, 600, 600, 4, 1, 256, True, 512),
+               (1, 300, 300, 12, 2, 128, True, 0)]
+HD256_DECODE = [((8, 1024, 4, 1, 256, 512), None),
+                ((4, 900, 16, 4, 256, 0), [0, 1, 900, 555]),
+                ((1, 4000, 4, 1, 256, 0), [4000]),
+                ((3, 777, 8, 2, 256, 100), [777, 0, 150]),
+                ((8, 1024, 12, 2, 128, 0), None)]
+GEMMA3_FLASH = (2, 1088)         # (B, S) of 19a's f32 forward shapes
+FORWARD_19B = {GEMMA3.name: (1, 600), QWEN2.name: (2, 256)}
+TRAIN_19C = dict(TRAIN_FULL, steps=4)
+TRAIN_19C_ARCHS = (HYMBA.name, GEMMA3.name, QWEN2.name)
+TRAIN_19C_PROFILED = (2,)        # hymba's step under the profiler
+SMOKE_19D_ARCHS = tuple(a + "-smoke" for a in TRAIN_19C_ARCHS)
+
+
+def spill_lines(lib, marker):
+    """ptxas's spill lines of the instances whose name holds ``marker``
+    (empty when the library was reused, not built)."""
+    out, fn = [], None
+    for line in lib.log.splitlines():
+        if "entry function" in line:
+            fn = line
+        elif fn and marker in fn and "spill" in line:
+            out.append(line.strip())
+    return out
+
+
+def phase19a(libs):
+    """B2 and B3 at hd 256 against plain, the new instances' spills, and
+    their times at gemma3's shapes.  Returns the errors and the rows."""
+    log("phase 19a: flash and decode attention at head dim 256 (gemma3-1b) "
+        "and group 6 (qwen2-1.5b) vs plain on the card; spills of the new "
+        "instances; times at gemma3's shapes")
+    for name in ("flash_attention.cu", "decode_attention.cu"):
+        lines = spill_lines(libs[name], "Li256E")
+        check(all(ln.startswith("0 bytes stack frame, 0 bytes spill")
+                  for ln in lines), f"{name}: hd-256 instances spill: {lines}")
+        log(f"  {name}: {len(lines)} hd-256 instances, "
+            + ("0 bytes spilled by each" if lines else
+               "reused (not built in this run): spills not read"))
+    gen = torch.Generator(device=CUDA).manual_seed(19)
+    errs = {"decode": {}, "flash": {}}
+    for case, lens in HD256_DECODE:
+        check_decode(case, lens, gen, errs)
+    for case in HD256_FLASH:
+        check_flash(case, gen, errs)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=CUDA)
+    rows = {}
+    b, s = GEMMA3_FLASH
+    c = GEMMA3
+    windows = layer_windows(c)
+    rows["flash_f32"] = []
+    for window in sorted(set(windows), reverse=True):
+        row = time_flash(b, s, c.n_heads, c.n_kv_heads, c.head_dim, F32,
+                         window, gen, flush)
+        row["launches_per_forward"] = windows.count(window)
+        rows["flash_f32"].append(row)
+    b, s = FLASH_TIMED
+    rows["flash_bf16"] = time_flash(b, s, c.n_heads, c.n_kv_heads,
+                                    c.head_dim, BF16, 0, gen, flush)
+    w = FULL_WIDTH_GEMMA3
+    bsz, max_len = w["max_batch"], w["max_len"]
+    prompt = w["prompt_len"]
+    for tag, cfg, window in (("gemma3", GEMMA3, max(windows)),
+                             ("qwen2", QWEN2, 0)):
+        h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q = randn((bsz, h, hd), F32, gen)
+        kc, vc = randn((bsz, max_len, kv, hd), BF16, gen), \
+            randn((bsz, max_len, kv, hd), BF16, gen)
+        lens = torch.randint(prompt, prompt + w["max_new"] + 1, (bsz,),
+                             generator=gen, device=CUDA).to(torch.int32)
+        rows[f"decode_{tag}"] = time_decode(
+            f"{tag} engine B{bsz} x S{max_len} x H{h}/KV{kv} x hd{hd}, q "
+            f"f32, bf16 cache, window {window}, lengths {lens.tolist()}", q,
+            kc, vc, lens, flush, window=window)
+    return errs, rows
+
+
+def phase19b(smi):
+    """gemma3-1b and qwen2-1.5b served, and their forwards against decode
+    and against the training forward.  Returns the launches and numbers."""
+    out = {}
+    for w in (FULL_WIDTH_GEMMA3, FULL_WIDTH_QWEN2):
+        eng, n_decode, served = serve_full_width("19b", w, smi)
+        model = eng.model
+        del eng
+        torch.cuda.empty_cache()
+        b, s = FORWARD_19B[model.cfg.name]
+        # the engine's mixed progress is model-agnostic: phases 8 and 12
+        launches = forward_against_decode(19, model, b, s, mixed=False)
+        gen = torch.Generator(device=CUDA).manual_seed(191)
+        tokens = torch.randint(0, model.cfg.vocab_size, (b, s), generator=gen,
+                               device=CUDA)
+        with torch.no_grad():
+            ref = model.forward_train(tokens)
+            got = model(tokens)
+        rel = float((got - ref).abs().max() / ref.abs().max())
+        check(rel < 5e-3, f"{model.cfg.name}: kernel forward against training "
+              f"forward {rel:.3e} relative (bound 5e-3)")
+        log(f"  {model.cfg.name}: Model.forward (flash) against forward_train "
+            f"(plain dense attention) on {b} x {s} tokens: max relative "
+            f"difference {rel:.3e} (bound 5e-3)")
+        out[model.cfg.name] = {"decode": n_decode, "flash": launches["flash"],
+                               "serving": served, "forward_vs_train": rel}
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase19c(smi):
+    """The three models trained at full width through the training CLI's
+    wiring; hymba timed and profiled.  Returns the numbers."""
+    out = {}
+    for arch in TRAIN_19C_ARCHS:
+        w = dict(TRAIN_19C, arch=arch)
+        cfg = get_config(arch)
+        hybrid = cfg.family == "hybrid"
+        log(f"phase 19c: train {arch} at full width ({cfg.n_layers} layers, "
+            f"d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+            f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+            f"float32, no TF32; seed 0) through launch/train.py's wiring: "
+            f"batch {w['batch']} x {w['seq']}, {w['microbatches']} "
+            f"microbatches, remat full, {w['steps']} steps; on {smi}")
+        tmp = tempfile.mkdtemp(prefix="repro-torch-train19-")
+        try:
+            trainer = ttrain.build(train_args(w, tmp), log_every=1)
+            window = (profile_steps(trainer, TRAIN_19C_PROFILED,
+                                    host_ops=False) if hybrid else None)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ks.LAUNCHES = kd.LAUNCHES = kf.LAUNCHES = kscan.LAUNCHES = 0
+            t0 = time.monotonic()
+            trainer.fit()
+            launched = {"sweep": ks.LAUNCHES, "decode": kd.LAUNCHES,
+                        "flash": kf.LAUNCHES, "scan": kscan.LAUNCHES}
+            check(not any(launched.values()), f"{arch}: the training path "
+                  f"launched {launched}")
+            peak = torch.cuda.max_memory_allocated()
+            trainer.pipeline.close()
+            losses = [r["loss"] for r in trainer.metrics_log]
+            check(len(losses) == w["steps"]
+                  and all(map(math.isfinite, losses)), f"losses {losses}")
+            check(losses[-1] < losses[0], f"{arch}: the loss did not fall: "
+                  f"{losses}")
+            ends = [t0] + trainer.logged_at
+            step_ms = [(b - a) * 1e3 for a, b in zip(ends, ends[1:])]
+            plain = [step_ms[i] for i in range(1, w["steps"])
+                     if i not in TRAIN_19C_PROFILED]
+            med = statistics.median(plain)
+            tokens = w["batch"] * w["seq"]
+            row = {"losses": losses, "step_ms": step_ms,
+                   "step_ms_median": med, "tokens_s": tokens / med * 1e3,
+                   "peak_gb": peak / 1e9, "params": sum(
+                       p.numel() for p in trainer.model.parameters())}
+            log(f"  losses {[round(x, 4) for x in losses]}: finite, "
+                f"{losses[0]:.4f} -> {losses[-1]:.4f}; no kernel launched")
+            log(f"  ms a step (host clock): {[round(x, 1) for x in step_ms]}"
+                f" (step 0 the first call's setup"
+                + (f"; step {TRAIN_19C_PROFILED} under the profiler"
+                   if hybrid else "") + f"); median of the others {med:.1f},"
+                f" {tokens / med * 1e3:.1f} tokens/s; peak memory allocated "
+                f"{peak / 1e9:.2f} GB")
+            if hybrid:
+                window_rows(window)
+                row["idle_share"] = idle = 1.0 - window["busy_ms"] / \
+                    window["wall_ms"]
+                row.update(profiled_ms=window["wall_ms"],
+                           busy_ms=window["busy_ms"],
+                           launches_1_step=window["launches"])
+                log(f"  profiler window, step {TRAIN_19C_PROFILED}: "
+                    f"{window['wall_ms']:.1f} ms, device busy "
+                    f"{window['busy_ms']:.1f} ms, idle {idle:.1%}, "
+                    f"{window['launches']} kernels and copies; top "
+                    f"{window['top']}")
+            out[arch] = row
+            del trainer
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase19d():
+    """The three smoke models trained on the card and on the CPU from the
+    same init; their losses within 18b's bracket."""
+    out = {}
+    for arch in SMOKE_19D_ARCHS:
+        w = dict(TRAIN_SMOKE, arch=arch)
+        cfg = get_config(w["arch"])
+        log(f"phase 19d: {cfg.name} for {w['steps']} steps on the card and on"
+            f" the CPU from the same init")
+        init = Model(cfg, seed=0, device="cpu")
+        tmp = tempfile.mkdtemp(prefix="repro-torch-smoke19-")
+        try:
+            runs = []
+            for i, dev in enumerate((torch.device("cpu"), CUDA)):
+                m = Model(cfg, device=dev, init=False)
+                with torch.no_grad():
+                    for p, q in zip(m.parameters(), init.parameters()):
+                        p.copy_(q)
+                tr = smoke_trainer(w, tmp, f"ck-{i}", m, dev)
+                tr.fit()
+                tr.pipeline.close()
+                runs.append([r["loss"] for r in tr.metrics_log])
+            lc, lg = runs
+            rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+            check(rel <= TRAIN_CARD_CPU_RTOL, f"{cfg.name}: card losses {lg} "
+                  f"against CPU {lc}: {rel:.3e} relative (bound "
+                  f"{TRAIN_CARD_CPU_RTOL})")
+            log(f"  losses card {[round(x, 6) for x in lg]}; CPU "
+                f"{[round(x, 6) for x in lc]}; max relative difference "
+                f"{rel:.3e} (bound {TRAIN_CARD_CPU_RTOL})")
+            out[cfg.name] = rel
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def phase19(libs, smi):
+    """Phase 19: returns the kernels' errors and rows and the launches and
+    numbers of the served and trained models."""
+    t0 = time.perf_counter()
+    errs, rows = phase19a(libs)
+    served = phase19b(smi)
+    r = {"served": served, "trained": phase19c(smi),
+         "smoke_card_vs_cpu": phase19d()}
+    r["seconds"] = time.perf_counter() - t0
+    log(f"phase 19 seconds (host clock): {r['seconds']:.1f}")
+    return errs, rows, r
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--decode-times"]:
         print(json.dumps(fresh_decode_times(json.loads(sys.argv[2]))))
@@ -2729,6 +2987,34 @@ def main() -> None:
     flash["launches"] += n_flash_t
     flash["launches_by_path"][f"{ARCH} trained model's forward (phase "
                               f"18c)"] = n_flash_t
+    errs19, rows19, dense19 = phase19(libs, smi)
+    for name, served19 in dense19["served"].items():
+        log(f"main path: decode attention launched {served19['decode']} "
+            f"times ({name} serving, phase 19b), flash attention "
+            f"{served19['flash']} times ({name} forward, phase 19b)")
+        check(served19["decode"] > 0 and served19["flash"] > 0,
+              f"{name}'s serving path skipped an attention kernel")
+        decode["launches"] += served19["decode"]
+        decode["launches_by_path"][f"{name} serving (phase 19b)"] = \
+            served19["decode"]
+        flash["launches"] += served19["flash"]
+        flash["launches_by_path"][f"{name} forward (phase 19b)"] = \
+            served19["flash"]
+    for name, d in (("decode", decode), ("flash", flash)):
+        d["max_abs_err"] = max(d["max_abs_err"], *errs19[name].values())
+        d["max_abs_err_f32"] = max(d["max_abs_err_f32"],
+                                   errs19[name]["f32"])
+    flash["gemma3_hd256"] = {"f32_2x1088": rows19["flash_f32"],
+                             "bf16_2x4096": rows19["flash_bf16"]}
+    f32_errs = [r["max_abs_err"] for r in rows19["flash_f32"]]
+    flash["max_abs_err"] = max(flash["max_abs_err"], *f32_errs,
+                               rows19["flash_bf16"]["max_abs_err"])
+    flash["max_abs_err_f32"] = max(flash["max_abs_err_f32"], *f32_errs)
+    decode["gemma3_engine"] = rows19["decode_gemma3"]
+    decode["qwen2_engine"] = rows19["decode_qwen2"]
+    decode["max_abs_err_f32"] = max(
+        decode["max_abs_err_f32"], rows19["decode_gemma3"]["max_abs_err"],
+        rows19["decode_qwen2"]["max_abs_err"])
     kernel["launches_by_path"] = {
         "run_sweep, sweep_demand, tune_gains (phases 2-4)":
         kernel["launches"], "serving retune round (phase 15a)": n_retune,
@@ -2758,6 +3044,8 @@ def main() -> None:
     log("retune on the card: " + json.dumps(kernel["retune"], default=str))
     log("fleet and chaos on the card: " + json.dumps(fleet17, default=str))
     log("training on the card: " + json.dumps(training, default=str))
+    log("dense features and hybrid training on the card: "
+        + json.dumps(dense19, default=str))
     ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter()]
     log("seconds by phase (host clock): " + ", ".join(
         f"{name} {end - start:.1f}"

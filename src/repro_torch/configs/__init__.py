@@ -3,20 +3,25 @@
 ``dynims`` holds paper Table I and the ScenarioLab presets.
 :func:`get_shape` resolves a run shape of :data:`SHAPES`, and
 :func:`get_config` ``--arch <id>`` for the architectures the
-port serves so far, each with its ``-smoke`` reduction: ``llama3.2-1b``
-(dense) and ``hymba-1.5b`` (hybrid: attention and Mamba in parallel).
-The other architectures of the JAX package come with their families
-(ROADMAP A5).
+port serves and trains so far, each with its ``-smoke`` reduction:
+``llama3.2-1b``, ``gemma3-1b`` (gelu MLP, a 5:1 local:global window
+schedule, head dim 256) and ``qwen2-1.5b`` (QKV bias), all dense, and
+``hymba-1.5b`` (hybrid: attention and Mamba in parallel).  The other
+architectures of the JAX package come with their families (ROADMAP
+A5).
 """
 
 from __future__ import annotations
 
 from .base import (ArchConfig, DECODE_32K, InputShape, LONG_500K,
                    PREFILL_32K, SHAPES, TRAIN_4K)
+from .gemma3_1b import ARCH as _GEMMA3_1B
 from .hymba_15b import ARCH as _HYMBA_15B
 from .llama32_1b import ARCH as _LLAMA32_1B
+from .qwen2_15b import ARCH as _QWEN2_15B
 
-_ARCHS = {a.name: a for a in (_LLAMA32_1B, _HYMBA_15B)}
+_ARCHS = {a.name: a for a in (_LLAMA32_1B, _HYMBA_15B, _GEMMA3_1B,
+                              _QWEN2_15B)}
 
 ARCH_IDS = list(_ARCHS)
 

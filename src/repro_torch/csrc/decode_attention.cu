@@ -37,18 +37,23 @@
 //    counters are shared by the device's launches: one stream at a time.
 //    With used = 1 the block writes the output and touches neither.
 //  * A cp.async ring of K/V tiles in their own type.  Tiles of 64 keys (32
-//    above 8 heads per kv head) move with 16-byte cp.async.cg into a ring of
-//    2-4 stages in dynamic shared memory (up to 96 KB), so the loads of the
+//    above 8 heads per kv head; half that for a float32 cache at hd 256,
+//    where a stage of 64 keys takes 128 KB) move with 16-byte cp.async.cg
+//    into a ring of 2-4 stages in dynamic shared memory (up to 128 KB, at
+//    hd 256), so the loads of the
 //    next tiles are in flight while one is used; rows outside
 //    [start_b, len_b) use the zero-fill form (src-size 0) and are not read.
 //    One __syncthreads per tile, the ring's stage barrier.
 //  * Scores in registers, heads balanced.  Each of the 8 warps takes 8 keys
-//    of every tile and serves all G heads of the group for them (above 8
-//    heads, two sets of 4 warps split the heads evenly), so G = 5 loads
+//    of every tile (4 for a float32 cache at hd 256) and serves all G heads
+//    of the group for them (above 8 heads, two sets of 4 warps split the
+//    heads evenly), so G = 5 loads
 //    every warp alike.  A warp computes a fixed number of head slots (4, 5
 //    or 8) without branches, so its score chains interleave; guarding each
-//    head with `if (g < G)` serialised them behind convergence barriers.  A
-//    key's hd dims lie on hd / 8 lanes (4 at hd 16); its score is a shuffle
+//    head with `if (g < G)` serialised them behind convergence barriers;
+//    the empty slots read zeroed rows of q and write nothing.  A key's hd
+//    dims lie on hd / 8 lanes (4 at hd 16, all 32 at hd 256); its score is a
+//    shuffle
 //    sum, and each group of lanes keeps its own online softmax (max, sum,
 //    output slice) in registers, rescaled lazily: only when a tile's max
 //    passes the running one by 2^8.  The groups merge by shuffles and the
@@ -140,11 +145,16 @@ __device__ __forceinline__ void cp_async_wait() {
 template <typename TKV, int HD, int HSETS, int HPW>
 struct Cfg {
   static constexpr int KSL = kWarps / HSETS;            // key slices
-  static constexpr int TILE = KSL * kKeysPerWarp;       // keys per tile
+  // keys of each tile one warp takes: half for a float32 cache at hd 256,
+  // so that two stages fit shared memory
+  static constexpr int KPW =
+      HD * static_cast<int>(sizeof(TKV)) > 512 ? kKeysPerWarp / 2
+                                                : kKeysPerWarp;
+  static constexpr int TILE = KSL * KPW;                // keys per tile
   static constexpr int DPL = HD / 4 < 8 ? HD / 4 : 8;   // dims per lane
   static constexpr int LPK = HD / DPL;                  // lanes per key
   static constexpr int KPI = 32 / LPK;                  // keys per warp pass
-  static constexpr int ITER = kKeysPerWarp / KPI;       // passes per tile
+  static constexpr int ITER = KPW / KPI;                // passes per tile
   static constexpr int CHUNK = 16 / static_cast<int>(sizeof(TKV));
   static constexpr int VE = CHUNK < DPL ? CHUNK : DPL;  // values per read
   static constexpr int NV = DPL / VE;                   // reads per row
@@ -157,7 +167,7 @@ struct Cfg {
   static constexpr int RING_BYTES = STAGES * STAGE_BYTES;
   static constexpr int RED_BYTES = kWarps * HPW * HD * 4;
   static constexpr int SMEM = RING_BYTES > RED_BYTES ? RING_BYTES : RED_BYTES;
-  static_assert(ITER >= 1 && KPI * ITER == kKeysPerWarp, "lane layout");
+  static_assert(ITER >= 1 && KPI * ITER == KPW, "lane layout");
   static_assert(HSETS * HPW <= kMaxGroup, "heads per block");
 };
 
@@ -267,7 +277,7 @@ decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_cache,
     unsigned valid = 0;
 #pragma unroll
     for (int it = 0; it < ITER; ++it) {
-      const int r = kslice * kKeysPerWarp + it * KPI + kg;
+      const int r = kslice * C::KPW + it * KPI + kg;
       const int key = k0 + r;
       if (key >= start && key < len) valid |= 1u << it;
       float kf[DPL];
@@ -330,7 +340,7 @@ decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_cache,
 
 #pragma unroll
     for (int it = 0; it < ITER; ++it) {
-      const int r = kslice * kKeysPerWarp + it * KPI + kg;
+      const int r = kslice * C::KPW + it * KPI + kg;
       float vf[DPL];
 #pragma unroll
       for (int v = 0; v < NV; ++v)
@@ -487,6 +497,7 @@ cudaError_t launch_typed(const Args& a) {
     case 32: return launch_hd<TQ, TKV, 32>(a);
     case 64: return launch_hd<TQ, TKV, 64>(a);
     case 128: return launch_hd<TQ, TKV, 128>(a);
+    case 256: return launch_hd<TQ, TKV, 256>(a);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -18,18 +18,23 @@
 //    launched first: 4 warps and 64 rows for bf16, 8 warps and 128 rows for
 //    f32 (`Shape`); each warp owns 16 query rows and keeps their row max,
 //    row sum and (16 x hd) accumulator in registers for the whole kv loop,
-//    and in bf16 their Q fragments too;
+//    and in bf16 up to hd 128 their Q fragments too.  At hd 256 the
+//    accumulator alone takes 128 registers: bf16 reads Q from shared memory
+//    at each tile, as the f32 route always does, and f32 (8 warps, 64 rows)
+//    gives each 16 rows to two warps, which both compute the rows' scores
+//    and softmax, bit for bit alike, and each keep half of the output
+//    columns: Q.K^T is done twice, and no warp spills;
 //  * the loop covers only tiles that hold a kept key: from the first key the
 //    window reaches to the last key the causal diagonal reaches
 //    (kernel.py:45-50 skips the same tiles by a test per tile); a warp applies
 //    the per-element mask only on a tile that crosses the diagonal, the
 //    window's edge or Skv, and skips a tile wholly past its causal rows;
-//  * K/V tiles of 64 keys (32 for f32 at hd 128) stay in shared memory in
-//    their own type, double buffered: `cp.async` brings tile j + 1 while
-//    tile j is multiplied.  Rows are swizzled (the 16-byte chunk index XOR
-//    the row) so that `ldmatrix` and the f32 path's V reads meet no bank
-//    conflict; keys past Skv and q rows past Sq are zero-filled, so any Sq
-//    and Skv work;
+//  * K/V tiles of 64 keys (32 for f32 at hd 128 and bf16 at hd 256, 16 for
+//    f32 at hd 256) stay in shared memory in their own type, double
+//    buffered: `cp.async` brings tile j + 1 while tile j is multiplied.
+//    Rows are swizzled (the 16-byte chunk index XOR the row) so that
+//    `ldmatrix` and the f32 path's V reads meet no bank conflict; keys past
+//    Skv and q rows past Sq are zero-filled, so any Sq and Skv work;
 //  * bf16: `mma.m16n8k16` bf16 in f32; K comes in through `ldmatrix`, V
 //    through `ldmatrix.trans`; the scores stay in registers, where two
 //    adjacent n8 tiles of the accumulator, rounded to bf16, are the A
@@ -44,7 +49,7 @@
 //    holds key 2t, slot t + 4 key 2t + 1); the V fragments are read in the
 //    same permuted order.  Each tile's P.V is summed from zero and then added
 //    to O, so the tensor cores' f32 rounding runs over 24 products, not over
-//    a whole row's.
+//    a whole row's (at hd 256 in passes of 4 n8 tiles of the output).
 //
 // Not done yet: `wgmma` (the full tensor-core rate), TMA loads with mbarriers,
 // warp specialisation (producer warp, two consumer warpgroups in ping-pong),
@@ -64,9 +69,12 @@ constexpr float kLog2e = 1.4426950408889634f;
 // rows one `ldmatrix` phase reads fall on eight different bank groups.
 template <typename T, int HD>
 struct Tile {
-  // keys per kv tile: 64, and 32 for f32 at hd 128, where 64 would not fit
-  // shared memory beside the low halves and Q
-  static constexpr int kRows = sizeof(T) == 4 && HD == 128 ? 32 : 64;
+  // keys per kv tile: 64; fewer where 64 would not fit shared memory (f32:
+  // beside the low halves and Q's two halves; bf16 at hd 256: beside Q, two
+  // blocks an SM)
+  static constexpr int kRows =
+      sizeof(T) == 4 ? (HD == 256 ? 16 : HD == 128 ? 32 : 64)
+                     : (HD == 256 ? 32 : 64);
   static constexpr int kElems = 16 / sizeof(T);      // elements per chunk
   static constexpr int kChunks = HD / kElems;        // chunks per row
   static constexpr int kSize = kRows * HD;           // elements per tile
@@ -83,18 +91,29 @@ struct Tile {
   }
 };
 
-// The block's shape by input type.  bf16: 4 warps (a 64-row q tile), Q kept
-// in registers.  f32: 8 warps (128 rows), which halves the K/V tile loads and
-// splits per product, with Q's halves read from shared memory at each tile,
-// which leaves the registers to the 3xTF32 operands.  On the H100 each type
-// ran faster in its own shape than in the other's.
-template <typename T>
+// The block's shape by input type and head dim.  bf16: 4 warps (a 64-row q
+// tile), Q kept in registers up to hd 128.  f32: 8 warps (128 rows), which
+// halves the K/V tile loads and splits per product, with Q's halves read
+// from shared memory at each tile, which leaves the registers to the 3xTF32
+// operands; at hd 256 the 8 warps split the output columns in two (kSplit)
+// over 64 rows, as Q's two halves of 128 rows would take 256 KB.  On the
+// H100 each type ran faster in its own shape than in the other's (hd
+// 16-128).
+template <typename T, int HD>
 struct Shape {
   static constexpr bool kBf16 = sizeof(T) == 2;
   static constexpr int kWarps = kBf16 ? 4 : 8;
   static constexpr int kThreads = 32 * kWarps;
-  static constexpr int kBQ = 16 * kWarps;     // q rows per block, 16 a warp
-  static constexpr bool kQRegs = kBf16;
+  // warps that share 16 rows, each keeping HD / kSplit output columns
+  static constexpr int kSplit = !kBf16 && HD == 256 ? 2 : 1;
+  static constexpr int kBQ = 16 * kWarps / kSplit;   // q rows per block
+  static constexpr bool kQRegs = kBf16 && HD <= 128;
+  // n8 tiles of the output that one pass of f32's P.V sums from zero, and
+  // the unrolling of Q.K^T's depth loop (whole: HD / 8 >= its steps); the
+  // split instance's values ran fastest of those tried on the H100, all
+  // without spills
+  static constexpr int kPV = kSplit > 1 ? 4 : HD / 8;
+  static constexpr int kUnrollQK = kSplit > 1 ? 8 : HD / 8;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -231,7 +250,7 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src,
                                           long long row_stride, int r0,
                                           int n) {
   using L = Tile<T, HD>;
-  constexpr int kThreads = Shape<T>::kThreads;
+  constexpr int kThreads = Shape<T, HD>::kThreads;
   static_assert(ROWS * L::kChunks % kThreads == 0, "whole copies a thread");
 #pragma unroll
   for (int it = 0; it < ROWS * L::kChunks / kThreads; ++it) {
@@ -245,26 +264,33 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src,
 }
 
 // K0 V0 K1 V1; f32 then the low halves of the current K and V, Q's high
-// and Q's low halves (bf16 stages Q in K1 and V1 before the loop)
+// and Q's low halves; bf16 at hd 256 then Q (up to hd 128 bf16 stages Q in
+// K1 and V1 before the loop)
 template <typename T, int HD>
 constexpr int smem_bytes() {
-  constexpr int extra =
-      Shape<T>::kBf16 ? 0 : 2 * Tile<T, HD>::kSize + 2 * Shape<T>::kBQ * HD;
-  return (4 * Tile<T, HD>::kSize + extra) * static_cast<int>(sizeof(T));
+  using S = Shape<T, HD>;
+  constexpr int lo = S::kBf16 ? 0 : 2 * Tile<T, HD>::kSize;
+  constexpr int qs = S::kQRegs ? 0 : (S::kBf16 ? 1 : 2) * S::kBQ * HD;
+  return (4 * Tile<T, HD>::kSize + lo + qs) * static_cast<int>(sizeof(T));
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(Shape<T>::kThreads)
+__global__ void __launch_bounds__(Shape<T, HD>::kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out, int Sq, int Skv,
              int H, int KV, int causal, int window) {
   using L = Tile<T, HD>;
-  constexpr bool kBf16 = Shape<T>::kBf16;
-  constexpr bool kQRegs = Shape<T>::kQRegs;
-  constexpr int kBQ = Shape<T>::kBQ;
+  using Sh = Shape<T, HD>;
+  constexpr bool kBf16 = Sh::kBf16;
+  constexpr bool kQRegs = Sh::kQRegs;
+  constexpr int kBQ = Sh::kBQ;
+  constexpr int kPV = Sh::kPV;
   constexpr int KS = kBf16 ? 16 : 8;    // depth of one mma
   constexpr int NQK = HD / KS;          // mma depth steps of Q.K^T
-  constexpr int ND = HD / 8;            // n8 tiles of the output
+  constexpr int HDW = HD / Sh::kSplit;  // output columns a warp keeps
+  constexpr int ND = HDW / 8;           // n8 tiles of the warp's output
+  static_assert(kPV == ND || kPV % 4 == 0, "passes of whole groups");
+  static_assert(!kBf16 || Sh::kSplit == 1, "bf16 keeps whole rows");
   constexpr int kBK = L::kRows;         // keys per kv tile
   constexpr int kNT = kBK / 8;          // n8 tiles of scores per warp
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -275,10 +301,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.z;
   const int kvh = h / (H / KV);
   const int warp = threadIdx.x / 32;
+  const int rg = warp % (Sh::kWarps / Sh::kSplit);   // the warp's 16 rows
+  const int c0 = warp / (Sh::kWarps / Sh::kSplit) * HDW;  // its columns
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;               // accumulator row (and row + 8)
   const int t = lane % 4;               // accumulator columns 2t, 2t + 1
-  const int w0 = q0 + 16 * warp;        // the warp's first query row
+  const int w0 = q0 + 16 * rg;          // the warp's first query row
   const float scale = kLog2e / sqrtf(static_cast<float>(HD));
 
   const long long q_stride = static_cast<long long>(H) * HD;
@@ -294,7 +322,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int n_tiles = k_end > kt0 ? (k_end - kt0 + kBK - 1) / kBK : 0;
 
   T* lo = smem + 4 * L::kSize;          // f32: the tile's low K, V halves
-  T* qs = smem + (kQRegs ? 2 : 6) * L::kSize;
+  T* qs = smem + (kQRegs ? 2 : kBf16 ? 4 : 6) * L::kSize;
   static_assert(!kQRegs || kBQ <= 2 * kBK, "Q is staged in K1 and V1");
   load_tile<T, HD, kBQ>(qs, qb, q_stride, q0, Sq);
   if (n_tiles > 0) {
@@ -306,14 +334,14 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
   T* ql_s = qs + kBQ * HD;              // f32: Q's low halves
   if constexpr (!kBf16) {
-    split_tile<Shape<T>::kThreads>(qs, ql_s, kBQ * HD);
+    split_tile<Sh::kThreads>(qs, ql_s, kBQ * HD);
     __syncthreads();
   }
   uint32_t qf[kQRegs ? NQK : 1][4];
   if constexpr (kQRegs) {
 #pragma unroll
     for (int kk = 0; kk < NQK; ++kk)
-      ldsm_x4(qf[kk], qs + L::at(16 * warp + (lane & 15),
+      ldsm_x4(qf[kk], qs + L::at(16 * rg + (lane & 15),
                                  kk * KS + (lane >> 4) * L::kElems));
     __syncthreads();                    // K1 is overwritten below
   }
@@ -343,7 +371,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* vs = ks + L::kSize;
     if constexpr (!kBf16) {
       // split K and V once for all warps (the two are adjacent)
-      split_tile<Shape<T>::kThreads>(ks, lo, 2 * L::kSize);
+      split_tile<Sh::kThreads>(ks, lo, 2 * L::kSize);
       __syncthreads();
     }
     const T* kl_s = lo;
@@ -358,14 +386,17 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int n = 0; n < kNT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
+#pragma unroll(Sh::kUnrollQK)
       for (int kk = 0; kk < NQK; ++kk) {
         uint32_t qh[4], ql[4];
-        if constexpr (!kBf16) {
-          const int at = L::at(16 * warp + (lane & 15),
+        const uint32_t* qa = qh;          // the A fragment of bf16's mma
+        if constexpr (kQRegs) {
+          qa = qf[kk];
+        } else {
+          const int at = L::at(16 * rg + (lane & 15),
                                kk * KS + (lane >> 4) * L::kElems);
           ldsm_x4(qh, qs + at);
-          ldsm_x4(ql, ql_s + at);
+          if constexpr (!kBf16) ldsm_x4(ql, ql_s + at);
         }
 #pragma unroll
         for (int np = 0; np < kNT / 2; ++np) {
@@ -375,8 +406,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                kk * KS + ((lane >> 3) & 1) * L::kElems);
           ldsm_x4(kf, ks + at);
           if constexpr (kBf16) {
-            mma_bf16(s[2 * np], qf[kk], kf[0], kf[1]);
-            mma_bf16(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+            mma_bf16(s[2 * np], qa, kf[0], kf[1]);
+            mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
           } else {
             uint32_t kl[4];
             ldsm_x4(kl, kl_s + at);
@@ -440,7 +471,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-          for (int dp = 0; dp < HD / 16; ++dp) {
+          for (int dp = 0; dp < ND / 2; ++dp) {
             uint32_t vf[4];
             ldsm_x4_trans(vf, vs + L::at(kk * 16 + (lane & 7) +
                                              ((lane >> 3) & 1) * 8,
@@ -452,37 +483,43 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       } else {
         // the tile's P.V is summed from zero and added to O in f32, so the
         // tensor cores' rounding runs over one tile's 24 products, not the
-        // whole row's
-        float pv[ND][4];
+        // whole row's; kPV n8 tiles of the output a pass
 #pragma unroll
-        for (int d = 0; d < ND; ++d)
+        for (int d0 = 0; d0 < ND; d0 += kPV) {
+          float pv[kPV][4];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) pv[d][e] = 0.f;
+          for (int d = 0; d < kPV; ++d)
 #pragma unroll
-        for (int n = 0; n < kNT; ++n) {
-          // slot t <- key 2t, slot t + 4 <- key 2t + 1 of n8 tile n
-          uint32_t ph[4], pl[4];
-          split_tf32(s[n][0], ph[0], pl[0]);
-          split_tf32(s[n][2], ph[1], pl[1]);
-          split_tf32(s[n][1], ph[2], pl[2]);
-          split_tf32(s[n][3], ph[3], pl[3]);
-          const int key = 8 * n + 2 * t;
+            for (int e = 0; e < 4; ++e) pv[d][e] = 0.f;
 #pragma unroll
-          for (int d = 0; d < ND; ++d) {
-            const int a0 = L::at(key, 8 * d + g);
-            const int a1 = L::at(key + 1, 8 * d + g);
-            const uint32_t vh0 = __float_as_uint(vs[a0]);
-            const uint32_t vl0 = __float_as_uint(vl_s[a0]);
-            const uint32_t vh1 = __float_as_uint(vs[a1]);
-            const uint32_t vl1 = __float_as_uint(vl_s[a1]);
-            mma_3xtf32(pv[d], ph, pl, vh0, vh1, vl0, vl1);
+          for (int n = 0; n < kNT; ++n) {
+            // slot t <- key 2t, slot t + 4 <- key 2t + 1 of n8 tile n
+            uint32_t ph[4], pl[4];
+            split_tf32(s[n][0], ph[0], pl[0]);
+            split_tf32(s[n][2], ph[1], pl[1]);
+            split_tf32(s[n][1], ph[2], pl[2]);
+            split_tf32(s[n][3], ph[3], pl[3]);
+            const int key = 8 * n + 2 * t;
+#pragma unroll
+            for (int d = 0; d < kPV; ++d) {
+              // the swizzle permutes chunks within aligned groups of 8 (32
+              // floats), so pass d0's columns lie 8 * d0 past pass 0's,
+              // and the warp's c0 past column 0: constant offsets
+              const int a0 = L::at(key, 8 * d + g) + 8 * d0 + c0;
+              const int a1 = L::at(key + 1, 8 * d + g) + 8 * d0 + c0;
+              const uint32_t vh0 = __float_as_uint(vs[a0]);
+              const uint32_t vl0 = __float_as_uint(vl_s[a0]);
+              const uint32_t vh1 = __float_as_uint(vs[a1]);
+              const uint32_t vl1 = __float_as_uint(vl_s[a1]);
+              mma_3xtf32(pv[d], ph, pl, vh0, vh1, vl0, vl1);
+            }
           }
+#pragma unroll
+          for (int d = 0; d < kPV; ++d)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              o[d0 + d][e] = fmaf(o[d0 + d][e], corr[e >> 1], pv[d][e]);
         }
-#pragma unroll
-        for (int d = 0; d < ND; ++d)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            o[d][e] = fmaf(o[d][e], corr[e >> 1], pv[d][e]);
       }
     }
     __syncthreads();                    // before tile j + 2 overwrites it
@@ -498,7 +535,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (row < Sq) {
 #pragma unroll
       for (int d = 0; d < ND; ++d)
-        store_pair(ob + row * q_stride + 8 * d + 2 * t, o[d][2 * r] * inv,
+        store_pair(ob + row * q_stride + c0 + 8 * d + 2 * t, o[d][2 * r] * inv,
                    o[d][2 * r + 1] * inv);
     }
   }
@@ -512,9 +549,9 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* out,
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  constexpr int kBQ = Shape<T>::kBQ;
+  constexpr int kBQ = Shape<T, HD>::kBQ;
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_kernel<T, HD><<<grid, Shape<T>::kThreads, bytes, stream>>>(
+  flash_kernel<T, HD><<<grid, Shape<T, HD>::kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), Sq, Skv, H, KV, causal,
       window);
@@ -537,6 +574,9 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
                               stream);
     case 128:
       return launch_hd<T, 128>(q, k, v, out, B, Sq, Skv, H, KV, causal,
+                               window, stream);
+    case 256:
+      return launch_hd<T, 256>(q, k, v, out, B, Sq, Skv, H, KV, causal,
                                window, stream);
     default:
       return cudaErrorInvalidValue;

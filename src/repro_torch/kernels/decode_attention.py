@@ -33,9 +33,9 @@ share it must run on one stream.
 
 Types: q in float32 or bfloat16, both caches in float32 or bfloat16
 (mixed is the serving path's normal case: float32 activations over a
-bfloat16 cache), lengths int32.  Head dims 16, 32, 64 and 128, at most 16
-query heads per kv head.  Any cache length ``S``: the kernel masks the
-ragged last tile itself.
+bfloat16 cache), lengths int32.  Head dims 16, 32, 64, 128 and 256, at
+most 16 query heads per kv head.  Any cache length ``S``: the kernel
+masks the ragged last tile itself.
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ import torch
 from . import refuse_autograd
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GROUP = 16
 MAX_GRID = 65535          # B and the split count are the grid's y and z
 # Blocks of the kernel one SM holds (registers bound it); the split
@@ -85,13 +85,16 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return o.reshape(b, h, hd).to(q.dtype)
 
 
-def tile_keys(group: int) -> int:
+def tile_keys(group: int, hd: int = 64, cache_itemsize: int = 2) -> int:
     """Keys per K/V tile of the kernel at ``group`` query heads per kv head.
 
     Up to 8 heads, the block's 8 warps each take 8 keys of a tile; above
-    8, two sets of 4 warps split the heads, so a tile holds 32 keys.
+    8, two sets of 4 warps split the heads, so a tile holds 32 keys.  A
+    row of more than 512 bytes (a float32 cache at hd 256) halves the
+    keys a warp takes, so that two stages of the ring fit shared memory.
     """
-    return 64 if group <= 8 else 32
+    keys = 64 if group <= 8 else 32
+    return keys // 2 if hd * cache_itemsize > 512 else keys
 
 
 def choose_splits(batch: int, kv_heads: int, seq_len: int, group: int,

@@ -18,10 +18,10 @@ float32, out in q's type.  Query head ``h`` reads kv head
   materialized float32 logits, masked, softmax.
 * :data:`LAUNCHES` counts kernel launches, and only those.
 
-q, k and v share one type, float32 or bfloat16; head dims 16, 32, 64, 128;
-any ``Sq`` and ``Skv`` (the kernel masks ragged tiles itself); ``B`` and
-``H`` at most 65535.  The kernel runs bf16 on the tensor cores and f32
-as 3xTF32 on them, near f32 accuracy.
+q, k and v share one type, float32 or bfloat16; head dims 16, 32, 64,
+128 and 256; any ``Sq`` and ``Skv`` (the kernel masks ragged tiles
+itself); ``B`` and ``H`` at most 65535.  The kernel runs bf16 on the
+tensor cores and f32 as 3xTF32 on them, near f32 accuracy.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ import torch
 from . import refuse_autograd
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GRID = 65535          # B and H are the grid's z and y: at most 65535
 
 # Kernel launches since import (or since a caller reset it).

@@ -94,8 +94,8 @@ def ssm_scan(decay: torch.Tensor, drive: torch.Tensor,
     while grad mode is on.
     """
     refuse_autograd("ssm_scan", (decay, drive, h0),
-                    "the differentiable plain path, ssm_scan_plain (a "
-                    "trainable Mamba scan is queued: ROADMAP A5)")
+                    "the differentiable plain path, repro_torch.models."
+                    "ssm.mamba_apply_chunked (Model.forward_train)")
     if decay.device.type == "cpu":
         return ssm_scan_plain(decay, drive, h0)
     if decay.device.type != "cuda":

@@ -1,7 +1,12 @@
 """Training entry point.
 
     python -m repro_torch.launch.train --arch llama3.2-1b --steps 50
+    python -m repro_torch.launch.train --arch hymba-1.5b --steps 50
     python -m repro_torch.launch.train --arch llama3.2-1b-smoke --device cpu
+
+Every architecture the port builds trains: llama3.2-1b, gemma3-1b and
+qwen2-1.5b (dense), hymba-1.5b (hybrid), and their ``-smoke``
+reductions.
 
 The port of ``repro/launch/train.py``, with its flags and ``--device``.
 Wires: config -> Model (weights from ``--seed``) -> DataPipeline (a

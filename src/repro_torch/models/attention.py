@@ -1,13 +1,15 @@
 """Grouped-query attention: projections, self-attention, decode.
 
-The port of ``repro/models/attention.py`` for the dense family.  The
+The port of ``repro/models/attention.py`` for the dense family, QKV
+biases included.  The
 inference self-attention is the flash kernel (B2) over positions
 ``arange(S)``; one token against a cache is the decode kernel (B3).
 Neither kernel has a backward, so training takes JAX's two plain paths
 under autograd: ``attention_dense`` (materialized logits) and
 ``attention_chunked`` (the online-softmax carry over KV chunks), chosen
 by JAX's rule (:func:`self_attention_train`).  Weights keep the JAX
-layouts: ``wq`` (d, H, hd), ``wk``/``wv`` (d, KV, hd), ``wo`` (H, hd, d).
+layouts: ``wq`` (d, H, hd), ``wk``/``wv`` (d, KV, hd), ``wo`` (H, hd, d),
+and with ``qkv_bias`` ``bq`` (H, hd), ``bk``/``bv`` (KV, hd).
 ``make_mask`` is the flash kernel module's, whose plain version uses it.
 """
 
@@ -36,7 +38,8 @@ def _no_softcap(cfg: ArchConfig) -> None:
     if cfg.attn_logit_softcap:
         raise NotImplementedError(
             f"{cfg.name}: attention logit softcap is not ported (neither "
-            f"attention kernel has one; it comes with gemma's slice)")
+            f"attention kernel has one, and no ported config sets it; "
+            f"ROADMAP A5)")
 
 
 def qkv_project(p, xq: torch.Tensor, xkv: torch.Tensor, cfg: ArchConfig,
@@ -44,8 +47,9 @@ def qkv_project(p, xq: torch.Tensor, xkv: torch.Tensor, cfg: ArchConfig,
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(B, S, d) -> q (B, S, H, hd), k and v (B, S, KV, hd) with RoPE.
 
-    Products accumulate in float32 and are cast to ``xq``'s type, then
-    rotated (attention.py ``qkv_project``).
+    Products accumulate in float32 and are cast to ``xq``'s type; the
+    biases, when the layer has them, are added, then q and k rotated
+    (attention.py ``qkv_project``).
     """
     def proj(x, w):
         d, heads, hd = w.shape
@@ -55,6 +59,8 @@ def qkv_project(p, xq: torch.Tensor, xkv: torch.Tensor, cfg: ArchConfig,
     q = proj(xq, p.wq)
     k = proj(xkv, p.wk)
     v = proj(xkv, p.wv)
+    if p.bq is not None:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
     q = apply_rope(q, q_positions, cfg.rope_theta)
     k = apply_rope(k, k_positions, cfg.rope_theta)
     return q, k, v
@@ -107,9 +113,11 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     The online-softmax carry (running max ``m``, sum ``l``, weighted
     values ``acc``) over KV chunks of ``attention.py
-    attention_chunked``; the last chunk is padded with keys at position
-    -1e9, which no mask admits.  Differentiable: autograd keeps each
-    chunk's probabilities.
+    attention_chunked``; the last chunk is padded with zero keys at
+    position -1e9.  A window's mask drops them, but a causal mask alone
+    keeps them (-1e9 <= i), as JAX's does (ROADMAP C20): chunk sizes
+    that divide Skv avoid the padding.  Differentiable: autograd keeps
+    each chunk's probabilities.
     """
     _no_softcap(cfg)
     b, sq, h, hd = q.shape

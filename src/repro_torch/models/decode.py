@@ -90,7 +90,7 @@ def decode_step(model: Model, state: DecodeState,
                 tokens: torch.Tensor) -> torch.Tensor:
     """tokens (B, 1) -> logits (B, 1, padded_vocab); ``state`` in place."""
     cfg = model.cfg
-    x = embed_tokens(model.tokens, tokens, model.dtype)
+    x = embed_tokens(model.tokens, tokens, model.dtype, cfg.name)
     q_pos = state.pos[:, None]                     # (B, 1) rope positions
     for i, (layer, window) in enumerate(zip(model.layers, model.windows)):
         if cfg.family == "hybrid":                 # _hybrid_layer_decode

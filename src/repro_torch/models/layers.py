@@ -1,5 +1,5 @@
-"""Common layers: RMSNorm, rotary embeddings, the SwiGLU MLP, embed/unembed,
-and the training loss.
+"""Common layers: RMSNorm, rotary embeddings, the MLP (gated or not, silu
+or gelu), embed/unembed, and the training loss.
 
 The port of ``repro/models/layers.py`` for the dense and hybrid
 families.  Every product accumulates in float32 and every norm and
@@ -56,18 +56,34 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def swiglu_mlp(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
-               wo: torch.Tensor) -> torch.Tensor:
-    """silu(x wg) * (x wi) in float32, cast to x's type before ``wo``."""
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation (PyTorch's
+    default is the exact erf form, up to ~1e-3 away)."""
+    return F.gelu(x, approximate="tanh")
+
+
+ACTIVATIONS = {"silu": F.silu, "gelu": gelu}
+
+
+def apply_mlp(x: torch.Tensor, wi: torch.Tensor, wg: Optional[torch.Tensor],
+              wo: torch.Tensor, act: str) -> torch.Tensor:
+    """``act(x wg) * (x wi)`` when gated (``wg`` given), else ``act(x
+    wi)``, in float32, cast to x's type before ``wo`` (``apply_mlp``)."""
+    fn = ACTIVATIONS[act]
     h = matmul_f32(x, wi)
-    g = matmul_f32(x, wg)
-    h = F.silu(g) * h
+    h = fn(h) if wg is None else fn(matmul_f32(x, wg)) * h
     return matmul_f32(h.to(x.dtype), wo).to(x.dtype)
 
 
 def embed_tokens(tokens_table: torch.Tensor, ids: torch.Tensor,
-                 dtype: torch.dtype) -> torch.Tensor:
-    return tokens_table[ids].to(dtype)
+                 dtype: torch.dtype, name: str) -> torch.Tensor:
+    """Rows ``ids`` of the table in ``dtype``; a gemma model (``name``
+    starting "gemma") scales them by sqrt(d) in the table's type first."""
+    out = tokens_table[ids]
+    if name.startswith("gemma"):
+        out = out * torch.tensor(tokens_table.shape[1] ** 0.5,
+                                 dtype=out.dtype, device=out.device)
+    return out.to(dtype)
 
 
 def unembed(tokens_table: torch.Tensor, x: torch.Tensor,

@@ -11,11 +11,13 @@ state.
 
 Where JAX runs the recurrence of :func:`mamba_apply` as a chunked
 ``associative_scan`` with the ``C . h`` readout inside each chunk, the
-port runs it as one launch of the scan kernel (B4,
+port's serving forward runs it as one launch of the scan kernel (B4,
 :func:`~repro_torch.kernels.ssm_scan.ssm_scan`) over the whole
-sequence from ``h0 = 0`` and reads ``C . h`` out afterwards.  The
-one-token step needs no kernel in either package.  The mLSTM and sLSTM
-blocks come with the ``ssm`` family (ROADMAP A5).
+sequence from ``h0 = 0`` and reads ``C . h`` out afterwards.  B4 has
+no backward, so training runs :func:`mamba_apply_chunked`, JAX's own
+scheme in plain PyTorch under autograd.  The one-token step needs no
+kernel in either package.  The mLSTM and sLSTM blocks come with the
+``ssm`` family (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -99,6 +101,73 @@ def mamba_apply(p: Mamba, u: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     h0 = torch.zeros((b_, inner, cfg.ssm_state), dtype=F32, device=u.device)
     h = ssm_scan(decay, drive, h0)
     y = torch.einsum("bsin,bsn->bsi", h, cmat)
+    return _readout(p, y, x, z, u.dtype)
+
+
+def associative_scan(a: torch.Tensor, b: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan along dim 1 of the pairs (a_t, b_t) under JAX's
+    ``combine``: (a1, b1) . (a2, b2) = (a1 a2, a2 b1 + b2).
+
+    The recursion of ``jax.lax.associative_scan``, in its order of
+    operations: combine adjacent pairs, scan those at half the length,
+    then fill in the even positions; log depth, differentiable.  Each
+    level writes its odd and even positions into one new tensor.
+    """
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    odd_a, odd_b = associative_scan(a[:, 1::2] * a[:, 0:-1:2],
+                                    a[:, 1::2] * b[:, 0:-1:2] + b[:, 1::2])
+    prev_a, prev_b = ((odd_a[:, :-1], odd_b[:, :-1]) if n % 2 == 0
+                      else (odd_a, odd_b))
+    out_a, out_b = torch.empty_like(a), torch.empty_like(b)
+    out_a[:, 1::2], out_b[:, 1::2] = odd_a, odd_b
+    out_a[:, :1], out_b[:, :1] = a[:, :1], b[:, :1]
+    out_a[:, 2::2] = prev_a * a[:, 2::2]
+    out_b[:, 2::2] = a[:, 2::2] * prev_b + b[:, 2::2]
+    return out_a, out_b
+
+
+def mamba_apply_chunked(p: Mamba, u: torch.Tensor, cfg: ArchConfig,
+                        chunk: int = 128) -> torch.Tensor:
+    """The selective scan of :func:`mamba_apply` in plain PyTorch, for
+    training: u (B, S, d) -> (B, S, d), differentiable.
+
+    JAX's ``mamba_apply``: decay and drive padded to whole chunks (decay
+    by 1, drive and C by 0); in each chunk an associative scan gives
+    (aa, bb), the states are h = aa * h0 + bb and the readout ``C . h``
+    is taken there, so one chunk's (B, chunk, inner, N) states exist at
+    a time; the chunk's last state is the next chunk's h0.  The scans
+    do not depend on h0, so all chunks' run as one batch: a few hundred
+    launches a layer, not a few thousand.  Never a cumulative product
+    and a division by it, which underflows over a chunk.
+    """
+    x, z, dt, bmat, cmat, a = _mamba_gates(p, u, cfg)
+    b_, s, inner = x.shape
+    n = cfg.ssm_state
+    decay = torch.exp(dt[..., None] * a)
+    drive = (dt * x)[..., None] * bmat[:, :, None, :]
+    chunk = min(chunk, s)
+    n_chunks = -(-s // chunk)
+    pad = n_chunks * chunk - s
+    if pad:
+        decay = F.pad(decay, (0, 0, 0, 0, 0, pad), value=1.0)
+        drive = F.pad(drive, (0, 0, 0, 0, 0, pad))
+        cmat = F.pad(cmat, (0, 0, 0, pad))
+    per_chunk = (b_ * n_chunks, chunk, inner, n)
+    aa, bb = associative_scan(decay.reshape(per_chunk),
+                              drive.reshape(per_chunk))
+    aa = aa.reshape(b_, n_chunks, chunk, inner, n)
+    bb = bb.reshape(b_, n_chunks, chunk, inner, n)
+    h = torch.zeros((b_, inner, n), dtype=F32, device=u.device)
+    ys = []
+    for c in range(n_chunks):
+        hs = aa[:, c] * h[:, None] + bb[:, c]         # (B, chunk, inner, N)
+        ys.append(torch.einsum("bcin,bcn->bci", hs,
+                               cmat[:, c * chunk:(c + 1) * chunk]))
+        h = hs[:, -1]
+    y = torch.cat(ys, dim=1)[:, :s]
     return _readout(p, y, x, z, u.dtype)
 
 

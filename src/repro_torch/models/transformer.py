@@ -2,11 +2,12 @@
 
 The port of ``repro/models/transformer.py`` (``Model``, ``forward``,
 ``_self_layer``, ``_hybrid_layer``) and of the init kinds of
-``repro/models/params.py`` for two families: ``dense`` (llama3.2-1b)
-and ``hybrid`` (hymba-1.5b: attention and Mamba in parallel in every
-layer, fused by the mean of their RMS-normalized outputs).  Other
-families and features (experts, QKV biases, softcaps, layernorm, gelu)
-raise ``NotImplementedError``; they come with later slices (ROADMAP A5).
+``repro/models/params.py`` for two families: ``dense`` (llama3.2-1b;
+gemma3-1b with its gelu MLP and scaled embedding; qwen2-1.5b with its
+QKV biases) and ``hybrid`` (hymba-1.5b: attention and Mamba in parallel
+in every layer, fused by the mean of their RMS-normalized outputs).
+Other families and features (experts, softcaps, layernorm) raise
+``NotImplementedError``; they come with later slices (ROADMAP A5).
 
 The layers form one flat ``nn.ModuleList``, each with its window from
 :func:`layer_windows`, where JAX nests the grouped local:global
@@ -19,9 +20,10 @@ seeded by ``seed`` on the model's device; the numbers differ from
 
 Two forwards: :meth:`Model.forward`, the kernels' (flash attention,
 B2, and the scan, B4), which serving calls; and
-:meth:`Model.forward_train`, plain PyTorch under autograd for the dense
-family (JAX's ``attention_dense``/``attention_chunked`` by its
-``attn_impl`` rule, each layer under the ``remat`` policy), which
+:meth:`Model.forward_train`, plain PyTorch under autograd for both
+families (JAX's ``attention_dense``/``attention_chunked`` by its
+``attn_impl`` rule, the hybrid's Mamba branch as JAX's chunked
+associative scan, each layer under the ``remat`` policy), which
 :meth:`Model.loss` and the trainer call.  The kernels have no backward
 and refuse inputs that require grad.  Parameters are created with
 ``requires_grad=False``; the train step turns it on.
@@ -41,9 +43,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..configs.base import ArchConfig
 from ..device import DeviceLike, resolve_device
 from .attention import self_attention, self_attention_train
-from .layers import (cross_entropy, embed_tokens, rms_norm, swiglu_mlp,
-                     unembed)
-from .ssm import Mamba, mamba_apply
+from .layers import (ACTIVATIONS, apply_mlp, cross_entropy, embed_tokens,
+                     rms_norm, unembed)
+from .ssm import Mamba, mamba_apply, mamba_apply_chunked
 
 F32 = torch.float32
 REMAT_POLICIES = ("full", "dots", "none")
@@ -106,7 +108,9 @@ def init_tensor(shape: Tuple[int, ...], kind: str, gen: torch.Generator,
 
 
 class Attention(nn.Module):
-    """``wq`` (d, H, hd), ``wk``/``wv`` (d, KV, hd), ``wo`` (H, hd, d)."""
+    """``wq`` (d, H, hd), ``wk``/``wv`` (d, KV, hd), ``wo`` (H, hd, d);
+    with ``qkv_bias`` also ``bq`` (H, hd), ``bk``/``bv`` (KV, hd), zeros
+    at init (``attention_schema``), else None."""
 
     def __init__(self, cfg: ArchConfig, make):
         super().__init__()
@@ -115,17 +119,24 @@ class Attention(nn.Module):
         self.wk = make((d, kv, hd), "fan_in")
         self.wv = make((d, kv, hd), "fan_in")
         self.wo = make((h, hd, d), "fan_in")
+        self.bq = self.bk = self.bv = None
+        if cfg.qkv_bias:
+            self.bq = make((h, hd), "zeros")
+            self.bk = make((kv, hd), "zeros")
+            self.bv = make((kv, hd), "zeros")
 
 
 class MLP(nn.Module):
-    """SwiGLU: ``wi``/``wg`` (d, f), ``wo`` (f, d)."""
+    """``wi`` (d, f), ``wo`` (f, d) and, gated, ``wg`` (d, f)
+    (``mlp_schema``); ``act`` is the config's activation."""
 
     def __init__(self, cfg: ArchConfig, make):
         super().__init__()
         d, f = cfg.d_model, cfg.d_ff
+        self.act = cfg.act
         self.wi = make((d, f), "fan_in")
         self.wo = make((f, d), "fan_in")
-        self.wg = make((d, f), "fan_in")
+        self.wg = make((d, f), "fan_in") if cfg.mlp_gated else None
 
 
 class _Block(nn.Module):
@@ -133,8 +144,9 @@ class _Block(nn.Module):
 
     def mlp_block(self, x: torch.Tensor) -> torch.Tensor:
         """x + MLP(norm(x))."""
+        m = self.mlp
         h = rms_norm(x, self.mlp_norm)
-        return x + swiglu_mlp(h, self.mlp.wi, self.mlp.wg, self.mlp.wo)
+        return x + apply_mlp(h, m.wi, m.wg, m.wo, m.act)
 
 
 class Layer(_Block):
@@ -191,10 +203,9 @@ def check_supported(cfg: ArchConfig) -> None:
     unsupported = {
         "family": cfg.family not in ("dense", "hybrid"),
         "experts": cfg.is_moe,
-        "qkv_bias": cfg.qkv_bias,
         "attn_logit_softcap": bool(cfg.attn_logit_softcap),
         "norm": cfg.norm != "rmsnorm",
-        "activation": cfg.act != "silu" or not cfg.mlp_gated,
+        "activation": cfg.act not in ACTIVATIONS,
     }
     missing = [k for k, bad in unsupported.items() if bad]
     if missing:
@@ -269,7 +280,7 @@ class Model(nn.Module):
         Mamba branch runs the scan kernel (B4) over the whole sequence.
         """
         cfg = self.cfg
-        x = embed_tokens(self.tokens, tokens, self.dtype)
+        x = embed_tokens(self.tokens, tokens, self.dtype, cfg.name)
         for layer, window in zip(self.layers, self.windows):
             if cfg.family == "hybrid":
                 h = rms_norm(x, layer.norm)
@@ -286,28 +297,29 @@ class Model(nn.Module):
     # training
     # ------------------------------------------------------------------ #
     def _train_layer(self, i: int, x: torch.Tensor) -> torch.Tensor:
-        """Layer ``i`` of the dense stack (``_self_layer``), plain torch."""
-        layer = self.layers[i]
-        h = rms_norm(x, layer.attn_norm)
-        x = x + self_attention_train(layer.attn, h, self.cfg,
-                                     self.windows[i], impl=self.attn_impl,
-                                     chunk=self.attn_chunk)
+        """Layer ``i`` in plain torch: ``_self_layer`` or, hybrid,
+        ``_hybrid_layer`` with the chunked Mamba scan."""
+        cfg, layer = self.cfg, self.layers[i]
+        hybrid = cfg.family == "hybrid"
+        h = rms_norm(x, layer.norm if hybrid else layer.attn_norm)
+        a = self_attention_train(layer.attn, h, cfg, self.windows[i],
+                                 impl=self.attn_impl, chunk=self.attn_chunk)
+        if hybrid:
+            m = mamba_apply_chunked(layer.mamba, h, cfg)
+            x = x + fuse_branches(a, m).to(x.dtype)
+        else:
+            x = x + a
         return layer.mlp_block(x)
 
     def forward_train(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (B, S) -> logits (B, S, padded_vocab), float32, under
         autograd: no kernel, every layer under the ``remat`` policy.
 
-        Dense family only.  The hybrid's Mamba branch runs the scan
-        kernel (B4), which has no backward, and JAX trains it through a
-        ``lax.scan``; a differentiable plain scan is queued (ROADMAP A5).
+        The hybrid's Mamba branch runs :func:`~repro_torch.models.ssm.
+        mamba_apply_chunked`, JAX's chunked associative scan, where
+        :meth:`forward` runs the scan kernel (B4), which has no backward.
         """
-        if self.cfg.family != "dense":
-            raise NotImplementedError(
-                f"{self.cfg.name}: training the {self.cfg.family} family "
-                f"is not ported; its Mamba branch needs a differentiable "
-                f"scan (ROADMAP A5)")
-        x = embed_tokens(self.tokens, tokens, self.dtype)
+        x = embed_tokens(self.tokens, tokens, self.dtype, self.cfg.name)
         for i in range(len(self.layers)):
             x = _remat(functools.partial(self._train_layer, i),
                        self.remat)(x)
@@ -318,8 +330,9 @@ class Model(nn.Module):
         """CE + aux losses (``Model.loss``).  ``batch["labels"]``, when
         present, is already position-aligned (``labels[i]`` is the target
         of position ``i``: the pipeline emits next-token labels); only
-        the ``tokens`` fallback needs the one-position shift.  The dense
-        family has no auxiliary loss: ``aux`` is a float32 zero."""
+        the ``tokens`` fallback needs the one-position shift.  Neither
+        the dense nor the hybrid family has an auxiliary loss: ``aux`` is
+        a float32 zero."""
         logits = self.forward_train(batch["tokens"])
         labels = batch.get("labels")
         if labels is None:

@@ -32,6 +32,9 @@ FLASH_CASES = [
     (1, 256, 256, 8, 2, 64, True, 64),
     (1, 512, 512, 2, 2, 128, True, 0),
     (2, 192, 192, 4, 2, 64, True, 48),
+    # gemma3-1b's head dim of 256, windowed and global
+    (2, 300, 300, 4, 1, 256, True, 128),
+    (1, 128, 256, 4, 2, 256, False, 0),
 ]
 
 DECODE_CASES = [
@@ -40,6 +43,9 @@ DECODE_CASES = [
     (2, 1024, 4, 4, 32, 0),
     (3, 512, 8, 4, 64, 200),
     (1, 256, 2, 1, 128, 0),
+    # gemma3-1b (4/1 heads of 256, window 512) and qwen2-1.5b (12/2 of 128)
+    (8, 1024, 4, 1, 256, 512),
+    (4, 512, 12, 2, 128, 0),
 ]
 
 DTYPES = {"float32": (jnp.float32, torch.float32),

@@ -17,7 +17,9 @@ actions equal a CPU plane's bit for bit, a tick adds one sync (its
 readback), and it does not wait for work queued on the default stream.
 Training: the kernels refuse CUDA inputs that require grad, a batch
 staged through the pipeline's pinned buffer arrives intact, and a few
-train steps of the smoke model on the card follow the CPU's.
+train steps of each smoke model (llama3.2-1b, hymba-1.5b, gemma3-1b,
+qwen2-1.5b) on the card follow the CPU's.  The attention kernels also
+at gemma3-1b's head dim of 256 and qwen2-1.5b's group of 6.
 """
 
 import time
@@ -231,7 +233,12 @@ DECODE_CARD_CASES = [((4, 512, 8, 2, 64, 0), None),
                      ((4, 900, 16, 4, 128, 0), [0, 1, 900, 555]),
                      ((3, 777, 8, 2, 64, 100), [777, 0, 150]),
                      ((2, 500, 16, 1, 64, 0), [500, 37]),
-                     ((4, 1500, 25, 5, 64, 1024), [1, 1025, 1500, 1337])]
+                     ((4, 1500, 25, 5, 64, 1024), [1, 1025, 1500, 1337]),
+                     # gemma3-1b's 4/1 heads of 256, window 512; two head
+                     # sets at hd 256; qwen2-1.5b's group of 6
+                     ((8, 1024, 4, 1, 256, 512), None),
+                     ((4, 900, 16, 4, 256, 0), [0, 1, 900, 555]),
+                     ((8, 1024, 12, 2, 128, 0), None)]
 
 
 @pytest.mark.parametrize("case,lens", DECODE_CARD_CASES, ids=str)
@@ -291,7 +298,10 @@ def test_decode_kernel_never_reads_past_length(card, window, kdt):
                                   (1, 61, 300, 4, 4, 16, False, 0),
                                   (1, 100, 300, 2, 1, 32, False, 50),
                                   (2, 77, 77, 25, 5, 16, True, 50),
-                                  (1, 77, 300, 25, 5, 128, False, 0)],
+                                  (1, 77, 300, 25, 5, 128, False, 0),
+                                  (2, 77, 77, 4, 1, 256, True, 0),
+                                  (1, 77, 300, 4, 2, 256, False, 0),
+                                  (2, 600, 600, 4, 1, 256, True, 512)],
                          ids=str)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
@@ -624,5 +634,40 @@ def test_training_on_the_card_follows_the_cpu(card, tmp_path):
                                    checkpoint_dir=str(tmp_path / dev)),
                      device=dev)
         tr.fit()
+        losses[dev] = [r["loss"] for r in tr.metrics_log]
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b-smoke", "gemma3-1b-smoke",
+                                  "qwen2-1.5b-smoke"])
+def test_new_architectures_train_on_the_card_as_on_the_cpu(card, tmp_path,
+                                                          arch):
+    """Four train steps of each smoke model on the card and on the CPU
+    from the same init: the losses within 1e-5 relative, and no kernel
+    launched on the training path."""
+    from repro_torch.data import (DataPipeline, PipelineConfig, ShardStore,
+                                  write_corpus)
+    from repro_torch.train import Trainer, TrainerConfig, TrainStepConfig
+    write_corpus(str(tmp_path / "c"), n_shards=4, tokens_per_shard=1024,
+                 vocab_size=503)
+    cfg = get_config(arch)
+    cpu = Model(cfg, seed=0, device="cpu")
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        model = Model(cfg, device=dev, init=False)
+        with torch.no_grad():
+            for p, q in zip(model.parameters(), cpu.parameters()):
+                p.copy_(q)
+        pipe = DataPipeline(ShardStore(str(tmp_path / "c")), PipelineConfig(
+            batch_size=4, seq_len=32, prefetch_depth=0, dynims=False))
+        tr = Trainer(model, pipe, TrainStepConfig(microbatches=2,
+                                                  warmup_steps=2,
+                                                  total_steps=4),
+                     TrainerConfig(steps=4, checkpoint_every=4, log_every=1,
+                                   checkpoint_dir=str(tmp_path / dev)),
+                     device=dev)
+        before = (fa.LAUNCHES, da.LAUNCHES, ks_scan.LAUNCHES)
+        tr.fit()
+        assert (fa.LAUNCHES, da.LAUNCHES, ks_scan.LAUNCHES) == before
         losses[dev] = [r["loss"] for r in tr.metrics_log]
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)

@@ -38,6 +38,10 @@ CASES = [
     (2, 1500, 25, 5, 64, 1024),
     # one (sequence, kv head) pair over a long cache: many parts
     (1, 4000, 4, 1, 64, 0),
+    # gemma3-1b's engine shape (4/1 heads of 256, window 512) and
+    # qwen2-1.5b's (12/2 heads of 128: the 8-head slots, two left empty)
+    (8, 1024, 4, 1, 256, 512),
+    (8, 1024, 12, 2, 128, 0),
 ]
 
 
@@ -62,7 +66,7 @@ def emulate_split_decode(q, k, v, lengths, window, splits):
     b, h, hd = q.shape
     s, kvh = k.shape[1], k.shape[2]
     g = h // kvh
-    tile = da.tile_keys(g)
+    tile = da.tile_keys(g, hd, k.element_size())
     qs = q.float().reshape(b, kvh, g, hd) * (LOG2E / math.sqrt(hd))
     out = torch.zeros(b, kvh, g, hd)
     for bi in range(b):
@@ -131,7 +135,7 @@ def test_split_scheme_matches_plain_and_ref(case, dtype, split_by):
     if split_by == "chooser":
         splits = da.choose_splits(b, kv, s, h // kv, SMS)
     else:                             # more parts than live tiles
-        splits = -(-s // da.tile_keys(h // kv))
+        splits = -(-s // da.tile_keys(h // kv, hd, k.element_size()))
     assert splits > 1
     got = emulate_split_decode(q, k, v, lens, window, splits)
     _assert_close(got, da.decode_attention_plain(q, k, v, lens,
@@ -151,6 +155,7 @@ def test_split_scheme_matches_plain_and_ref(case, dtype, split_by):
      9),
     ("two_head_sets", (2, 500, 16, 1, 128, 50), [500, 37], 9),
     ("hymba_window_edge", (2, 1500, 25, 5, 64, 1024), [1, 1100], 12),
+    ("gemma3_hd256_window", (2, 1100, 4, 1, 256, 512), [1100, 513], 16),
 ], ids=lambda x: x if isinstance(x, str) else "")
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_split_scheme_edge_cases(name, case, lens, splits, dtype):

@@ -44,6 +44,9 @@ CASES = [
     (2, 192, 192, 4, 2, 64, True, 48),
     (2, 300, 300, 32, 8, 64, True, 0),
     (1, 1100, 1100, 25, 5, 64, True, 1024),
+    # gemma3-1b's 4/1 heads of 256, its window of 512 and global
+    (1, 600, 600, 4, 1, 256, True, 512),
+    (1, 77, 300, 4, 2, 256, False, 0),
 ]
 
 
@@ -68,7 +71,9 @@ def product(a: torch.Tensor, b: torch.Tensor, scheme: str) -> torch.Tensor:
 def tiles(scheme, hd):
     """(q rows, kv keys) of the kernel's tiles for a scheme and head dim."""
     if scheme == "bf16":
-        return 64, 64
+        return 64, 32 if hd == 256 else 64
+    if hd == 256:
+        return 64, 16
     return 128, 32 if hd == 128 else 64
 
 

@@ -75,6 +75,7 @@ def test_rope_matches_jax():
 
 
 def test_swiglu_matches_jax():
+    """The gated silu MLP (``apply_mlp`` with ``wg``)."""
     rng = np.random.default_rng(2)
     x = rng.normal(0, 1, (3, 7, 64)).astype(np.float32)
     w = {n: rng.normal(0, 0.1, s).astype(np.float32)
@@ -82,8 +83,9 @@ def test_swiglu_matches_jax():
                       ("wo", (128, 64)))}
     ref = JL.apply_mlp({k: jnp.asarray(v) for k, v in w.items()},
                        jnp.asarray(x), jax_config(ARCH))
-    out = L.swiglu_mlp(torch.from_numpy(x),
-                       *(torch.from_numpy(w[n]) for n in ("wi", "wg", "wo")))
+    out = L.apply_mlp(torch.from_numpy(x),
+                      *(torch.from_numpy(w[n]) for n in ("wi", "wg", "wo")),
+                      "silu")
     assert _rel(out.numpy(), ref) <= 1e-6
 
 
@@ -186,13 +188,38 @@ def test_init_kinds_and_scales():
 
 @pytest.mark.parametrize("change", [
     {"family": "moe", "n_experts": 4, "experts_per_token": 2},
-    {"qkv_bias": True}, {"act": "gelu", "mlp_gated": False},
     {"attn_logit_softcap": 30.0}, {"norm": "layernorm"},
 ])
 def test_unported_features_raise(change):
     cfg = dataclasses.replace(get_config(ARCH), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         Model(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    {"qkv_bias": True}, {"act": "gelu", "mlp_gated": False},
+], ids=["qkv_bias", "gelu_ungated"])
+def test_ported_features_match_jax(change):
+    """The two features that raised until gemma3-1b and qwen2-1.5b were
+    ported, on llama's smoke model: ``Model.forward`` against JAX's, the
+    biases drawn at random on both sides (JAX's init gives zeros)."""
+    cfg_j = dataclasses.replace(jax_config(ARCH), **change)
+    cfg_t = dataclasses.replace(get_config(ARCH), **change)
+    jm = JaxModel(cfg_j, remat="none", attn_impl="dense")
+    rng = np.random.default_rng(8)
+    tree = jax.tree.map(np.asarray, jm.init(jax.random.key(2)))
+    for layer in (tree["layers"]["flat"],):
+        for name in ("bq", "bk", "bv"):
+            if name in layer["attn"]:
+                layer["attn"][name] = rng.normal(
+                    0, 0.5, layer["attn"][name].shape).astype(np.float32)
+    tm = model_params_from_numpy(tree, cfg_t, device="cpu")
+    assert (tm.layers[0].attn.bq is not None) == cfg_t.qkv_bias
+    assert (tm.layers[0].mlp.wg is None) == (not cfg_t.mlp_gated)
+    tokens = rng.integers(0, cfg_t.vocab_size, (2, 16)).astype(np.int32)
+    ref, _ = jm.forward(jax.tree.map(jnp.asarray, tree),
+                        {"tokens": jnp.asarray(tokens)})
+    assert _rel(tm(torch.from_numpy(tokens)).numpy(), ref) <= 1e-4
 
 
 def test_convert_rejects_a_misshapen_tree(pair):

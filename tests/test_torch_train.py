@@ -212,10 +212,20 @@ def test_model_loss_and_gradient_match_jax(jax_init, remat, impl, labels):
                                    rtol=1e-4, err_msg=name)
 
 
-def test_hybrid_loss_raises_naming_the_roadmap():
-    model = Model(get_config("hymba-1.5b-smoke"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        model.loss({"tokens": torch.zeros((1, 4), dtype=torch.long)})
+def test_hybrid_loss_matches_jax():
+    """hymba-1.5b-smoke's loss from JAX's init, JAX's to 1e-5 relative
+    (its gradient: tests/test_torch_hybrid_train.py)."""
+    arch = "hymba-1.5b-smoke"
+    params = JaxModel(jax_config(arch)).init(jax.random.key(0))
+    tokens = np.random.default_rng(12).integers(0, 503, (2, 24)).astype(
+        np.int32)
+    jloss, jparts = JaxModel(jax_config(arch)).loss(
+        params, {"tokens": jnp.asarray(tokens)})
+    model = model_params_from_numpy(jax.tree.map(np.asarray, params),
+                                    get_config(arch), device="cpu")
+    loss, parts = model.loss({"tokens": _t(tokens)})
+    assert abs(float(loss) - float(jloss)) <= 1e-5 * float(jloss)
+    assert float(parts["aux"]) == float(jparts["aux"]) == 0.0
 
 
 def test_remat_policy_is_checked():
