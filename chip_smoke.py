@@ -79,9 +79,21 @@ each, all at once) and drives the port's main paths on the card:
   timed beside their bounds and SDPA; gemma3-1b and qwen2-1.5b served
   at full width through the burst under the plane, their forwards
   against decode and against the training forward; hymba-1.5b,
-  gemma3-1b and qwen2-1.5b trained at full width for 4 steps (no kernel
-  launched; hymba's ms a step, tokens/s, peak memory and idle share);
-  the three smoke models trained on the card and the CPU alike.
+  gemma3-1b and qwen2-1.5b trained at full width and half depth for 4
+  steps (no kernel launched; hymba's ms a step, tokens/s, peak memory
+  and idle share);
+  the three smoke models trained on the card and the CPU alike;
+* the moe family (phase 20): flash and decode attention at
+  qwen2-moe-a2.7b's 16/16 heads of 128 (decode's group of 1) against
+  their plain versions and timed beside their bounds and SDPA;
+  qwen2-moe-a2.7b served at full width and depth (60.6 GB of float32
+  weights, 64 padded experts) through the burst under the plane, with
+  the busy slots' choices the experts' capacity dropped; one moe layer
+  on the card against the CPU with and without drops; its forward
+  against the training forward, and at cf 8.0 against decode; the model
+  trained at full width cut to 2 layers (the router's aux logged), and
+  the qwen2-moe and dbrx smoke models trained on the card and the CPU
+  alike.
 
 Decode attention at the engines' shapes (phases 9 and 13) is timed three
 ways, also in a fresh process that has built no plane (``chip_smoke.py
@@ -98,6 +110,7 @@ package.  Without a card it exits nonzero before printing a result.
 
 import concurrent.futures
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -161,11 +174,13 @@ from repro_torch.launch.profile_serve import (count_syncs,  # noqa: E402
                                               tick_launches, watch_ticks)
 from repro_torch.launch.serve import (FULL_WIDTH,  # noqa: E402
                                       FULL_WIDTH_GEMMA3, FULL_WIDTH_HYMBA,
-                                      FULL_WIDTH_QWEN2, build_engine, serve)
+                                      FULL_WIDTH_QWEN2, FULL_WIDTH_QWEN2_MOE,
+                                      build_engine, serve)
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.launch.time_sweep import (_profiled,  # noqa: E402
                                            device_ms, time_fused_sweep)
 from repro_torch.models import Model, decode as D  # noqa: E402
+from repro_torch.models import moe as TM  # noqa: E402
 from repro_torch.models.transformer import layer_windows  # noqa: E402
 from repro_torch.serving import ServingConfig, ServingEngine  # noqa: E402
 
@@ -767,7 +782,8 @@ def serve_full_width(phase, w, smi):
     return eng, launches, {"tok_s": report["tokens"] / dt,
                            "steps_s": st["steps"] / dt, "seconds": dt,
                            "steps": st["steps"],
-                           "preemptions": st["preemptions"]}
+                           "preemptions": st["preemptions"],
+                           "after_shrink": after, "full": report["full"]}
 
 
 def check_plane(eng):
@@ -2558,7 +2574,8 @@ def phase18(smi):
 # Phase 19: the dense features and hybrid training.  19a B2 and B3 at
 # head dim 256 (gemma3-1b's) against their plain versions and timed;
 # 19b gemma3-1b and qwen2-1.5b served and their forwards against decode
-# and the training forward; 19c the three models trained at full width;
+# and the training forward; 19c the three models trained at full width
+# and half depth;
 # 19d the smoke models, card against CPU.
 GEMMA3 = get_config(FULL_WIDTH_GEMMA3["arch"])
 QWEN2 = get_config(FULL_WIDTH_QWEN2["arch"])
@@ -2578,6 +2595,10 @@ GEMMA3_FLASH = (2, 1088)         # (B, S) of 19a's f32 forward shapes
 FORWARD_19B = {GEMMA3.name: (1, 600), QWEN2.name: (2, 256)}
 TRAIN_19C = dict(TRAIN_FULL, steps=4)
 TRAIN_19C_ARCHS = (HYMBA.name, GEMMA3.name, QWEN2.name)
+# 19c trains each at full width and half its depth (16 of 32, 13 of 26
+# with two 5:1 groups and a tail, 14 of 28 layers), so phase 20 fits the
+# script's time limit
+TRAIN_19C_DEPTH = 0.5
 TRAIN_19C_PROFILED = (2,)        # hymba's step under the profiler
 SMOKE_19D_ARCHS = tuple(a + "-smoke" for a in TRAIN_19C_ARCHS)
 
@@ -2677,22 +2698,27 @@ def phase19b(smi):
 
 
 def phase19c(smi):
-    """The three models trained at full width through the training CLI's
-    wiring; hymba timed and profiled.  Returns the numbers."""
+    """The three models trained at full width and cut depth through the
+    training CLI's wiring; hymba timed and profiled.  Returns the
+    numbers."""
     out = {}
     for arch in TRAIN_19C_ARCHS:
         w = dict(TRAIN_19C, arch=arch)
-        cfg = get_config(arch)
+        full = get_config(arch)
+        cfg = dataclasses.replace(
+            full, n_layers=round(full.n_layers * TRAIN_19C_DEPTH))
         hybrid = cfg.family == "hybrid"
-        log(f"phase 19c: train {arch} at full width ({cfg.n_layers} layers, "
-            f"d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
-            f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+        log(f"phase 19c: train {arch} at full width with its depth cut to "
+            f"{cfg.n_layers} of {full.n_layers} layers (d {cfg.d_model}, "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab_size}; "
             f"float32, no TF32; seed 0) through launch/train.py's wiring: "
             f"batch {w['batch']} x {w['seq']}, {w['microbatches']} "
             f"microbatches, remat full, {w['steps']} steps; on {smi}")
         tmp = tempfile.mkdtemp(prefix="repro-torch-train19-")
         try:
-            trainer = ttrain.build(train_args(w, tmp), log_every=1)
+            trainer = ttrain.build(train_args(w, tmp), log_every=1,
+                                   model=Model(cfg, seed=0, device=CUDA))
             window = (profile_steps(trainer, TRAIN_19C_PROFILED,
                                     host_ops=False) if hybrid else None)
             torch.cuda.synchronize()
@@ -2749,15 +2775,15 @@ def phase19c(smi):
     return out
 
 
-def phase19d():
-    """The three smoke models trained on the card and on the CPU from the
-    same init; their losses within 18b's bracket."""
+def phase19d(archs=SMOKE_19D_ARCHS, phase="19d"):
+    """The smoke models ``archs`` trained on the card and on the CPU from
+    the same init; their losses within 18b's bracket."""
     out = {}
-    for arch in SMOKE_19D_ARCHS:
+    for arch in archs:
         w = dict(TRAIN_SMOKE, arch=arch)
         cfg = get_config(w["arch"])
-        log(f"phase 19d: {cfg.name} for {w['steps']} steps on the card and on"
-            f" the CPU from the same init")
+        log(f"phase {phase}: {cfg.name} for {w['steps']} steps on the card "
+            f"and on the CPU from the same init")
         init = Model(cfg, seed=0, device="cpu")
         tmp = tempfile.mkdtemp(prefix="repro-torch-smoke19-")
         try:
@@ -2795,6 +2821,390 @@ def phase19(libs, smi):
          "smoke_card_vs_cpu": phase19d()}
     r["seconds"] = time.perf_counter() - t0
     log(f"phase 19 seconds (host clock): {r['seconds']:.1f}")
+    return errs, rows, r
+
+
+# Phase 20: the moe family.  20a B2 and B3 at qwen2-moe-a2.7b's heads
+# (16/16 of 128: B3's group of 1) against their plain versions and
+# timed; 20b qwen2-moe-a2.7b served at full width and depth through the
+# burst, with the choices the experts' capacity dropped; 20c one moe
+# layer on the card against the CPU, with and without drops, and the
+# forward (B2) against forward_train and, at cf 8.0, against decode;
+# 20d the family trained: qwen2-moe at full width cut to 2 layers, and
+# both smoke models on the card against the CPU.
+QWEN2_MOE = get_config(FULL_WIDTH_QWEN2_MOE["arch"])
+# qwen2-moe's heads at ragged lengths and a mid-tile window, one (sequence,
+# kv head) pair per head over 4000 keys; flash causal and non-causal
+MOE_DECODE = [((8, 1024, 16, 16, 128, 0), None),
+              ((3, 777, 16, 16, 128, 100), [777, 0, 150]),
+              ((1, 4000, 16, 16, 128, 0), [4000])]
+MOE_FLASH = [(2, 300, 300, 16, 16, 128, True, 0),
+             (1, 77, 300, 16, 16, 128, False, 0)]
+MOE_FORWARD = (2, 1088)          # 20c's forward: 2176 tokens, 4 groups of 544
+MOE_FORWARD_DECODE = (1, 256)    # 20c's forward against decode, cf 8.0
+# 20c's one layer, card against CPU: (capacity factor, tokens)
+MOE_LAYER_CASES = ((1.25, 1024), (8.0, 128))
+MOE_LAYER_RTOL = 1e-5            # max |card - CPU| over max |CPU|
+MOE_TRAIN_LAYERS = 2             # 20d's depth cut at full width
+# 20d's shape: one microbatch, so the step logs the routers' aux (JAX's
+# microbatched step logs a zero), of 4 x 1024 tokens, so the 152k-entry
+# readout's float32 logits and their gradients fit beside 29 GB of weights
+# and AdamW state
+TRAIN_20D = dict(TRAIN_FULL, arch=QWEN2_MOE.name, steps=4, batch=4,
+                 microbatches=1)
+SMOKE_20D_ARCHS = (QWEN2_MOE.name + "-smoke", "dbrx-132b-smoke")
+
+
+def phase20a():
+    """B2 and B3 at qwen2-moe's heads against plain, and their times at
+    its shapes.  Returns the errors and the rows."""
+    log("phase 20a: flash and decode attention at qwen2-moe-a2.7b's 16/16 "
+        "heads of 128 (decode's group of 1) vs plain on the card; times at "
+        "its shapes")
+    gen = torch.Generator(device=CUDA).manual_seed(20)
+    errs = {"decode": {}, "flash": {}}
+    for case, lens in MOE_DECODE:
+        check_decode(case, lens, gen, errs)
+    for case in MOE_FLASH:
+        check_flash(case, gen, errs)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=CUDA)
+    c = QWEN2_MOE
+    h, kv, hd = c.n_heads, c.n_kv_heads, c.head_dim
+    b, s = MOE_FORWARD
+    rows = {"flash_f32": time_flash(b, s, h, kv, hd, F32, 0, gen, flush)}
+    rows["flash_f32"]["launches_per_forward"] = c.n_layers
+    w = FULL_WIDTH_QWEN2_MOE
+    bsz, max_len, prompt = w["max_batch"], w["max_len"], w["prompt_len"]
+    q = randn((bsz, h, hd), F32, gen)
+    kc, vc = randn((bsz, max_len, kv, hd), BF16, gen), \
+        randn((bsz, max_len, kv, hd), BF16, gen)
+    lens = torch.randint(prompt, prompt + w["max_new"] + 1, (bsz,),
+                         generator=gen, device=CUDA).to(torch.int32)
+    rows["decode"] = time_decode(
+        f"qwen2-moe engine B{bsz} x S{max_len} x H{h}/KV{kv} x hd{hd}, q "
+        f"f32, bf16 cache, lengths {lens.tolist()}", q, kc, vc, lens, flush)
+    return errs, rows
+
+
+def record_routing(fn):
+    """``fn()`` with every ``moe_apply`` call's (experts, keep) recorded;
+    returns its result and the records, in call order."""
+    seen = []
+    TM.ROUTE_HOOK = lambda experts, keep: seen.append((experts, keep))
+    try:
+        return fn(), seen
+    finally:
+        TM.ROUTE_HOOK = None
+
+
+def routing_by_layer(records, b, s):
+    """A forward's records (one (G, Sg, k) pair a layer) as experts and
+    keep of shape (L, B, S, k)."""
+    return tuple(torch.stack([r[i].reshape(b, s, -1) for r in records])
+                 for i in (0, 1))
+
+
+def agreeing_prefix(a, b):
+    """Per sequence, the positions before the first one whose routing
+    (experts or keep, in any layer) differs between ``a`` and ``b``
+    ((L, B, S, k) pairs): there both ran the same experts on every
+    token, and causal attention keeps later tokens out.  Returns the
+    prefix lengths (B,) and the count of differing (layer, token)
+    pairs."""
+    diff = ((a[0] != b[0]) | (a[1] != b[1])).any(-1)       # (L, B, S)
+    pairs = int(diff.sum())
+    first = diff.any(0).int()                              # (B, S)
+    s = first.shape[1]
+    prefix = torch.where(first.any(1), first.argmax(1),
+                         torch.full_like(first[:, 0], s))
+    return prefix.tolist(), pairs
+
+
+def prefix_rel(got, want, prefix):
+    """max |got - want| over max |want| on each sequence's (non-empty)
+    prefix."""
+    num = max(float((got[i, :p] - want[i, :p]).abs().max())
+              for i, p in enumerate(prefix))
+    den = max(float(want[i, :p].abs().max()) for i, p in enumerate(prefix))
+    return num / den
+
+
+def serve_moe(smi):
+    """qwen2-moe-a2.7b served through the burst, with the drops of busy
+    slots' choices counted over every step.  Returns the model, the
+    decode launches and the numbers."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    log(f"phase 20b: {before / 1e9:.2f} GB allocated before the model is "
+        f"built (earlier phases' models and caches freed)")
+    # 60.6 GB of weights, 1.6 GB of cache, 20c's second copy of a layer's
+    # experts (2.2 GB) and a forward's activations leave ~18 GB of the card
+    check(before < 8e9, f"{before / 1e9:.2f} GB still allocated")
+    busy = []
+    next_tokens = ServingEngine._next_tokens
+
+    def recording(eng):
+        tokens, feeding = next_tokens(eng)
+        busy.append(sorted(feeding))
+        return tokens, feeding
+
+    torch.cuda.reset_peak_memory_stats()
+    ServingEngine._next_tokens = recording
+    try:
+        (eng, launches, served), seen = record_routing(
+            lambda: serve_full_width("20b", FULL_WIDTH_QWEN2_MOE, smi))
+    finally:
+        ServingEngine._next_tokens = next_tokens
+    peak = torch.cuda.max_memory_allocated()
+    model, cfg = eng.model, eng.model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    e_pad = model.layers[0].moe.wi.shape[0]
+    check(e_pad == TM.padded_experts(cfg), f"{e_pad} padded experts")
+    steps = len(busy)
+    check(len(seen) == steps * cfg.n_layers, f"{len(seen)} routings for "
+          f"{steps} decode steps x {cfg.n_layers} layers")
+    keep = torch.stack([k for _, k in seen]).reshape(
+        steps, cfg.n_layers, -1, cfg.experts_per_token)   # (T, L, B, k)
+    mask = torch.zeros((steps, keep.shape[2]), dtype=torch.bool,
+                       device=CUDA)
+    for t, slots in enumerate(busy):
+        mask[t, slots] = True
+    dropped = ~keep
+    busy_drops = int((dropped & mask[:, None, :, None]).sum())
+    all_drops = int(dropped.sum())
+    busy_choices = int(mask.sum()) * cfg.n_layers * cfg.experts_per_token
+    served.update(params=n_params, peak_gb=peak / 1e9,
+                  pool_after_shrink=served["after_shrink"][0],
+                  busy_choices_dropped=busy_drops,
+                  choices_dropped=all_drops, busy_choices=busy_choices)
+    log(f"  {n_params:,} parameters ({e_pad} padded experts), peak memory "
+        f"allocated {peak / 1e9:.2f} GB; pool "
+        f"{served['after_shrink'][0] / 2**20:.0f} MiB on the tick after "
+        f"the shrink")
+    log(f"  capacity drops (cap 4 a step's group of 8, free slots routing "
+        f"token 0 as JAX's do): {busy_drops} of {busy_choices} busy "
+        f"slots' choices, {all_drops} in all slots, over {steps} steps x "
+        f"{cfg.n_layers} layers")
+    del eng
+    torch.cuda.empty_cache()
+    return model, launches, served
+
+
+def moe_layer(cfg, arrays, device):
+    """One ``MoE`` module on ``device`` holding ``arrays`` (name -> numpy)."""
+    def make(shape, kind):
+        return torch.nn.Parameter(torch.empty(shape, device=device),
+                                  requires_grad=False)
+
+    moe = TM.MoE(cfg, make)
+    with torch.no_grad():
+        for name, p in moe.named_parameters():
+            p.copy_(torch.from_numpy(arrays[name]))
+    return moe
+
+
+def phase20c_layer(model):
+    """Layer 0's experts of the served model, carried to numpy (the shared
+    gate drawn at random: the init gives zeros), on the card and on the
+    CPU from those arrays, on the same inputs: with drops (cf 1.25, 1024
+    tokens) and without (cf 8.0, 128 tokens)."""
+    rng = np.random.default_rng(20)
+    arrays = {n: p.detach().cpu().numpy()
+              for n, p in model.layers[0].moe.named_parameters()}
+    arrays["shared.gate"] = rng.normal(0, 0.5, arrays["shared.gate"].shape
+                                       ).astype(np.float32)
+    out = {}
+    for cf, n in MOE_LAYER_CASES:
+        cfg = dataclasses.replace(model.cfg, capacity_factor=cf)
+        x = rng.normal(0, 1, (1, n, cfg.d_model)).astype(np.float32)
+        runs = []
+        for dev in (CUDA, torch.device("cpu")):
+            moe = moe_layer(cfg, arrays, dev)
+            (y, aux), seen = record_routing(lambda: TM.moe_apply(
+                moe, torch.from_numpy(x).to(dev), cfg))
+            runs.append((y.cpu(), float(aux), seen[0][0].cpu(),
+                         seen[0][1].cpu()))
+            del moe
+        (yg, ag, eg, kg), (yc, ac, ec, kc) = runs
+        drops = int((~kc).sum())
+        check(torch.equal(eg, ec) and torch.equal(kg, kc),
+              f"cf {cf}: the card chose or kept other pairs than the CPU")
+        check((drops > 0) == (cf < 8.0), f"cf {cf}: {drops} drops")
+        rel = float((yg - yc).abs().max() / yc.abs().max())
+        aux_rel = abs(ag - ac) / ac
+        check(rel <= MOE_LAYER_RTOL and aux_rel <= MOE_LAYER_RTOL,
+              f"cf {cf}: card against CPU {rel:.3e}, aux {aux_rel:.3e} "
+              f"(bound {MOE_LAYER_RTOL})")
+        log(f"  one layer's moe_apply, cf {cf}, 1 x {n} tokens: the card's "
+            f"choices and drops == the CPU's ({drops} of {kc.numel()} "
+            f"dropped); output max |diff| / max {rel:.3e}, aux "
+            f"{ag:.6f} vs {ac:.6f} (bound {MOE_LAYER_RTOL})")
+        out[f"cf{cf}"] = {"rel": rel, "aux_rel": aux_rel, "drops": drops}
+    return out
+
+
+def phase20c(model):
+    """The layer card against CPU, the forward (B2) against
+    forward_train, and, at cf 8.0, against decode.  Returns flash
+    attention's launches in the forward and the numbers."""
+    log(f"phase 20c: qwen2-moe-a2.7b's moe layer on the card against the "
+        f"CPU; Model.forward (flash) against forward_train at "
+        f"{MOE_FORWARD[0]} x {MOE_FORWARD[1]} tokens and, at cf 8.0, "
+        f"against decode at {MOE_FORWARD_DECODE[0]} x "
+        f"{MOE_FORWARD_DECODE[1]}")
+    r = {"layer": phase20c_layer(model)}
+    cfg = model.cfg
+    gen = torch.Generator(device=CUDA).manual_seed(201)
+    b, s = MOE_FORWARD
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=CUDA)
+    with torch.no_grad():
+        kf.LAUNCHES = 0                    # the forward path starts here
+        got, fwd_routes = record_routing(lambda: model(tokens))
+        launches = kf.LAUNCHES
+        ref, train_routes = record_routing(
+            lambda: model.forward_train(tokens))
+    check(launches == cfg.n_layers, f"the forward launched flash "
+          f"{launches} times for {cfg.n_layers} layers")
+    check(bool(torch.isfinite(got).all()), "non-finite forward logits")
+    a = routing_by_layer(fwd_routes, b, s)
+    prefix, pairs = agreeing_prefix(a, routing_by_layer(train_routes, b, s))
+    drops = int((~a[1]).sum())
+    check(pairs <= 0.01 * a[1][..., 0].numel() and min(prefix) > 0,
+          f"forward and forward_train routed {pairs} (layer, token) pairs "
+          f"apart")
+    rel = prefix_rel(got, ref, prefix)
+    check(rel < 5e-3, f"forward against forward_train {rel:.3e} relative "
+          f"(bound 5e-3)")
+    sg = TM._group_size(b * s)
+    log(f"  forward: flash launched {launches} times; {b * s // sg} groups "
+        f"of {sg} tokens, {drops} choices dropped; forward_train "
+        f"routed {pairs} (layer, token) pairs otherwise (positions compared "
+        f"{prefix} of {s}); logits max relative difference {rel:.3e} "
+        f"(bound 5e-3)")
+    r["forward_vs_train"] = {"rel": rel, "routing_pairs_differing": pairs,
+                             "drops": drops, "positions": prefix}
+    del got, ref
+    cfg8 = dataclasses.replace(cfg, capacity_factor=8.0)
+    model.cfg = cfg8
+    try:
+        b, s = MOE_FORWARD_DECODE
+        tokens = tokens[:b, :s]
+        with torch.no_grad():
+            fwd, fwd_routes = record_routing(lambda: model(tokens))
+
+            def decode_all():
+                state = D.init_state(model, b, s, cache_dtype="float32")
+                return torch.cat([D.decode_step(model, state,
+                                                tokens[:, t:t + 1])
+                                  for t in range(s)], dim=1)
+
+            dec, dec_routes = record_routing(decode_all)
+    finally:
+        model.cfg = cfg
+    a = routing_by_layer(fwd_routes, b, s)
+    n = cfg.n_layers
+    steps = [routing_by_layer(dec_routes[t * n:(t + 1) * n], b, 1)
+             for t in range(s)]
+    d = tuple(torch.cat([st[i] for st in steps], dim=2) for i in (0, 1))
+    check(bool(a[1].all()) and bool(d[1].all()), "cf 8.0 dropped a choice")
+    prefix, pairs = agreeing_prefix(a, d)
+    check(pairs <= 0.01 * a[1][..., 0].numel() and min(prefix) > 0,
+          f"forward and decode routed {pairs} (layer, token) pairs apart")
+    rel = prefix_rel(dec, fwd, prefix)
+    check(rel < 5e-3, f"forward against decode {rel:.3e} relative (bound "
+          f"5e-3)")
+    log(f"  cf 8.0 (the smoke reduction's; at cf 1.25 the forward's groups "
+        f"of {TM._group_size(b * s)} and decode's of {b} drop different "
+        f"choices by design): no "
+        f"choice dropped; decode routed {pairs} (layer, token) pairs "
+        f"otherwise (positions compared {prefix} of {s}); forward vs "
+        f"decode max relative difference {rel:.3e} (bound 5e-3)")
+    r["forward_vs_decode_cf8"] = {"rel": rel,
+                                  "routing_pairs_differing": pairs,
+                                  "positions": prefix}
+    return launches, r
+
+
+def phase20d(smi):
+    """qwen2-moe trained at full width cut to 2 layers through the
+    training CLI's wiring; then both smoke models card against CPU.
+    Returns the numbers."""
+    w = TRAIN_20D
+    cfg = dataclasses.replace(QWEN2_MOE, n_layers=MOE_TRAIN_LAYERS)
+    log(f"phase 20d: train {QWEN2_MOE.name} at full width with its depth "
+        f"cut to {MOE_TRAIN_LAYERS} of {QWEN2_MOE.n_layers} layers (d "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, {TM.padded_experts(cfg)} padded experts of "
+        f"{cfg.d_ff_expert}, top "
+        f"{cfg.experts_per_token}, {cfg.n_shared_experts} shared, vocab "
+        f"{cfg.vocab_size}; float32, no TF32; seed 0) through "
+        f"launch/train.py's wiring: batch {w['batch']} x {w['seq']}, "
+        f"{w['microbatches']} microbatch, remat full, {w['steps']} steps; on "
+        f"{smi}")
+    tmp = tempfile.mkdtemp(prefix="repro-torch-train20-")
+    out = {}
+    try:
+        model = Model(cfg, seed=0, device=CUDA)
+        trainer = ttrain.build(train_args(w, tmp), model=model, log_every=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ks.LAUNCHES = kd.LAUNCHES = kf.LAUNCHES = kscan.LAUNCHES = 0
+        t0 = time.monotonic()
+        trainer.fit()
+        launched = {"sweep": ks.LAUNCHES, "decode": kd.LAUNCHES,
+                    "flash": kf.LAUNCHES, "scan": kscan.LAUNCHES}
+        check(not any(launched.values()), f"the training path launched "
+              f"{launched}")
+        peak = torch.cuda.max_memory_allocated()
+        trainer.pipeline.close()
+        rows = trainer.metrics_log
+        losses = [r["loss"] for r in rows]
+        auxes = [r["aux"] for r in rows]
+        check(len(losses) == w["steps"] and all(map(math.isfinite, losses))
+              and all(a > 0 for a in auxes), f"losses {losses}, aux {auxes}")
+        check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+        ends = [t0] + trainer.logged_at
+        step_ms = [(b - a) * 1e3 for a, b in zip(ends, ends[1:])]
+        med = statistics.median(step_ms[1:])
+        tokens = w["batch"] * w["seq"]
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"  {n_params:,} parameters; losses "
+            f"{[round(x, 4) for x in losses]} (aux "
+            f"{[round(x, 5) for x in auxes]}): finite, {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}; no kernel launched")
+        log(f"  ms a step (host clock): {[round(x, 1) for x in step_ms]} "
+            f"(step 0 the first call's setup); median of the others "
+            f"{med:.1f}, {tokens / med * 1e3:.1f} tokens/s; peak memory "
+            f"allocated {peak / 1e9:.2f} GB")
+        out["full_width_2_layers"] = {
+            "layers": MOE_TRAIN_LAYERS, "params": n_params,
+            "losses": losses, "aux": auxes, "step_ms": step_ms,
+            "step_ms_median": med, "tokens_s": tokens / med * 1e3,
+            "peak_gb": peak / 1e9}
+        del trainer, model
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    out["smoke_card_vs_cpu"] = phase19d(SMOKE_20D_ARCHS, "20d")
+    return out
+
+
+def phase20(smi):
+    """Phase 20: returns the kernels' errors and rows, and the launches
+    and numbers of the served and trained family."""
+    t0 = time.perf_counter()
+    errs, rows = phase20a()
+    model, n_decode, served = serve_moe(smi)
+    n_flash, r = phase20c(model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    r.update(served=served, trained=phase20d(smi),
+             decode_launches=n_decode, flash_launches=n_flash)
+    r["seconds"] = time.perf_counter() - t0
+    log(f"phase 20 seconds (host clock): {r['seconds']:.1f}")
     return errs, rows, r
 
 
@@ -3046,6 +3456,32 @@ def main() -> None:
     log("training on the card: " + json.dumps(training, default=str))
     log("dense features and hybrid training on the card: "
         + json.dumps(dense19, default=str))
+    errs20, rows20, moe20 = phase20(smi)
+    n_decode_m, n_flash_m = moe20["decode_launches"], moe20["flash_launches"]
+    log(f"main path: decode attention launched {n_decode_m} times "
+        f"({QWEN2_MOE.name} serving, phase 20b), flash attention "
+        f"{n_flash_m} times ({QWEN2_MOE.name} forward, phase 20c)")
+    check(n_decode_m > 0 and n_flash_m > 0,
+          f"{QWEN2_MOE.name}'s serving path skipped an attention kernel")
+    decode["launches"] += n_decode_m
+    decode["launches_by_path"][f"{QWEN2_MOE.name} serving (phase 20b)"] = \
+        n_decode_m
+    flash["launches"] += n_flash_m
+    flash["launches_by_path"][f"{QWEN2_MOE.name} forward (phase 20c)"] = \
+        n_flash_m
+    for name, d in (("decode", decode), ("flash", flash)):
+        d["max_abs_err"] = max(d["max_abs_err"], *errs20[name].values())
+        d["max_abs_err_f32"] = max(d["max_abs_err_f32"],
+                                   errs20[name]["f32"])
+    decode["qwen2_moe_engine"] = rows20["decode"]
+    flash["qwen2_moe_f32"] = rows20["flash_f32"]
+    decode["max_abs_err_f32"] = max(decode["max_abs_err_f32"],
+                                    rows20["decode"]["max_abs_err"])
+    flash["max_abs_err"] = max(flash["max_abs_err"],
+                               rows20["flash_f32"]["max_abs_err"])
+    flash["max_abs_err_f32"] = max(flash["max_abs_err_f32"],
+                                   rows20["flash_f32"]["max_abs_err"])
+    log("moe family on the card: " + json.dumps(moe20, default=str))
     ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter()]
     log("seconds by phase (host clock): " + ", ".join(
         f"{name} {end - start:.1f}"

@@ -5,23 +5,28 @@
 :func:`get_config` ``--arch <id>`` for the architectures the
 port serves and trains so far, each with its ``-smoke`` reduction:
 ``llama3.2-1b``, ``gemma3-1b`` (gelu MLP, a 5:1 local:global window
-schedule, head dim 256) and ``qwen2-1.5b`` (QKV bias), all dense, and
-``hymba-1.5b`` (hybrid: attention and Mamba in parallel).  The other
-architectures of the JAX package come with their families (ROADMAP
-A5).
+schedule, head dim 256) and ``qwen2-1.5b`` (QKV bias), all dense;
+``hymba-1.5b`` (hybrid: attention and Mamba in parallel); and
+``qwen2-moe-a2.7b`` (60 routed experts padded to 64, top 4, 4 shared
+experts) and ``dbrx-132b`` (16 experts, top 4), the moe family.
+dbrx-132b does not fit one 80 GB card at full width; its ``-smoke``
+reduction serves and trains.  The other architectures of the JAX
+package come with their families (ROADMAP A5).
 """
 
 from __future__ import annotations
 
 from .base import (ArchConfig, DECODE_32K, InputShape, LONG_500K,
                    PREFILL_32K, SHAPES, TRAIN_4K)
+from .dbrx_132b import ARCH as _DBRX_132B
 from .gemma3_1b import ARCH as _GEMMA3_1B
 from .hymba_15b import ARCH as _HYMBA_15B
 from .llama32_1b import ARCH as _LLAMA32_1B
 from .qwen2_15b import ARCH as _QWEN2_15B
+from .qwen2_moe_a27b import ARCH as _QWEN2_MOE_A27B
 
 _ARCHS = {a.name: a for a in (_LLAMA32_1B, _HYMBA_15B, _GEMMA3_1B,
-                              _QWEN2_15B)}
+                              _QWEN2_15B, _QWEN2_MOE_A27B, _DBRX_132B)}
 
 ARCH_IDS = list(_ARCHS)
 

@@ -133,8 +133,11 @@ def model_params_from_numpy(tree: Mapping, cfg: ArchConfig, *,
 
     The JAX names and layouts carry over unchanged: ``wq`` (d, H, hd),
     ``wk``/``wv`` (d, KV, hd), attention ``wo`` (H, hd, d), ``wi``/``wg``
-    (d, f), MLP ``wo`` (f, d), the Mamba leaves of ``mamba_schema``,
-    ``tokens`` (Vp, d) and, untied, ``unembed`` (d, Vp).  The layer
+    (d, f), MLP ``wo`` (f, d), the Mamba leaves of ``mamba_schema``, the
+    experts of ``moe_schema`` (``moe.router`` (d, E_pad), ``moe.wi``/
+    ``moe.wg`` (E_pad, d, f), ``moe.wo`` (E_pad, f, d), and the shared
+    experts' ``moe.shared.{wi, wg, wo, gate}``), ``tokens`` (Vp, d) and,
+    untied, ``unembed`` (d, Vp).  The layer
     stack, flat or grouped, maps onto the port's flat layers
     (:func:`_layer_trees`).  The model's type is the arrays' type.
     Raises on a missing, extra or misshapen array.

@@ -5,6 +5,7 @@
     python -m repro_torch.launch.serve --arch hymba-1.5b [--burst]
     python -m repro_torch.launch.serve --arch gemma3-1b [--burst]
     python -m repro_torch.launch.serve --arch qwen2-1.5b [--burst]
+    python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b [--burst]
     python -m repro_torch.launch.serve --arch hymba-1.5b-smoke --device cpu
 
 Serves synthetic prompts with weights drawn from ``--seed`` through an
@@ -52,15 +53,17 @@ def device_name(device: torch.device) -> str:
 
 # The full-width workloads, one per served architecture: served by
 # ``chip_smoke.py`` with the burst (llama in phase 7, hymba in phase 11,
-# gemma3 and qwen2 in phase 19b) and profiled by
+# gemma3 and qwen2 in phase 19b, qwen2-moe in phase 20b) and profiled by
 # ``repro_torch.launch.profile_serve``.
 FULL_WIDTH = dict(arch="llama3.2-1b", requests=16, prompt_len=256,
                   max_new=32, max_batch=8, max_len=1024, seed=0)
 FULL_WIDTH_HYMBA = dict(FULL_WIDTH, arch="hymba-1.5b")
 FULL_WIDTH_GEMMA3 = dict(FULL_WIDTH, arch="gemma3-1b")
 FULL_WIDTH_QWEN2 = dict(FULL_WIDTH, arch="qwen2-1.5b")
+FULL_WIDTH_QWEN2_MOE = dict(FULL_WIDTH, arch="qwen2-moe-a2.7b")
 WORKLOADS = {w["arch"]: w for w in (FULL_WIDTH, FULL_WIDTH_HYMBA,
-                                    FULL_WIDTH_GEMMA3, FULL_WIDTH_QWEN2)}
+                                    FULL_WIDTH_GEMMA3, FULL_WIDTH_QWEN2,
+                                    FULL_WIDTH_QWEN2_MOE)}
 
 
 def prompts(vocab: int, prompt_len: int, seed: int, n: int) -> list:

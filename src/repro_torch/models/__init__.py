@@ -1,5 +1,5 @@
-"""The decoders of the port (dense and hybrid): layers, attention, Mamba,
-forward and decode."""
+"""The decoders of the port (dense, hybrid and moe): layers, attention,
+Mamba, the experts, forward and decode."""
 
 from .decode import DecodeState, decode_step, init_state, prefill
 from .transformer import Model

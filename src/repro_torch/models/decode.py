@@ -2,7 +2,7 @@
 
 The port of ``repro/models/decode.py`` (``init_state``, ``decode_step``,
 ``_self_layer_decode``, ``_hybrid_layer_decode``, ``prefill``) for the
-dense and hybrid families.  The state is one ``(L, B, S, KV, hd)``
+dense, hybrid and moe families.  The state is one ``(L, B, S, KV, hd)``
 tensor each for k and v, the per-sequence positions ``pos`` (B,) int32
 and, for the hybrid family, the Mamba state ``mamba_h`` (L, B, inner, N)
 and ``mamba_conv`` (L, B, k - 1, inner) in float32 (``_mamba_state``),
@@ -14,7 +14,10 @@ state in place: each layer writes its token's K/V into its cache slice
 (:func:`~repro_torch.models.attention.update_kv_cache`) and its Mamba
 state into its slices, and ``pos`` advances by one for every slot,
 occupied or not, as ``decode_step`` does in JAX.  Attention over the
-cache is the decode kernel (B3).
+cache is the decode kernel (B3).  A moe layer routes the step's B
+tokens as one group of B (``moe_apply`` on (B, 1, d)), free slots
+included: the engine feeds them token 0, they take room in the experts'
+buffers as JAX's do, and the layer's aux loss is dropped.
 """
 
 from __future__ import annotations
@@ -104,7 +107,7 @@ def decode_step(model: Model, state: DecodeState,
         else:                                      # _self_layer_decode
             h = rms_norm(x, layer.attn_norm)
             x = x + _attend(layer, h, state, i, q_pos, cfg, window)
-        x = layer.mlp_block(x)
+        x, _ = layer.mlp_block(x, cfg)     # a moe layer's aux is dropped
     logits = model.logits(x)
     state.pos.add_(1)
     return logits

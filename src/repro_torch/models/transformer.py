@@ -2,11 +2,13 @@
 
 The port of ``repro/models/transformer.py`` (``Model``, ``forward``,
 ``_self_layer``, ``_hybrid_layer``) and of the init kinds of
-``repro/models/params.py`` for two families: ``dense`` (llama3.2-1b;
+``repro/models/params.py`` for three families: ``dense`` (llama3.2-1b;
 gemma3-1b with its gelu MLP and scaled embedding; qwen2-1.5b with its
-QKV biases) and ``hybrid`` (hymba-1.5b: attention and Mamba in parallel
-in every layer, fused by the mean of their RMS-normalized outputs).
-Other families and features (experts, softcaps, layernorm) raise
+QKV biases), ``hybrid`` (hymba-1.5b: attention and Mamba in parallel
+in every layer, fused by the mean of their RMS-normalized outputs) and
+``moe`` (qwen2-moe-a2.7b, dbrx-132b: the dense layer with its MLP
+replaced by routed experts, :mod:`~repro_torch.models.moe`).  Other
+families and features (softcaps, layernorm) raise
 ``NotImplementedError``; they come with later slices (ROADMAP A5).
 
 The layers form one flat ``nn.ModuleList``, each with its window from
@@ -20,11 +22,14 @@ seeded by ``seed`` on the model's device; the numbers differ from
 
 Two forwards: :meth:`Model.forward`, the kernels' (flash attention,
 B2, and the scan, B4), which serving calls; and
-:meth:`Model.forward_train`, plain PyTorch under autograd for both
-families (JAX's ``attention_dense``/``attention_chunked`` by its
+:meth:`Model.forward_train`, plain PyTorch under autograd for every
+family (JAX's ``attention_dense``/``attention_chunked`` by its
 ``attn_impl`` rule, the hybrid's Mamba branch as JAX's chunked
 associative scan, each layer under the ``remat`` policy), which
-:meth:`Model.loss` and the trainer call.  The kernels have no backward
+:meth:`Model.loss` and the trainer call.  Both run the experts of a moe
+layer through :func:`~repro_torch.models.moe.moe_apply` and, asked
+with ``aux=True``, return the layers' mean load-balance loss beside
+the logits, as JAX's ``Model.forward`` does.  The kernels have no backward
 and refuse inputs that require grad.  Parameters are created with
 ``requires_grad=False``; the train step turns it on.
 """
@@ -33,7 +38,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -45,6 +50,7 @@ from ..device import DeviceLike, resolve_device
 from .attention import self_attention, self_attention_train
 from .layers import (ACTIVATIONS, apply_mlp, cross_entropy, embed_tokens,
                      rms_norm, unembed)
+from .moe import MoE, moe_apply
 from .ssm import Mamba, mamba_apply, mamba_apply_chunked
 
 F32 = torch.float32
@@ -140,24 +146,31 @@ class MLP(nn.Module):
 
 
 class _Block(nn.Module):
-    """What every layer ends with: the pre-norm MLP."""
+    """What every layer ends with: the pre-norm MLP, or the experts."""
 
-    def mlp_block(self, x: torch.Tensor) -> torch.Tensor:
-        """x + MLP(norm(x))."""
-        m = self.mlp
+    def mlp_block(self, x: torch.Tensor, cfg: ArchConfig
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(x + MLP(norm(x)), the layer's aux loss): a moe layer's from
+        :func:`moe_apply` under ``cfg`` (the model's), else None."""
         h = rms_norm(x, self.mlp_norm)
-        return x + apply_mlp(h, m.wi, m.wg, m.wo, m.act)
+        if self.moe is not None:
+            out, aux = moe_apply(self.moe, h, cfg)
+            return x + out, aux
+        m = self.mlp
+        return x + apply_mlp(h, m.wi, m.wg, m.wo, m.act), None
 
 
 class Layer(_Block):
-    """One pre-norm decoder layer (``_self_layer``)."""
+    """One pre-norm decoder layer (``_self_layer``): ``attn_norm``,
+    ``attn``, ``mlp_norm``, and ``mlp`` or, with experts, ``moe``."""
 
     def __init__(self, cfg: ArchConfig, make):
         super().__init__()
         self.attn_norm = make((cfg.d_model,), "ones")
         self.attn = Attention(cfg, make)
         self.mlp_norm = make((cfg.d_model,), "ones")
-        self.mlp = MLP(cfg, make)
+        self.mlp = None if cfg.is_moe else MLP(cfg, make)
+        self.moe = MoE(cfg, make) if cfg.is_moe else None
 
 
 class HybridLayer(_Block):
@@ -171,6 +184,7 @@ class HybridLayer(_Block):
         self.mamba = Mamba(cfg, make)
         self.mlp_norm = make((cfg.d_model,), "ones")
         self.mlp = MLP(cfg, make)
+        self.moe = None
 
 
 def rms(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -201,8 +215,7 @@ def layer_windows(cfg: ArchConfig) -> List[int]:
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for any config feature the port does not carry yet."""
     unsupported = {
-        "family": cfg.family not in ("dense", "hybrid"),
-        "experts": cfg.is_moe,
+        "family": cfg.family not in ("dense", "hybrid", "moe"),
         "attn_logit_softcap": bool(cfg.attn_logit_softcap),
         "norm": cfg.norm != "rmsnorm",
         "activation": cfg.act not in ACTIVATIONS,
@@ -210,12 +223,12 @@ def check_supported(cfg: ArchConfig) -> None:
     missing = [k for k, bad in unsupported.items() if bad]
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the dense and hybrid families "
-            f"only; not ported: {missing} (ROADMAP A5)")
+            f"{cfg.name}: the port serves the dense, hybrid and moe "
+            f"families only; not ported: {missing} (ROADMAP A5)")
 
 
 class Model(nn.Module):
-    """A dense or hybrid decoder on one device.
+    """A dense, hybrid or moe decoder on one device.
 
     ``device=None`` means the card, and raises without one;
     ``device="cpu"`` runs the kernels' plain versions.  ``init=False``
@@ -272,8 +285,14 @@ class Model(nn.Module):
         return unembed(self.tokens, rms_norm(x, self.final_norm),
                        self.unembed)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) -> logits (B, S, padded_vocab), float32.
+    def _mean_aux(self, aux: torch.Tensor) -> torch.Tensor:
+        """The layers' summed aux over their count for the moe family
+        (``_run_windowed``); the dense and hybrid sum stays zero."""
+        return aux / max(self.cfg.n_layers, 1) if self.cfg.is_moe else aux
+
+    def forward(self, tokens: torch.Tensor, *, aux: bool = False):
+        """tokens (B, S) -> logits (B, S, padded_vocab), float32; with
+        ``aux``, (logits, the moe layers' mean aux loss).
 
         Self-attention of every layer runs the flash kernel (B2) over
         positions ``arange(S)`` with the layer's window; a hybrid layer's
@@ -281,6 +300,7 @@ class Model(nn.Module):
         """
         cfg = self.cfg
         x = embed_tokens(self.tokens, tokens, self.dtype, cfg.name)
+        total = torch.zeros((), dtype=F32, device=x.device)
         for layer, window in zip(self.layers, self.windows):
             if cfg.family == "hybrid":
                 h = rms_norm(x, layer.norm)
@@ -290,15 +310,20 @@ class Model(nn.Module):
             else:
                 h = rms_norm(x, layer.attn_norm)
                 x = x + self_attention(layer.attn, h, cfg, window)
-            x = layer.mlp_block(x)
-        return self.logits(x)
+            x, a = layer.mlp_block(x, cfg)
+            if a is not None:
+                total = total + a
+        logits = self.logits(x)
+        return (logits, self._mean_aux(total)) if aux else logits
 
     # ------------------------------------------------------------------ #
     # training
     # ------------------------------------------------------------------ #
-    def _train_layer(self, i: int, x: torch.Tensor) -> torch.Tensor:
+    def _train_layer(self, i: int, x: torch.Tensor
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Layer ``i`` in plain torch: ``_self_layer`` or, hybrid,
-        ``_hybrid_layer`` with the chunked Mamba scan."""
+        ``_hybrid_layer`` with the chunked Mamba scan; returns (x, the
+        layer's aux loss or None)."""
         cfg, layer = self.cfg, self.layers[i]
         hybrid = cfg.family == "hybrid"
         h = rms_norm(x, layer.norm if hybrid else layer.attn_norm)
@@ -309,35 +334,39 @@ class Model(nn.Module):
             x = x + fuse_branches(a, m).to(x.dtype)
         else:
             x = x + a
-        return layer.mlp_block(x)
+        return layer.mlp_block(x, cfg)
 
-    def forward_train(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward_train(self, tokens: torch.Tensor, *, aux: bool = False):
         """tokens (B, S) -> logits (B, S, padded_vocab), float32, under
-        autograd: no kernel, every layer under the ``remat`` policy.
+        autograd: no kernel, every layer under the ``remat`` policy; with
+        ``aux``, (logits, the moe layers' mean aux loss).
 
         The hybrid's Mamba branch runs :func:`~repro_torch.models.ssm.
         mamba_apply_chunked`, JAX's chunked associative scan, where
         :meth:`forward` runs the scan kernel (B4), which has no backward.
         """
         x = embed_tokens(self.tokens, tokens, self.dtype, self.cfg.name)
+        total = torch.zeros((), dtype=F32, device=x.device)
         for i in range(len(self.layers)):
-            x = _remat(functools.partial(self._train_layer, i),
-                       self.remat)(x)
-        return self.logits(x)
+            x, a = _remat(functools.partial(self._train_layer, i),
+                          self.remat)(x)
+            if a is not None:
+                total = total + a
+        logits = self.logits(x)
+        return (logits, self._mean_aux(total)) if aux else logits
 
     def loss(self, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """CE + aux losses (``Model.loss``).  ``batch["labels"]``, when
         present, is already position-aligned (``labels[i]`` is the target
         of position ``i``: the pipeline emits next-token labels); only
-        the ``tokens`` fallback needs the one-position shift.  Neither
-        the dense nor the hybrid family has an auxiliary loss: ``aux`` is
-        a float32 zero."""
-        logits = self.forward_train(batch["tokens"])
+        the ``tokens`` fallback needs the one-position shift.  ``aux`` is
+        the moe layers' mean load-balance loss; the dense and hybrid
+        families have none, and theirs is a float32 zero."""
+        logits, aux = self.forward_train(batch["tokens"], aux=True)
         labels = batch.get("labels")
         if labels is None:
             ce = cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
         else:
             ce = cross_entropy(logits, labels)
-        aux = torch.zeros((), dtype=F32, device=logits.device)
         return ce + aux, {"ce": ce, "aux": aux}

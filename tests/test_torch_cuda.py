@@ -19,7 +19,9 @@ Training: the kernels refuse CUDA inputs that require grad, a batch
 staged through the pipeline's pinned buffer arrives intact, and a few
 train steps of each smoke model (llama3.2-1b, hymba-1.5b, gemma3-1b,
 qwen2-1.5b) on the card follow the CPU's.  The attention kernels also
-at gemma3-1b's head dim of 256 and qwen2-1.5b's group of 6.
+at gemma3-1b's head dim of 256, qwen2-1.5b's group of 6 and
+qwen2-moe-a2.7b's group of 1.  One moe layer (``moe_apply``) on the card
+against the CPU, with and without drops: the same choices kept.
 """
 
 import time
@@ -238,7 +240,9 @@ DECODE_CARD_CASES = [((4, 512, 8, 2, 64, 0), None),
                      # sets at hd 256; qwen2-1.5b's group of 6
                      ((8, 1024, 4, 1, 256, 512), None),
                      ((4, 900, 16, 4, 256, 0), [0, 1, 900, 555]),
-                     ((8, 1024, 12, 2, 128, 0), None)]
+                     ((8, 1024, 12, 2, 128, 0), None),
+                     # qwen2-moe-a2.7b's 16/16 heads of 128: group 1
+                     ((8, 1024, 16, 16, 128, 0), None)]
 
 
 @pytest.mark.parametrize("case,lens", DECODE_CARD_CASES, ids=str)
@@ -671,3 +675,40 @@ def test_new_architectures_train_on_the_card_as_on_the_cpu(card, tmp_path,
         assert (fa.LAUNCHES, da.LAUNCHES, ks_scan.LAUNCHES) == before
         losses[dev] = [r["loss"] for r in tr.metrics_log]
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+
+
+@pytest.mark.parametrize("cf", [8.0, 1.25], ids=["no-drops", "drops"])
+def test_moe_layer_on_the_card_equals_the_cpu(card, cf):
+    """One qwen2-moe layer's experts at a reduced width (d 256, 60
+    experts padded to 64, top 4, 4 shared) on 2 x 600 tokens (two groups
+    of 600): the card's output and aux within 1e-5 of the CPU's, and the
+    same (token, choice) pairs kept."""
+    import dataclasses
+    from repro_torch.models import moe as TM
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"), d_model=256,
+                              d_ff_expert=128, n_layers=1, vocab_size=512,
+                              capacity_factor=cf)
+    cpu = Model(cfg, seed=0, device="cpu").layers[0].moe
+    with torch.no_grad():
+        cpu.shared.gate.normal_(0.0, 0.5)
+    x = torch.randn((2, 600, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        moe = Model(cfg, device=dev, init=False).layers[0].moe
+        with torch.no_grad():
+            for p, q in zip(moe.parameters(), cpu.parameters()):
+                p.copy_(q)
+        seen = []
+        TM.ROUTE_HOOK = lambda experts, keep: seen.append(
+            (experts.cpu(), keep.cpu()))
+        try:
+            y, aux = TM.moe_apply(moe, x.to(dev), cfg)
+        finally:
+            TM.ROUTE_HOOK = None
+        out[dev] = (y.cpu(), float(aux), seen[0])
+    (yc, ac, (ec, kc)), (yg, ag, (eg, kg)) = out["cpu"], out["cuda"]
+    assert torch.equal(ec, eg) and torch.equal(kc, kg)
+    assert bool((~kc).any()) == (cf < 8.0)
+    torch.testing.assert_close(yg, yc, atol=1e-5, rtol=1e-5)
+    assert abs(ag - ac) <= 1e-5 * ac

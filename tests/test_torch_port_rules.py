@@ -281,7 +281,9 @@ def test_serving_entry_points_raise_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "llama3.2-1b-smoke",
                                   "gemma3-1b", "gemma3-1b-smoke",
-                                  "qwen2-1.5b", "qwen2-1.5b-smoke"])
+                                  "qwen2-1.5b", "qwen2-1.5b-smoke",
+                                  "qwen2-moe-a2.7b", "qwen2-moe-a2.7b-smoke",
+                                  "dbrx-132b", "dbrx-132b-smoke"])
 def test_config_copies_equal_the_jax_configs(arch):
     port, ref = get_config(arch), jax_config(arch)
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
