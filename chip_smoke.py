@@ -93,7 +93,20 @@ each, all at once) and drives the port's main paths on the card:
   against the training forward, and at cf 8.0 against decode; the model
   trained at full width cut to 2 layers (the router's aux logged), and
   the qwen2-moe and dbrx smoke models trained on the card and the CPU
-  alike.
+  alike;
+* the cross-attention families (phase 21): flash attention non-causal
+  at whisper-large-v3's 20/20 heads of 64 and llama-3.2-vision-11b's
+  32/8 heads of 128 (Sq > Skv), decode attention at group 4 and over
+  cross caches (read whole, at enc_len 1500 and at 0), against their
+  plain versions, spills, and times beside their bounds and SDPA; both
+  models served at full width and depth through the burst under the
+  plane (zero cross caches, as JAX's engine serves them), then 8
+  prompts prefilled with images or frames attached (the vision model's
+  gates drawn non-zero) and decoded; their forwards against the
+  training forward and against decode with the context attached;
+  whisper trained at full depth and the vision model cut to one group,
+  at full width; the vision, whisper and mistral smoke models trained
+  on the card and the CPU alike.
 
 Decode attention at the engines' shapes (phases 9 and 13) is timed three
 ways, also in a fresh process that has built no plane (``chip_smoke.py
@@ -109,6 +122,7 @@ package.  Without a card it exits nonzero before printing a result.
 """
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import itertools
@@ -175,6 +189,7 @@ from repro_torch.launch.profile_serve import (count_syncs,  # noqa: E402
 from repro_torch.launch.serve import (FULL_WIDTH,  # noqa: E402
                                       FULL_WIDTH_GEMMA3, FULL_WIDTH_HYMBA,
                                       FULL_WIDTH_QWEN2, FULL_WIDTH_QWEN2_MOE,
+                                      FULL_WIDTH_VLM, FULL_WIDTH_WHISPER,
                                       build_engine, serve)
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.launch.time_sweep import (_profiled,  # noqa: E402
@@ -763,9 +778,10 @@ def serve_full_width(phase, w, smi):
           f"not drained: {st}")
     check(st["preemptions"] >= 1, f"the burst preempted nothing: {st}")
     check(st["logits_finite"], "non-finite logits")
-    check(launches == st["decode_steps"] * cfg.n_layers,
+    per_step = decode_launches_per_step(eng.model)
+    check(launches == st["decode_steps"] * per_step,
           f"decode kernel launched {launches} times for "
-          f"{st['decode_steps']} steps x {cfg.n_layers} layers")
+          f"{st['decode_steps']} steps x {per_step} attention layers")
     health = check_plane(eng)
     after = report["after_shrink"]
     check(after[0] == report["full"], f"the plane did not re-grant the pool "
@@ -773,7 +789,7 @@ def serve_full_width(phase, w, smi):
     log(f"  drained {len(fin)}/{w['requests']}, {report['tokens']} tokens, "
         f"{st['preemptions']} preemption(s), {st['steps']} steps "
         f"({st['decode_steps']} with an active slot); decode kernel "
-        f"launches {launches} = steps x {cfg.n_layers}; logits finite")
+        f"launches {launches} = steps x {per_step}; logits finite")
     log(f"  plane: {health.ticks} ticks = steps, {health.summary()}; pool "
         f"{after[0] / 2**20:.0f} of {report['full'] / 2**20:.0f} MiB on the "
         f"tick after the shrink")
@@ -784,6 +800,16 @@ def serve_full_width(phase, w, smi):
                            "steps": st["steps"],
                            "preemptions": st["preemptions"],
                            "after_shrink": after, "full": report["full"]}
+
+
+def decode_launches_per_step(model):
+    """Decode attention's launches in one decode step: one per self
+    layer, and one per cross-attention (a vlm cross layer, an audio
+    decoder layer's cross)."""
+    n = len(model.layers)
+    if model.cfg.family == "vlm":
+        return n + len(model.cross_layers)
+    return 2 * n if model.cfg.family == "audio" else n
 
 
 def check_plane(eng):
@@ -820,8 +846,9 @@ def forward_against_decode(phase, model, batch, seq, mixed=True):
     cfg = model.cfg
     hybrid = cfg.family == "hybrid"
     log(f"phase {phase}: forward ({'flash + scan' if hybrid else 'flash'}) "
-        f"against decode (decode attention) at full width, {batch} x {seq} "
-        f"tokens, f32 cache" + ("; mixed progress" if mixed else ""))
+        f"against decode (decode attention) at full width, {cfg.n_layers} "
+        f"layers, {batch} x {seq} tokens, f32 cache"
+        + ("; mixed progress" if mixed else ""))
     gen = torch.Generator(device=CUDA).manual_seed(phase)
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
                            device=CUDA)
@@ -956,8 +983,11 @@ def kept_pairs(sq, skv, causal, window):
     return int((hi - lo).clamp(min=0).sum())
 
 
-def time_flash(b, s, h, kv, hd, dtype, window, gen, flush):
-    """B2 at one causal (B, S) self-attention shape: kernel, plain, SDPA.
+def time_flash(b, s, h, kv, hd, dtype, window, gen, flush, *, skv=None,
+               causal=True):
+    """B2 at one (B, S) self-attention shape, causal, or with ``skv`` and
+    ``causal=False`` at one non-causal (B, S, Skv) shape (an encoder's,
+    or queries over a cross-attention's context): kernel, plain, SDPA.
 
     The bound counts 4 * hd operations per kept (query, key) pair at the
     rate of the kernel's route (bf16 tensor cores; f32 as 3xTF32, three
@@ -965,27 +995,32 @@ def time_flash(b, s, h, kv, hd, dtype, window, gen, flush):
     read and the output written once.  f32 rows also print the bound of
     the CUDA cores' f32 rate.
     """
+    skv = s if skv is None else skv
     q = randn((b, s, h, hd), dtype, gen)
-    k, v = randn((b, s, kv, hd), dtype, gen), randn((b, s, kv, hd), dtype,
-                                                    gen)
-    n_ops = 4 * b * h * kept_pairs(s, s, True, window) * hd
+    k, v = randn((b, skv, kv, hd), dtype, gen), \
+        randn((b, skv, kv, hd), dtype, gen)
+    n_ops = 4 * b * h * kept_pairs(s, skv, causal, window) * hd
     n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     bound_ms, by = bound(n_bytes, n_ops, PEAK_BF16_S if dtype == BF16
                          else PEAK_TF32_S / 3)
-    run = lambda: kf.flash_attention(q, k, v, window=window)  # noqa: E731
+    run = lambda: kf.flash_attention(  # noqa: E731
+        q, k, v, causal=causal, window=window)
     plain_run = lambda: kf.flash_attention_plain(  # noqa: E731
-        q, k, v, window=window)
+        q, k, v, causal=causal, window=window)
     ms = cuda_ms(run, reps=7, flush=flush)
     plain = cuda_ms(plain_run, reps=3, warm=1, flush=flush)
     tol = 2e-2 if dtype == BF16 else 2e-5
-    tag = (f"B{b} x S{s} x H{h}/KV{kv} x hd{hd} {str(dtype)[6:]} causal"
+    tag = (f"B{b} x S{s}" + (f" x Skv{skv}" if skv != s else "")
+           + f" x H{h}/KV{kv} x hd{hd} {str(dtype)[6:]} "
+           + ("causal" if causal else "non-causal")
            + (f" window {window}" if window else ""))
     got = run()
     err = max_err(got, plain_run(), tol, f"flash {tag}")
     mask = kf.make_mask(torch.arange(s, device=CUDA),
-                        torch.arange(s, device=CUDA), causal=True,
+                        torch.arange(skv, device=CUDA), causal=causal,
                         window=window)
-    lib_kw = dict(attn_mask=mask) if window else dict(is_causal=True)
+    lib_kw = (dict(attn_mask=mask) if window else
+              dict(is_causal=True) if causal else {})
     lib_out = sdpa(q, k, v, **lib_kw)
     diff = float((lib_out.float() - got.float()).abs().max())
     lib = cuda_ms(lambda: sdpa(q, k, v, **lib_kw), reps=7, flush=flush)
@@ -1196,19 +1231,47 @@ def mamba_paper_init(model, seed):
             p.dt_bias.copy_(dt + torch.log(-torch.expm1(-dt)))   # softplus^-1
 
 
+# Phase 12 runs the served model's first layers only, so phase 21 fits
+# the script's time limit: the ungated pass (C8's JAX-init drift) 4
+# layers, the gated pass 16 (windowed layers 0-14 and the global layer
+# 15).  At full depth they took ~85 s and ~75 s on an NVIDIA H100 80GB
+# HBM3 at 700 W, the ungated pass giving 4.064e-3.
+JAX_INIT_12_LAYERS = 4
+FORWARD_12_LAYERS = 16
+
+
+@contextlib.contextmanager
+def first_layers(model, n):
+    """``model`` cut to its first ``n`` layers (the same tensors) inside
+    the block; a decode state built there holds ``n`` layers."""
+    full = model.cfg, model.layers, model.windows
+    model.cfg = dataclasses.replace(model.cfg, n_layers=n)
+    model.layers = torch.nn.ModuleList(list(full[1])[:n])
+    model.windows = full[2][:n]
+    try:
+        yield model
+    finally:
+        model.cfg, model.layers, model.windows = full
+
+
 def phase12(model):
     """Forward against decode at 1 x 1088 tokens, past the window, so the
-    local layers really window.  Returns the gated run's launches and the
-    served (JAX-init) model's forward-vs-decode difference."""
+    local layers really window, over the served model's first
+    ``FORWARD_12_LAYERS`` layers.  Returns the gated run's launches and
+    the served (JAX-init) model's forward-vs-decode difference over its
+    first ``JAX_INIT_12_LAYERS`` layers."""
     gen = torch.Generator(device=CUDA).manual_seed(120)
     tokens = torch.randint(0, model.cfg.vocab_size, (1, 1088), generator=gen,
                            device=CUDA)
-    rel_jax_init, _ = forward_decode_rel(model, tokens)
-    log(f"phase 12 (not gated): the served model, JAX init of a_log/dt_bias: "
-        f"forward vs decode max relative diff {rel_jax_init:.3e} at 1 x 1088 "
-        f"tokens")
+    with first_layers(model, JAX_INIT_12_LAYERS):
+        rel_jax_init, _ = forward_decode_rel(model, tokens)
+    log(f"phase 12 (not gated): the served model's first "
+        f"{JAX_INIT_12_LAYERS} of {model.cfg.n_layers} layers, JAX init of "
+        f"a_log/dt_bias: forward vs decode max relative diff "
+        f"{rel_jax_init:.3e} at 1 x 1088 tokens")
     mamba_paper_init(model, 12)
-    return forward_against_decode(12, model, 1, 1088), rel_jax_init
+    with first_layers(model, FORWARD_12_LAYERS):
+        return forward_against_decode(12, model, 1, 1088), rel_jax_init
 
 
 def phase13(state, scfg):
@@ -2266,6 +2329,7 @@ def train_args(w, tmp, device=None):
         "--arch", w["arch"], "--steps", str(w["steps"]),
         "--batch-size", str(w["batch"]), "--seq-len", str(w["seq"]),
         "--microbatches", str(w["microbatches"]),
+        "--lr", str(w.get("lr", 3e-4)),
         "--data-dir", os.path.join(tmp, "corpus"),
         "--checkpoint-dir", os.path.join(tmp, "ckpt"), "--device", device])
 
@@ -2595,10 +2659,10 @@ GEMMA3_FLASH = (2, 1088)         # (B, S) of 19a's f32 forward shapes
 FORWARD_19B = {GEMMA3.name: (1, 600), QWEN2.name: (2, 256)}
 TRAIN_19C = dict(TRAIN_FULL, steps=4)
 TRAIN_19C_ARCHS = (HYMBA.name, GEMMA3.name, QWEN2.name)
-# 19c trains each at full width and half its depth (16 of 32, 13 of 26
-# with two 5:1 groups and a tail, 14 of 28 layers), so phase 20 fits the
+# 19c trains each at full width and a quarter of its depth (8 of 32, 6
+# of 26: one 5:1 group, 7 of 28 layers), so phases 20 and 21 fit the
 # script's time limit
-TRAIN_19C_DEPTH = 0.5
+TRAIN_19C_DEPTH = 0.25
 TRAIN_19C_PROFILED = (2,)        # hymba's step under the profiler
 SMOKE_19D_ARCHS = tuple(a + "-smoke" for a in TRAIN_19C_ARCHS)
 
@@ -2785,6 +2849,8 @@ def phase19d(archs=SMOKE_19D_ARCHS, phase="19d"):
         log(f"phase {phase}: {cfg.name} for {w['steps']} steps on the card "
             f"and on the CPU from the same init")
         init = Model(cfg, seed=0, device="cpu")
+        if cfg.family == "vlm":
+            draw_gates(init, 19)
         tmp = tempfile.mkdtemp(prefix="repro-torch-smoke19-")
         try:
             runs = []
@@ -2794,6 +2860,7 @@ def phase19d(archs=SMOKE_19D_ARCHS, phase="19d"):
                     for p, q in zip(m.parameters(), init.parameters()):
                         p.copy_(q)
                 tr = smoke_trainer(w, tmp, f"ck-{i}", m, dev)
+                with_context(tr.pipeline, cfg, w["batch"])
                 tr.fit()
                 tr.pipeline.close()
                 runs.append([r["loss"] for r in tr.metrics_log])
@@ -3208,6 +3275,388 @@ def phase20(smi):
     return errs, rows, r
 
 
+# Phase 21: the cross-attention families.  21a B2 and B3 at the new
+# shapes (non-causal at hd 64 and 128, Sq > Skv, group 1 at hd 64; B3 at
+# group 4 over a bf16 cache, cross caches read whole and at length 0)
+# against their plain versions, their spills, and their times beside
+# their bounds and SDPA; 21b llama-3.2-vision-11b and whisper-large-v3
+# served at full width and depth through the burst (zero cross caches,
+# as JAX's engine serves them), then 8 prompts prefilled with images or
+# frames attached and decoded; 21c the kernel forward against
+# forward_train and against decode with the context attached; 21d both
+# trained at full width (the vision model cut to one group); 21e the
+# smoke models, card against CPU.
+VLM = get_config(FULL_WIDTH_VLM["arch"])
+WHISPER = get_config(FULL_WIDTH_WHISPER["arch"])
+# B3: the vision model's self cache (32/8 of 128, group 4) and its cross
+# cache read whole (1600 image tokens); whisper's self cache (20/20 of
+# 64, group 1) and its cross cache at enc_len 1500 of 1536 and at 0;
+# ragged lengths that are multiples of no tile
+CROSS_DECODE = [((8, 1024, 32, 8, 128, 0), None),
+                ((8, 1600, 32, 8, 128, 0), [1600] * 8),
+                ((8, 1024, 20, 20, 64, 0), None),
+                ((8, 1536, 20, 20, 64, 0), [1500] * 4 + [0] * 4),
+                ((3, 1601, 32, 8, 128, 0), [1601, 777, 1]),
+                ((3, 1537, 20, 20, 64, 0), [1499, 0, 1537])]
+# B2 non-causal: whisper's encoder (20/20 of 64), its decoder's
+# cross-attention, the vision model's (32/8 of 128) with Sq > Skv and
+# Sq < Skv; then ragged lengths
+CROSS_FLASH = [(2, 1536, 1536, 20, 20, 64, False, 0),
+               (2, 288, 1536, 20, 20, 64, False, 0),
+               (2, 2048, 1600, 32, 8, 128, False, 0),
+               (2, 300, 1600, 32, 8, 128, False, 0),
+               (1, 1500, 1500, 20, 20, 64, False, 0),
+               (1, 1001, 999, 32, 8, 128, False, 0),
+               (1, 77, 1601, 32, 8, 128, False, 0)]
+# The template instances these shapes launch, by the mangled names'
+# markers (type list, head dim, and for decode the head sets and heads a
+# warp): their spills are gated at 0
+CROSS_INSTANCES = {"flash_attention.cu": ("Li64EE", "Li128EE"),
+                   "decode_attention.cu": ("Li64ELi1ELi4EE",
+                                           "Li128ELi1ELi4EE")}
+# 21a's timed B2 instances, f32: (b, sq, skv, h, kv, hd), non-causal
+CROSS_FLASH_TIMED = [(2, 1536, 1536, 20, 20, 64), (2, 288, 1536, 20, 20, 64),
+                     (2, 2048, 1600, 32, 8, 128), (2, 300, 1600, 32, 8, 128),
+                     (1, 1500, 1500, 20, 20, 64)]
+# 21b: the context (image tokens, whisper's 1500 frames) prefilled with
+# 8 prompts of 256 tokens, then 32 greedy decode steps
+CONTEXT_LEN = {VLM.name: VLM.vision_tokens, WHISPER.name: 1500}
+PREFILL_21B = (8, 256, 32)
+FORWARD_21C = (2, 40)            # 21c's tokens, with the full context
+# Both train at a peak lr of 3e-5: at the CLI's 3e-4 (one warmup step)
+# their losses rose after the first step on an NVIDIA H100 80GB HBM3 at
+# 700 W (whisper 11.42, 10.30, 15.70, 19.79; the vision model's group
+# 12.21, 17.68, 13.79, 12.95)
+TRAIN_21D = {WHISPER.name: dict(TRAIN_FULL, arch=WHISPER.name, steps=4,
+                                batch=4, seq=448, microbatches=1, lr=3e-5),
+             VLM.name: dict(TRAIN_FULL, arch=VLM.name, steps=4, batch=4,
+                            seq=1024, microbatches=1, lr=3e-5)}
+# the vision model trains cut to one group (5 self layers and a cross
+# layer): its 46 GB of float32 weights and AdamW's state do not fit
+TRAIN_21D_VLM_GROUPS = 1
+SMOKE_21E_ARCHS = (VLM.name + "-smoke", WHISPER.name + "-smoke",
+                   "mistral-large-123b-smoke")
+
+
+def with_context(pipe, cfg, batch, n=None):
+    """``pipe.batch`` with the images (vlm) or frames (audio) the model
+    attends to beside the tokens: ``n`` positions (default
+    ``vision_tokens``) drawn once from seed 21, the same each step.
+    Other families' pipelines are left as they are."""
+    key = {"vlm": "images", "audio": "frames"}.get(cfg.family)
+    if key is None:
+        return pipe
+    ctx = np.random.default_rng(21).standard_normal(
+        (batch, n or cfg.vision_tokens, cfg.d_model), dtype=np.float32)
+    plain = pipe.batch
+    pipe.batch = lambda step: {**plain(step), key: ctx}
+    return pipe
+
+
+def context_kw(cfg, ctx):
+    return {"images" if cfg.family == "vlm" else "frames": ctx}
+
+
+def draw_gates(model, seed):
+    """The vision model's cross gates drawn from N(0, 1), in place (JAX's
+    init gives zeros, which makes the cross layers add nothing)."""
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    with torch.no_grad():
+        for c in model.cross_layers:
+            c.gate.copy_(torch.randn((1,), generator=gen,
+                                     device=model.device))
+    gates = [float(c.gate) for c in model.cross_layers]
+    check(all(g != 0.0 for g in gates), f"a zero gate: {gates}")
+    return gates
+
+
+def phase21a(libs):
+    """B2 and B3 at the new shapes against plain, the spills of the hd-64
+    and hd-128 instances, and their times.  Returns the errors and the
+    rows."""
+    log("phase 21a: flash attention non-causal at hd 64 (whisper-large-v3, "
+        "20/20 heads) and hd 128 (llama-3.2-vision-11b, 32/8, Sq > Skv), "
+        "decode attention at group 4 over a bf16 cache and over cross "
+        "caches (read whole, at enc_len 1500 and at 0), vs plain on the "
+        "card; spills; times")
+    for name, markers in CROSS_INSTANCES.items():
+        for marker in markers:
+            lines = spill_lines(libs[name], marker)
+            check(all(ln.startswith("0 bytes stack frame, 0 bytes spill")
+                      for ln in lines), f"{name}: {marker} spills: {lines}")
+            log(f"  {name}: {len(lines)} {marker} instances (the slice's), "
+                + ("0 bytes spilled by each" if lines else
+                   "reused (not built in this run): spills not read"))
+    others = [ln for ln in spill_lines(libs["decode_attention.cu"], "Li")
+              if not ln.startswith("0 bytes stack frame, 0 bytes spill")]
+    log(f"  decode_attention.cu: {len(others)} instances off this slice's "
+        f"path spill (hd 32 and 64 at 6-8 heads a kv head; not gated): "
+        f"{sorted(set(others))}")
+    gen = torch.Generator(device=CUDA).manual_seed(21)
+    errs = {"decode": {}, "flash": {}}
+    for case, lens in CROSS_DECODE:
+        check_decode(case, lens, gen, errs)
+    for case in CROSS_FLASH:
+        check_flash(case, gen, errs)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=CUDA)
+    rows = {"flash_f32": []}
+    for b, sq, skv, h, kv, hd in CROSS_FLASH_TIMED:
+        rows["flash_f32"].append(time_flash(b, sq, h, kv, hd, F32, 0, gen,
+                                            flush, skv=skv, causal=False))
+    w = FULL_WIDTH_VLM
+    bsz, max_len, prompt = w["max_batch"], w["max_len"], w["prompt_len"]
+    for tag, cfg, s, lens in (
+            ("vlm_self", VLM, max_len, None),
+            ("vlm_cross", VLM, VLM.vision_tokens, [VLM.vision_tokens] * bsz),
+            ("whisper_self", WHISPER, max_len, None),
+            ("whisper_cross", WHISPER, WHISPER.vision_tokens, [1500] * bsz)):
+        h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q = randn((bsz, h, hd), F32, gen)
+        kc, vc = randn((bsz, s, kv, hd), BF16, gen), \
+            randn((bsz, s, kv, hd), BF16, gen)
+        if lens is None:           # the engine's: prompt + generated
+            lens = torch.randint(prompt, prompt + w["max_new"] + 1, (bsz,),
+                                 generator=gen, device=CUDA)
+        lens = torch.as_tensor(lens, device=CUDA).to(torch.int32)
+        rows[f"decode_{tag}"] = time_decode(
+            f"{tag} B{bsz} x S{s} x H{h}/KV{kv} x hd{hd}, q f32, bf16 "
+            f"cache, lengths {lens.tolist()}", q, kc, vc, lens, flush)
+    # whisper's cross cache at enc_len 0, as its engine serves: zeros
+    lens = torch.zeros((bsz,), dtype=torch.int32, device=CUDA)
+    out = kd.decode_attention(q, kc, vc, lens)
+    ref = kd.decode_attention_plain(q, kc, vc, lens)
+    check(not out.any() and not ref.any(), "enc_len 0: not zeros")
+    ms = cuda_ms(lambda: kd.decode_attention(q, kc, vc, lens), reps=7,
+                 flush=flush, lead=True)
+    rows["decode_whisper_cross_len0"] = {"ms": ms, "zeros": True}
+    log(f"  decode whisper_cross at enc_len 0 (B{bsz} x S"
+        f"{WHISPER.vision_tokens}): kernel and plain give zeros; kernel "
+        f"{ms:.4f} ms (no key to read)")
+    return errs, rows
+
+
+def serve_cross(w, smi):
+    """One cross-attention model served through the burst (zero cross
+    caches), then its gates drawn (vlm) and 8 prompts prefilled with a
+    drawn context attached and decoded.  Returns the model, the decode
+    launches of both runs and the numbers."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    check(before < 8e9, f"{before / 1e9:.2f} GB still allocated")
+    torch.cuda.reset_peak_memory_stats()
+    eng, launches, served = serve_full_width("21b", w, smi)
+    peak = torch.cuda.max_memory_allocated()
+    model, cfg = eng.model, eng.model.cfg
+    st = eng.state
+    check(not st.cross_k.any() and (st.enc_len is None
+                                    or int(st.enc_len) == 0),
+          "the engine's cross caches are not zero")
+    del eng, st
+    torch.cuda.empty_cache()
+    n_params = sum(p.numel() for p in model.parameters())
+    served.update(params=n_params, peak_gb=peak / 1e9)
+    log(f"  {n_params:,} parameters ({len(model.layers)} self layers"
+        + (f", {len(model.cross_layers)} cross layers" if cfg.family == "vlm"
+           else f", {len(model.enc_layers)} encoder layers")
+        + f"); peak memory allocated {peak / 1e9:.2f} GB; cross caches zero"
+        + (", enc_len 0" if cfg.family == "audio" else ""))
+    gates = draw_gates(model, 21) if cfg.family == "vlm" else None
+    b, s, new = PREFILL_21B
+    n_ctx = CONTEXT_LEN[cfg.name]
+    gen = torch.Generator(device=CUDA).manual_seed(211)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=CUDA)
+    ctx = torch.randn((b, n_ctx, cfg.d_model), generator=gen, device=CUDA)
+    torch.cuda.synchronize()
+    kd.LAUNCHES = 0                        # the prefill path starts here
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, state = D.prefill(model, tokens, s + new,
+                                  **context_kw(cfg, ctx))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = []
+        for _ in range(new):
+            nxt = logits[:, -1].argmax(-1, keepdim=True)
+            out.append(nxt)
+            logits = D.decode_step(model, state, nxt)
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    n_launch = kd.LAUNCHES
+    per_step = decode_launches_per_step(model)
+    check(n_launch == (s + new) * per_step, f"decode launched {n_launch} "
+          f"times for {s + new} steps x {per_step}")
+    check(bool(torch.isfinite(logits).all()), "non-finite logits")
+    kept = n_ctx if cfg.family == "vlm" else int(state.enc_len)
+    check(kept == n_ctx, f"enc_len {kept} for {n_ctx} frames")
+    nonzero = [bool(state.cross_k[i, :, :kept].any()
+                    and state.cross_v[i, :, :kept].any())
+               for i in range(state.cross_k.shape[0])]
+    check(all(nonzero) and not state.cross_k[:, :, kept:].any(),
+          f"cross caches: non-zero {nonzero}, zeros past {kept}")
+    tokens_out = torch.cat(out, 1)
+    row = {"prefill_s": t1 - t0, "decode_s": t2 - t1,
+           "prefill_tok_s": b * s / (t1 - t0),
+           "decode_tok_s": b * new / (t2 - t1), "launches": n_launch,
+           "gates": gates, "distinct_tokens": int(tokens_out.unique().numel())}
+    log(f"  prefill {b} x {s} tokens with {n_ctx} "
+        f"{'image tokens' if cfg.family == 'vlm' else 'frames'} attached"
+        + (f" (gates drawn: {[round(g, 3) for g in gates]})" if gates
+           else f" (enc_len {kept} of {state.cross_k.shape[2]})")
+        + f": {t1 - t0:.2f} s ({row['prefill_tok_s']:.1f} tok/s), then "
+        f"{new} decode steps {t2 - t1:.2f} s ({row['decode_tok_s']:.1f} "
+        f"tok/s), host clock; {state.cross_k.shape[0]} cross caches "
+        f"non-zero; logits finite; decode launches {n_launch} = "
+        f"{s + new} steps x {per_step}")
+    del state, logits
+    torch.cuda.empty_cache()
+    served["prefill"] = row
+    return model, launches + n_launch, served
+
+
+def phase21c(model):
+    """The served model's kernel forward against forward_train (dense
+    attention) and against decode with the context attached (f32
+    cache).  Returns flash's launches in the forward and the numbers."""
+    cfg = model.cfg
+    b, s = FORWARD_21C
+    n_ctx = CONTEXT_LEN[cfg.name]
+    log(f"phase 21c: {cfg.name}: Model.forward (flash) against forward_train "
+        f"(dense attention) and against prefill/decode_step with the "
+        f"context attached (f32 cache), {b} x {s} tokens, {n_ctx} "
+        f"{'image tokens' if cfg.family == 'vlm' else 'frames'}")
+    gen = torch.Generator(device=CUDA).manual_seed(212)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=CUDA)
+    kw = context_kw(cfg, torch.randn((b, n_ctx, cfg.d_model), generator=gen,
+                                     device=CUDA))
+    with torch.no_grad():
+        kf.LAUNCHES = 0                    # the forward path starts here
+        fwd = model(tokens, **kw)
+        launches = kf.LAUNCHES
+        check(bool(torch.isfinite(fwd).all()), "non-finite forward logits")
+        model.attn_impl = "dense"
+        ref = model.forward_train(tokens, **kw)
+        state = D.init_state(model, b, s, cache_dtype="float32")
+        D.attach_cross_context(model, state, **kw)
+        dec = torch.cat([D.decode_step(model, state, tokens[:, t:t + 1])
+                         for t in range(s)], dim=1)
+    model.attn_impl = "auto"
+    want = decode_launches_per_step(model)      # one flash per attention
+    want += len(model.enc_layers) if cfg.family == "audio" else 0
+    check(launches == want, f"the forward launched flash {launches} times, "
+          f"expected {want}")
+    rel_train = float((fwd - ref).abs().max() / ref.abs().max())
+    rel_dec = float((fwd - dec).abs().max() / fwd.abs().max())
+    check(rel_train < 5e-3, f"forward against forward_train {rel_train:.3e}")
+    check(rel_dec < 5e-3, f"forward against decode {rel_dec:.3e}")
+    log(f"  forward: flash launched {launches} times; against forward_train "
+        f"{rel_train:.3e}, against decode {rel_dec:.3e} max relative "
+        f"difference (bound 5e-3 each"
+        + ("; decode attends the images' bf16 rounding, as JAX's does)"
+           if cfg.family == "vlm" else ")"))
+    return launches, {"forward_vs_train": rel_train,
+                      "forward_vs_decode": rel_dec, "flash": launches}
+
+
+def phase21d(smi):
+    """whisper-large-v3 at full depth and the vision model cut to one
+    group trained at full width through the training CLI's wiring, the
+    context drawn beside the tokens.  Returns the numbers."""
+    out = {}
+    for name, w in TRAIN_21D.items():
+        full = get_config(name)
+        cfg = full
+        if full.family == "vlm":
+            cfg = dataclasses.replace(
+                full, n_layers=TRAIN_21D_VLM_GROUPS * full.cross_attn_group)
+        n_ctx = WHISPER.vision_tokens if full.family == "audio" \
+            else full.vision_tokens
+        log(f"phase 21d: train {name} at full width"
+            + (f", cut to {TRAIN_21D_VLM_GROUPS} group ({cfg.n_layers} self "
+               f"layers and 1 cross layer of {full.n_layers} and "
+               f"{full.n_layers // full.cross_attn_group})"
+               if cfg is not full else f", full depth ({cfg.n_encoder_layers}"
+               f" encoder and {cfg.n_layers} decoder layers)")
+            + f" (d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+            f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+            f"float32, no TF32; seed 0) through launch/train.py's wiring: "
+            f"batch {w['batch']} x {w['seq']} tokens with {n_ctx} "
+            f"{'image tokens' if cfg.family == 'vlm' else 'frames'} each, "
+            f"{w['microbatches']} microbatch, remat full, peak lr "
+            f"{w.get('lr', 3e-4)}, {w['steps']} steps; on {smi}")
+        tmp = tempfile.mkdtemp(prefix="repro-torch-train21-")
+        try:
+            model = Model(cfg, seed=0, device=CUDA)
+            if cfg.family == "vlm":
+                draw_gates(model, 22)
+            trainer = ttrain.build(train_args(w, tmp), model=model,
+                                   log_every=1)
+            with_context(trainer.pipeline, cfg, w["batch"], n_ctx)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ks.LAUNCHES = kd.LAUNCHES = kf.LAUNCHES = kscan.LAUNCHES = 0
+            t0 = time.monotonic()
+            trainer.fit()
+            launched = {"sweep": ks.LAUNCHES, "decode": kd.LAUNCHES,
+                        "flash": kf.LAUNCHES, "scan": kscan.LAUNCHES}
+            check(not any(launched.values()), f"the training path launched "
+                  f"{launched}")
+            peak = torch.cuda.max_memory_allocated()
+            trainer.pipeline.close()
+            losses = [r["loss"] for r in trainer.metrics_log]
+            check(len(losses) == w["steps"]
+                  and all(map(math.isfinite, losses)), f"losses {losses}")
+            check(losses[-1] < losses[0], f"{name}: the loss did not fall: "
+                  f"{losses}")
+            ends = [t0] + trainer.logged_at
+            step_ms = [(b - a) * 1e3 for a, b in zip(ends, ends[1:])]
+            med = statistics.median(step_ms[1:])
+            tokens = w["batch"] * w["seq"]
+            n_params = sum(p.numel() for p in model.parameters())
+            log(f"  {n_params:,} parameters; losses "
+                f"{[round(x, 4) for x in losses]}: finite, {losses[0]:.4f} "
+                f"-> {losses[-1]:.4f}; no kernel launched")
+            log(f"  ms a step (host clock): {[round(x, 1) for x in step_ms]} "
+                f"(step 0 the first call's setup); median of the others "
+                f"{med:.1f}, {tokens / med * 1e3:.1f} tokens/s; peak memory "
+                f"allocated {peak / 1e9:.2f} GB")
+            out[name] = {"layers": cfg.n_layers, "params": n_params,
+                         "losses": losses, "step_ms": step_ms,
+                         "step_ms_median": med,
+                         "tokens_s": tokens / med * 1e3,
+                         "peak_gb": peak / 1e9}
+            del trainer, model
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase21(libs, smi):
+    """Phase 21: returns the kernels' errors and rows, and the launches
+    and numbers of the served and trained families."""
+    t0 = time.perf_counter()
+    errs, rows = phase21a(libs)
+    r = {"served": {}, "decode_launches": {}, "flash_launches": {}}
+    for w in (FULL_WIDTH_VLM, FULL_WIDTH_WHISPER):
+        model, n_decode, served = serve_cross(w, smi)
+        n_flash, r[w["arch"]] = phase21c(model)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        r["served"][w["arch"]] = served
+        r["decode_launches"][w["arch"]] = n_decode
+        r["flash_launches"][w["arch"]] = n_flash
+    r["trained"] = phase21d(smi)
+    r["smoke_card_vs_cpu"] = phase19d(SMOKE_21E_ARCHS, "21e")
+    r["seconds"] = time.perf_counter() - t0
+    log(f"phase 21 seconds (host clock): {r['seconds']:.1f}")
+    return errs, rows, r
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--decode-times"]:
         print(json.dumps(fresh_decode_times(json.loads(sys.argv[2]))))
@@ -3482,6 +3931,36 @@ def main() -> None:
     flash["max_abs_err_f32"] = max(flash["max_abs_err_f32"],
                                    rows20["flash_f32"]["max_abs_err"])
     log("moe family on the card: " + json.dumps(moe20, default=str))
+    errs21, rows21, cross21 = phase21(libs, smi)
+    for name in (VLM.name, WHISPER.name):
+        n_dec = cross21["decode_launches"][name]
+        n_fl = cross21["flash_launches"][name]
+        log(f"main path: decode attention launched {n_dec} times ({name} "
+            f"serving and prefill, phase 21b), flash attention {n_fl} times "
+            f"({name} forward, phase 21c)")
+        check(n_dec > 0 and n_fl > 0,
+              f"{name}'s serving path skipped an attention kernel")
+        decode["launches"] += n_dec
+        decode["launches_by_path"][f"{name} serving and prefill (phase "
+                                   f"21b)"] = n_dec
+        flash["launches"] += n_fl
+        flash["launches_by_path"][f"{name} forward (phase 21c)"] = n_fl
+    for name, d in (("decode", decode), ("flash", flash)):
+        d["max_abs_err"] = max(d["max_abs_err"], *errs21[name].values())
+        d["max_abs_err_f32"] = max(d["max_abs_err_f32"],
+                                   errs21[name]["f32"])
+    flash["cross_families_f32"] = rows21["flash_f32"]
+    f32_errs = [row["max_abs_err"] for row in rows21["flash_f32"]]
+    flash["max_abs_err"] = max(flash["max_abs_err"], *f32_errs)
+    flash["max_abs_err_f32"] = max(flash["max_abs_err_f32"], *f32_errs)
+    for tag in ("vlm_self", "vlm_cross", "whisper_self", "whisper_cross"):
+        row = rows21[f"decode_{tag}"]
+        decode[f"{tag}_engine"] = row
+        decode["max_abs_err_f32"] = max(decode["max_abs_err_f32"],
+                                        row["max_abs_err"])
+    decode["whisper_cross_len0"] = rows21["decode_whisper_cross_len0"]
+    log("cross-attention families on the card: "
+        + json.dumps(cross21, default=str))
     ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter()]
     log("seconds by phase (host clock): " + ", ".join(
         f"{name} {end - start:.1f}"

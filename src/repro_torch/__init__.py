@@ -2,8 +2,9 @@
 
 The paper's closed-loop memory controller (Eq. 1) swept over fleets of
 gain points and nodes, and the model-serving substrate whose KV cache
-is the storage tenant DynIMS resizes (llama3.2-1b and hymba-1.5b
-through a continuous-batching engine).  Every TPU kernel of ``repro``
+is the storage tenant DynIMS resizes (the dense, hybrid, moe, vlm and
+audio models through a continuous-batching engine), and their
+training, the paper's priority tenant.  Every TPU kernel of ``repro``
 is a hand-written CUDA kernel for Hopper under ``csrc/``: the fused
 sweep step, flash attention, decode attention and the selective scan.
 The package imports nothing of ``repro`` or of JAX.  Entry points run

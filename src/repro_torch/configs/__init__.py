@@ -8,10 +8,14 @@ port serves and trains so far, each with its ``-smoke`` reduction:
 schedule, head dim 256) and ``qwen2-1.5b`` (QKV bias), all dense;
 ``hymba-1.5b`` (hybrid: attention and Mamba in parallel); and
 ``qwen2-moe-a2.7b`` (60 routed experts padded to 64, top 4, 4 shared
-experts) and ``dbrx-132b`` (16 experts, top 4), the moe family.
-dbrx-132b does not fit one 80 GB card at full width; its ``-smoke``
-reduction serves and trains.  The other architectures of the JAX
-package come with their families (ROADMAP A5).
+experts) and ``dbrx-132b`` (16 experts, top 4), the moe family;
+``mistral-large-123b`` (dense); and the two cross-attention families:
+``llama-3.2-vision-11b`` (vlm: groups of 5 self layers and one gated
+cross layer over image tokens) and ``whisper-large-v3`` (audio: a
+layernorm encoder over frames and a decoder that attends to it).
+dbrx-132b and mistral-large-123b do not fit one 80 GB card at full
+width; their ``-smoke`` reductions serve and train.  xlstm-125m, the
+ssm family, comes with ROADMAP A5.
 """
 
 from __future__ import annotations
@@ -22,11 +26,16 @@ from .dbrx_132b import ARCH as _DBRX_132B
 from .gemma3_1b import ARCH as _GEMMA3_1B
 from .hymba_15b import ARCH as _HYMBA_15B
 from .llama32_1b import ARCH as _LLAMA32_1B
+from .llama32_vision_11b import ARCH as _LLAMA32_VISION_11B
+from .mistral_large_123b import ARCH as _MISTRAL_LARGE_123B
 from .qwen2_15b import ARCH as _QWEN2_15B
 from .qwen2_moe_a27b import ARCH as _QWEN2_MOE_A27B
+from .whisper_large_v3 import ARCH as _WHISPER_LARGE_V3
 
 _ARCHS = {a.name: a for a in (_LLAMA32_1B, _HYMBA_15B, _GEMMA3_1B,
-                              _QWEN2_15B, _QWEN2_MOE_A27B, _DBRX_132B)}
+                              _QWEN2_15B, _QWEN2_MOE_A27B, _DBRX_132B,
+                              _MISTRAL_LARGE_123B, _LLAMA32_VISION_11B,
+                              _WHISPER_LARGE_V3)}
 
 ARCH_IDS = list(_ARCHS)
 

@@ -93,29 +93,65 @@ def _layer_trees(layers: Mapping, cfg: ArchConfig) -> List[Mapping]:
     return out
 
 
+def _stacks(tree: Mapping, cfg: ArchConfig) -> Dict[str, List[Mapping]]:
+    """The per-layer trees of each of the port's layer lists, by name.
+
+    vlm: ``layers["selfs"][g][j]`` -> ``layers`` g * cross_attn_group +
+    j and ``layers["cross"][g]`` -> ``cross_layers`` g; audio:
+    ``enc_layers[i]`` -> ``enc_layers`` i and ``layers[i]`` -> ``layers``
+    i, stacked directly (``Model.schema``); the other families as
+    :func:`_layer_trees` gives them.
+    """
+    layers = tree["layers"]
+    if cfg.family == "vlm":
+        if set(layers) != {"selfs", "cross"}:
+            raise ValueError(f"{cfg.name} stacks groups of selfs and a "
+                             f"cross layer; the tree holds {sorted(layers)}")
+        n, g = _stacked(layers["cross"]), cfg.cross_attn_group
+        return {"layers": [_index(layers["selfs"], i, j) for i in range(n)
+                           for j in range(g)],
+                "cross_layers": [_index(layers["cross"], i)
+                                 for i in range(n)]}
+    if cfg.family == "audio":
+        return {name: [_index(tree[name], i)
+                       for i in range(_stacked(tree[name]))]
+                for name in ("enc_layers", "layers")}
+    return {"layers": _layer_trees(layers, cfg)}
+
+
 def _named(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     """Dotted names of a nested dict's arrays, as the port names its
-    parameters: a norm's ``scale`` is the norm itself, JAX's ``embed``
-    holds the model's ``tokens`` and ``unembed``."""
+    parameters: a norm's ``scale`` is the norm itself and its ``bias``
+    the norm's name with ``_bias``; JAX's ``embed`` holds the model's
+    ``tokens`` and ``unembed``."""
     out = {}
     for k, v in tree.items():
         name = prefix + k
         if isinstance(v, Mapping):
             out.update(_named(v, "" if k == "embed" else name + "."))
+        elif k in ("scale", "bias"):
+            out[prefix[:-1] + ("_bias" if k == "bias" else "")] = \
+                np.asarray(v)
         else:
-            out[prefix[:-1] if k == "scale" else name] = np.asarray(v)
+            out[name] = np.asarray(v)
     return out
 
 
 def _port_arrays(tree: Mapping, cfg: ArchConfig) -> Dict[str, np.ndarray]:
     """A parameter-shaped JAX tree's arrays under the port's names."""
-    layers = _layer_trees(tree["layers"], cfg)
-    if len(layers) != cfg.n_layers:
-        raise ValueError(f"the tree stacks {len(layers)} layers, {cfg.name} "
-                         f"has {cfg.n_layers}")
-    arrays = _named({k: v for k, v in tree.items() if k != "layers"})
-    for i, layer in enumerate(layers):
-        arrays.update(_named(layer, f"layers.{i}."))
+    stacks = _stacks(tree, cfg)
+    want = {"layers": cfg.n_layers, "enc_layers": cfg.n_encoder_layers,
+            "cross_layers": cfg.n_layers // max(cfg.cross_attn_group, 1)}
+    if cfg.family == "vlm":
+        want["layers"] = want["cross_layers"] * cfg.cross_attn_group
+    for name, layers in stacks.items():
+        if len(layers) != want[name]:
+            raise ValueError(f"the tree stacks {len(layers)} {name}, "
+                             f"{cfg.name} has {want[name]}")
+    arrays = _named({k: v for k, v in tree.items() if k not in stacks})
+    for name, layers in stacks.items():
+        for i, layer in enumerate(layers):
+            arrays.update(_named(layer, f"{name}.{i}."))
     return arrays
 
 
@@ -137,9 +173,12 @@ def model_params_from_numpy(tree: Mapping, cfg: ArchConfig, *,
     experts of ``moe_schema`` (``moe.router`` (d, E_pad), ``moe.wi``/
     ``moe.wg`` (E_pad, d, f), ``moe.wo`` (E_pad, f, d), and the shared
     experts' ``moe.shared.{wi, wg, wo, gate}``), ``tokens`` (Vp, d) and,
-    untied, ``unembed`` (d, Vp).  The layer
-    stack, flat or grouped, maps onto the port's flat layers
-    (:func:`_layer_trees`).  The model's type is the arrays' type.
+    untied, ``unembed`` (d, Vp); a norm's ``scale`` and, layernorm, its
+    ``bias``.  The layer stack, flat or grouped, maps onto the port's
+    flat layers (:func:`_layer_trees`); the vlm family's groups of
+    ``selfs`` and a ``cross`` layer, and the audio family's
+    ``enc_layers``, onto theirs (:func:`_stacks`).  The model's type is
+    the arrays' type.
     Raises on a missing, extra or misshapen array.
     """
     dtype = torch.from_numpy(
@@ -164,7 +203,7 @@ def train_state_from_numpy(adam_tree, model: Model) -> AdamWState:
     ``adam_tree`` is JAX's ``AdamWState`` (or a mapping with its fields)
     after ``jax.tree.map(np.asarray, ...)`` or a restored checkpoint's
     ``"opt"``: ``mu`` and ``nu`` parameter-shaped, stacked as the
-    parameters are (:func:`_layer_trees`), ``step`` an int32 scalar.
+    parameters are (:func:`_stacks`), ``step`` an int32 scalar.
     The moments land under the model's parameter names, float32, on the
     model's device.  Raises on a missing, extra or misshapen array.
     """

@@ -2,14 +2,16 @@
 
     python -m repro_torch.launch.profile_serve [llama3.2-1b | hymba-1.5b |
                                                gemma3-1b | qwen2-1.5b |
-                                               qwen2-moe-a2.7b]
+                                               qwen2-moe-a2.7b |
+                                               llama-3.2-vision-11b |
+                                               whisper-large-v3]
 
 Sets up one of the full-width serving workloads of
 :mod:`repro_torch.launch.serve` (``WORKLOADS``, llama3.2-1b by default),
-which ``chip_smoke.py`` serves in phases 7, 11, 19b and 20b: the model at its
-published widths, float32 weights from seed 0, bfloat16 cache, 8 slots
-of 1024 tokens, 16 requests of 256-token prompts, the KV pool under a
-live plane that ticks once per step.  Runs ``WARM`` engine steps so all
+which ``chip_smoke.py`` serves in phases 7, 11, 19b, 20b and 21b: the
+model at its published widths, float32 weights from seed 0, bfloat16
+cache, 8 slots of 1024 tokens, 16 requests of 256-token prompts, the KV
+pool under a live plane that ticks once per step.  Runs ``WARM`` engine steps so all
 8 slots are busy, times ``STEPS`` steps on the host clock (each step
 ends on its argmax sync), then profiles as many more with
 ``torch.profiler`` and prints, per step: the host-clock time without

@@ -6,6 +6,8 @@
     python -m repro_torch.launch.serve --arch gemma3-1b [--burst]
     python -m repro_torch.launch.serve --arch qwen2-1.5b [--burst]
     python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b [--burst]
+    python -m repro_torch.launch.serve --arch llama-3.2-vision-11b [--burst]
+    python -m repro_torch.launch.serve --arch whisper-large-v3 [--burst]
     python -m repro_torch.launch.serve --arch hymba-1.5b-smoke --device cpu
 
 Serves synthetic prompts with weights drawn from ``--seed`` through an
@@ -23,7 +25,9 @@ records its own KV-pool telemetry during the first wave of requests,
 sweep on the same device) and hot-swaps the winner into the live plane,
 and a second wave of ``requests // 2`` prompts serves under the new
 parameter epoch.  Without ``--device`` it runs on the card and raises
-when there is none.
+when there is none.  The cross-attention families serve as JAX's
+engine serves them: with zero cross caches (and ``enc_len`` 0), since
+no request carries images or frames.
 """
 
 from __future__ import annotations
@@ -53,17 +57,22 @@ def device_name(device: torch.device) -> str:
 
 # The full-width workloads, one per served architecture: served by
 # ``chip_smoke.py`` with the burst (llama in phase 7, hymba in phase 11,
-# gemma3 and qwen2 in phase 19b, qwen2-moe in phase 20b) and profiled by
-# ``repro_torch.launch.profile_serve``.
+# gemma3 and qwen2 in phase 19b, qwen2-moe in phase 20b, the vision and
+# audio models in phase 21b) and profiled by
+# ``repro_torch.launch.profile_serve``.  288 tokens a request fit
+# whisper's deployed 448-token decoder.
 FULL_WIDTH = dict(arch="llama3.2-1b", requests=16, prompt_len=256,
                   max_new=32, max_batch=8, max_len=1024, seed=0)
 FULL_WIDTH_HYMBA = dict(FULL_WIDTH, arch="hymba-1.5b")
 FULL_WIDTH_GEMMA3 = dict(FULL_WIDTH, arch="gemma3-1b")
 FULL_WIDTH_QWEN2 = dict(FULL_WIDTH, arch="qwen2-1.5b")
 FULL_WIDTH_QWEN2_MOE = dict(FULL_WIDTH, arch="qwen2-moe-a2.7b")
+FULL_WIDTH_VLM = dict(FULL_WIDTH, arch="llama-3.2-vision-11b")
+FULL_WIDTH_WHISPER = dict(FULL_WIDTH, arch="whisper-large-v3")
 WORKLOADS = {w["arch"]: w for w in (FULL_WIDTH, FULL_WIDTH_HYMBA,
                                     FULL_WIDTH_GEMMA3, FULL_WIDTH_QWEN2,
-                                    FULL_WIDTH_QWEN2_MOE)}
+                                    FULL_WIDTH_QWEN2_MOE, FULL_WIDTH_VLM,
+                                    FULL_WIDTH_WHISPER)}
 
 
 def prompts(vocab: int, prompt_len: int, seed: int, n: int) -> list:

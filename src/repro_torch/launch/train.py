@@ -8,10 +8,14 @@
 Every architecture the port builds trains: llama3.2-1b, gemma3-1b and
 qwen2-1.5b (dense), hymba-1.5b (hybrid), qwen2-moe-a2.7b (moe; its
 60.6 GB of float32 weights leave no room for AdamW on one 80 GB card
-at full depth) and their ``-smoke`` reductions, with dbrx-132b's.  A
-moe model's rows log its load-balance loss, ``aux``, beside ``ce``
-(``loss`` is their sum); a microbatched step logs the summed loss as
-``ce`` and a zero ``aux``, as JAX's step does.
+at full depth) and their ``-smoke`` reductions, with dbrx-132b's and
+mistral-large-123b's.  A moe model's rows log its load-balance loss,
+``aux``, beside ``ce`` (``loss`` is their sum); a microbatched step
+logs the summed loss as ``ce`` and a zero ``aux``, as JAX's step does.
+The pipeline's batches hold tokens alone, as JAX's do: the vlm and
+audio families (llama-3.2-vision-11b, whisper-large-v3), whose loss
+needs images or frames, train through a caller that adds them to the
+batches (``chip_smoke.py`` phase 21d).
 
 The port of ``repro/launch/train.py``, with its flags and ``--device``.
 Wires: config -> Model (weights from ``--seed``) -> DataPipeline (a

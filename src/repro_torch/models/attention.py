@@ -1,16 +1,20 @@
-"""Grouped-query attention: projections, self-attention, decode.
+"""Grouped-query attention: projections, self- and cross-attention, decode.
 
-The port of ``repro/models/attention.py`` for the dense family, QKV
-biases included.  The
-inference self-attention is the flash kernel (B2) over positions
-``arange(S)``; one token against a cache is the decode kernel (B3).
-Neither kernel has a backward, so training takes JAX's two plain paths
-under autograd: ``attention_dense`` (materialized logits) and
-``attention_chunked`` (the online-softmax carry over KV chunks), chosen
-by JAX's rule (:func:`self_attention_train`).  Weights keep the JAX
-layouts: ``wq`` (d, H, hd), ``wk``/``wv`` (d, KV, hd), ``wo`` (H, hd, d),
-and with ``qkv_bias`` ``bq`` (H, hd), ``bk``/``bv`` (KV, hd).
-``make_mask`` is the flash kernel module's, whose plain version uses it.
+The port of ``repro/models/attention.py``, QKV biases included.  The
+inference attention is the flash kernel (B2): causal self-attention
+over positions ``arange(S)``, the whisper encoder's non-causal
+self-attention, and cross-attention of the text over image tokens or
+encoder frames (non-causal, no RoPE).  One token against a cache is
+the decode kernel (B3), over a layer's own KV cache or over a static
+cross cache.  Neither kernel has a backward, so training takes JAX's
+two plain paths under autograd: ``attention_dense`` (materialized
+logits) and ``attention_chunked`` (the online-softmax carry over KV
+chunks), chosen by JAX's rule (:func:`self_attention_train`).  Weights
+keep the JAX layouts: ``wq`` (d, H, hd), ``wk``/``wv`` (d, KV, hd),
+``wo`` (H, hd, d), and with ``qkv_bias`` ``bq`` (H, hd), ``bk``/``bv``
+(KV, hd) -- never on a cross-attention module (``attention_schema``
+with ``cross=True``).  ``make_mask`` is the flash kernel module's,
+whose plain version uses it.
 """
 
 from __future__ import annotations
@@ -25,8 +29,9 @@ from ..kernels.flash_attention import flash_attention, make_mask
 from .layers import apply_rope, matmul_f32
 
 __all__ = ["attention_chunked", "attention_decode", "attention_dense",
-           "make_mask", "out_project", "qkv_project", "self_attention",
-           "self_attention_train", "update_kv_cache"]
+           "cross_decode", "kv_project", "make_mask", "out_project",
+           "qkv_project", "self_attention", "self_attention_train",
+           "update_kv_cache"]
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -42,28 +47,47 @@ def _no_softcap(cfg: ArchConfig) -> None:
             f"ROADMAP A5)")
 
 
+def _proj(x: torch.Tensor, w: torch.Tensor,
+          dtype: torch.dtype) -> torch.Tensor:
+    """(B, S, d) @ (d, heads, hd) -> (B, S, heads, hd), float32
+    accumulation, cast to ``dtype``."""
+    d, heads, hd = w.shape
+    out = matmul_f32(x, w.reshape(d, heads * hd))
+    return out.reshape(*x.shape[:-1], heads, hd).to(dtype)
+
+
 def qkv_project(p, xq: torch.Tensor, xkv: torch.Tensor, cfg: ArchConfig,
-                q_positions: torch.Tensor, k_positions: torch.Tensor
+                q_positions: Optional[torch.Tensor] = None,
+                k_positions: Optional[torch.Tensor] = None, *,
+                rope: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(B, S, d) -> q (B, S, H, hd), k and v (B, S, KV, hd) with RoPE.
+    """(B, Sq, d), (B, Skv, d) -> q (B, Sq, H, hd), k and v (B, Skv, KV,
+    hd), with RoPE at the positions unless ``rope`` is False.
 
     Products accumulate in float32 and are cast to ``xq``'s type; the
     biases, when the layer has them, are added, then q and k rotated
     (attention.py ``qkv_project``).
     """
-    def proj(x, w):
-        d, heads, hd = w.shape
-        out = matmul_f32(x, w.reshape(d, heads * hd))
-        return out.reshape(*x.shape[:-1], heads, hd).to(xq.dtype)
-
-    q = proj(xq, p.wq)
-    k = proj(xkv, p.wk)
-    v = proj(xkv, p.wv)
+    q = _proj(xq, p.wq, xq.dtype)
+    k, v = kv_project(p, xkv, xq.dtype)
     if p.bq is not None:
-        q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = apply_rope(q, q_positions, cfg.rope_theta)
-    k = apply_rope(k, k_positions, cfg.rope_theta)
+        q = q + p.bq
+    if rope:
+        q = apply_rope(q, q_positions, cfg.rope_theta)
+        k = apply_rope(k, k_positions, cfg.rope_theta)
     return q, k, v
+
+
+def kv_project(p, xkv: torch.Tensor, dtype: torch.dtype
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k and v (B, S, KV, hd) of (B, S, d) in ``dtype``, biases added,
+    not rotated: :func:`qkv_project`'s k and v with ``rope=False``, for
+    a cross cache that needs no queries."""
+    k = _proj(xkv, p.wk, dtype)
+    v = _proj(xkv, p.wv, dtype)
+    if p.bk is not None:
+        k, v = k + p.bk, v + p.bv
+    return k, v
 
 
 def out_project(p, o: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -73,13 +97,28 @@ def out_project(p, o: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return out.to(dtype)
 
 
-def self_attention(p, x: torch.Tensor, cfg: ArchConfig,
-                   window: int) -> torch.Tensor:
-    """Causal self-attention of (B, S, d) over positions ``arange(S)``."""
+def _project(p, x: torch.Tensor, xkv: Optional[torch.Tensor],
+             cfg: ArchConfig, rope: bool):
+    """q, k, v and their positions ``arange(Sq)``, ``arange(Skv)`` for
+    attention of ``x`` over itself, or over ``xkv`` when given."""
+    src = x if xkv is None else xkv
+    q_pos = torch.arange(x.shape[1], device=x.device)
+    k_pos = q_pos if xkv is None else torch.arange(src.shape[1],
+                                                   device=x.device)
+    q, k, v = qkv_project(p, x, src, cfg, q_pos, k_pos, rope=rope)
+    return q, k, v, q_pos, k_pos
+
+
+def self_attention(p, x: torch.Tensor, cfg: ArchConfig, window: int, *,
+                   causal: bool = True, xkv: Optional[torch.Tensor] = None,
+                   rope: bool = True) -> torch.Tensor:
+    """Attention of (B, S, d) over itself at positions ``arange(S)``, or
+    with ``xkv`` (B, Skv, d) over that at ``arange(Skv)``, on the flash
+    kernel (``Model._attend``): causal by default; the encoder's is not,
+    and cross-attention (``xkv``) is neither causal nor rotated."""
     _no_softcap(cfg)
-    pos = torch.arange(x.shape[1], device=x.device)
-    q, k, v = qkv_project(p, x, x, cfg, pos, pos)
-    o = flash_attention(q, k, v, causal=True, window=window)
+    q, k, v, _, _ = _project(p, x, xkv, cfg, rope)
+    o = flash_attention(q, k, v, causal=causal, window=window)
     return out_project(p, o, x.dtype)
 
 
@@ -155,23 +194,27 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def self_attention_train(p, x: torch.Tensor, cfg: ArchConfig, window: int,
-                         *, impl: str = "auto",
-                         chunk: int = 1024) -> torch.Tensor:
-    """Causal self-attention of (B, S, d) for training, differentiable.
+                         *, impl: str = "auto", chunk: int = 1024,
+                         causal: bool = True,
+                         xkv: Optional[torch.Tensor] = None,
+                         rope: bool = True) -> torch.Tensor:
+    """:func:`self_attention` for training, differentiable, in plain
+    PyTorch.
 
     ``impl`` is JAX's ``Model.attn_impl``: "auto" takes the dense path
     when Sq * Skv <= 2048^2, else the chunked one (``Model._attend``).
+    The dense path masks only when causal or windowed.
     """
-    pos = torch.arange(x.shape[1], device=x.device)
-    q, k, v = qkv_project(p, x, x, cfg, pos, pos)
+    q, k, v, q_pos, k_pos = _project(p, x, xkv, cfg, rope)
     sq, skv = q.shape[1], k.shape[1]
     if impl == "auto":
         impl = "dense" if sq * skv <= DENSE_MAX_PAIRS else "chunked"
     if impl == "dense":
-        o = attention_dense(q, k, v, make_mask(pos, pos, causal=True,
-                                               window=window), cfg)
+        mask = (make_mask(q_pos, k_pos, causal=causal, window=window)
+                if causal or window else None)
+        o = attention_dense(q, k, v, mask, cfg)
     elif impl == "chunked":
-        o = attention_chunked(q, k, v, pos, pos, cfg, causal=True,
+        o = attention_chunked(q, k, v, q_pos, k_pos, cfg, causal=causal,
                               window=window, chunk=chunk)
     else:
         raise ValueError(f"attn_impl must be auto, dense or chunked; got "
@@ -218,3 +261,23 @@ def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
     lengths = (pos + 1).clamp(max=s).to(torch.int32)
     o = decode_attention(q[:, 0], k_cache, v_cache, lengths, window=window)
     return o[:, None]
+
+
+def cross_decode(p, h: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, lengths: torch.Tensor,
+                 cfg: ArchConfig) -> torch.Tensor:
+    """One token (B, 1, d) against a static cross cache (B, S, KV, hd):
+    queries without RoPE over keys ``[0, lengths_b)`` on the decode
+    kernel, projected out.
+
+    JAX projects k and v from ``h`` too and discards them; this does
+    not.  A length of 0 gives zeros (the kernel keeps no key), where
+    JAX's mask keeps none either and its softmax spreads evenly over
+    the cache: both give 0 over the zero cache an engine starts with.
+    """
+    _no_softcap(cfg)
+    q = _proj(h, p.wq, h.dtype)
+    if p.bq is not None:
+        q = q + p.bq
+    o = decode_attention(q[:, 0], k_cache, v_cache, lengths)
+    return out_project(p, o[:, None], h.dtype)

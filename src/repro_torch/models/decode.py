@@ -1,12 +1,19 @@
 """Serving decode: the KV caches, the recurrent state and the one-token step.
 
 The port of ``repro/models/decode.py`` (``init_state``, ``decode_step``,
-``_self_layer_decode``, ``_hybrid_layer_decode``, ``prefill``) for the
-dense, hybrid and moe families.  The state is one ``(L, B, S, KV, hd)``
-tensor each for k and v, the per-sequence positions ``pos`` (B,) int32
-and, for the hybrid family, the Mamba state ``mamba_h`` (L, B, inner, N)
-and ``mamba_conv`` (L, B, k - 1, inner) in float32 (``_mamba_state``),
-all on the model's device.  Each layer attends with its own window
+``_self_layer_decode``, ``_hybrid_layer_decode``, ``_decode_vlm``,
+``_decode_audio``, ``_attach_cross_context``, ``prefill``) for the
+dense, hybrid, moe, vlm and audio families.  The state is one ``(L, B,
+S, KV, hd)`` tensor each for k and v over the self layers, the
+per-sequence positions ``pos`` (B,) int32 and, for the hybrid family,
+the Mamba state ``mamba_h`` (L, B, inner, N) and ``mamba_conv`` (L, B,
+k - 1, inner) in float32 (``_mamba_state``), all on the model's device.
+The cross-attention families add a static cross cache, ``cross_k`` and
+``cross_v`` in the cache's type: (groups, B, vision_tokens, KV, hd) for
+the vlm family, one per cross layer; (L, B, enc_len_max, KV, hd) for
+the audio family, one per decoder layer, with ``enc_len``, a scalar
+int32, the encoder frames they hold (``state_schema``).  Each layer
+attends with its own window
 (:func:`~repro_torch.models.transformer.layer_windows`).
 
 Unlike JAX, which returns a new state, :func:`decode_step` updates the
@@ -14,7 +21,11 @@ state in place: each layer writes its token's K/V into its cache slice
 (:func:`~repro_torch.models.attention.update_kv_cache`) and its Mamba
 state into its slices, and ``pos`` advances by one for every slot,
 occupied or not, as ``decode_step`` does in JAX.  Attention over the
-cache is the decode kernel (B3).  A moe layer routes the step's B
+cache is the decode kernel (B3), over a self cache and over a cross
+cache alike.  The cross caches are zero, and ``enc_len`` 0, until
+:func:`attach_cross_context` projects the images or the encoder's
+output into them, as :func:`prefill` does; JAX's serving engine never
+does, and neither does the port's.  A moe layer routes the step's B
 tokens as one group of B (``moe_apply`` on (B, 1, d)), free slots
 included: the engine feeds them token 0, they take room in the experts'
 buffers as JAX's do, and the layer's aux loss is dropped.
@@ -26,12 +37,13 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from .attention import (attention_decode, out_project, qkv_project,
-                        update_kv_cache)
-from .layers import embed_tokens, rms_norm
+from .attention import (attention_decode, cross_decode, kv_project,
+                        out_project, qkv_project, update_kv_cache)
+from .layers import embed_tokens
 from .ssm import mamba_decode_step, mamba_state_shape
-from .transformer import Model, fuse_branches
+from .transformer import Model, fuse_branches, norm_of
 
 
 @dataclass
@@ -41,11 +53,16 @@ class DecodeState:
     pos: torch.Tensor      # (B,) int32: the next write position per slot
     mamba_h: Optional[torch.Tensor] = None      # (L, B, inner, N) float32
     mamba_conv: Optional[torch.Tensor] = None   # (L, B, k - 1, inner)
+    cross_k: Optional[torch.Tensor] = None      # (n_cross, B, S_ctx, KV, hd)
+    cross_v: Optional[torch.Tensor] = None      # (n_cross, B, S_ctx, KV, hd)
+    enc_len: Optional[torch.Tensor] = None      # () int32, audio only
 
     def reset_slot(self, i: int) -> None:
         """Start slot ``i`` afresh: position 0 and a zero Mamba state.
 
-        The cache needs no clearing: it is masked by position.
+        The cache needs no clearing: it is masked by position.  The cross
+        caches and ``enc_len`` stay, as JAX's ``_reset_slot_state``
+        leaves them.
         """
         self.pos[i] = 0
         if self.mamba_h is not None:
@@ -64,18 +81,28 @@ def cache_dtype_of(name: str) -> torch.dtype:
 
 def init_state(model: Model, batch: int, max_len: int,
                cache_dtype: str = "bfloat16") -> DecodeState:
-    """Zero caches, positions and recurrent state for ``batch`` slots."""
+    """Zero caches, positions and recurrent state for ``batch`` slots;
+    zero cross caches and ``enc_len`` for the cross-attention families."""
     cfg, dev = model.cfg, model.device
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    kv = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    n = len(model.layers)
     dt = cache_dtype_of(cache_dtype)
     state = DecodeState(
-        k=torch.zeros(shape, dtype=dt, device=dev),
-        v=torch.zeros(shape, dtype=dt, device=dev),
+        k=torch.zeros((n, *kv), dtype=dt, device=dev),
+        v=torch.zeros((n, *kv), dtype=dt, device=dev),
         pos=torch.zeros((batch,), dtype=torch.int32, device=dev))
     if cfg.family == "hybrid":
         h, conv = mamba_state_shape(cfg, batch)
-        state.mamba_h = torch.zeros((cfg.n_layers, *h), device=dev)
-        state.mamba_conv = torch.zeros((cfg.n_layers, *conv), device=dev)
+        state.mamba_h = torch.zeros((n, *h), device=dev)
+        state.mamba_conv = torch.zeros((n, *conv), device=dev)
+    if cfg.family in ("vlm", "audio"):
+        n_cross = (len(model.cross_layers) if cfg.family == "vlm" else n)
+        shape = (n_cross, batch, cfg.vision_tokens, cfg.n_kv_heads,
+                 cfg.head_dim)
+        state.cross_k = torch.zeros(shape, dtype=dt, device=dev)
+        state.cross_v = torch.zeros(shape, dtype=dt, device=dev)
+    if cfg.family == "audio":
+        state.enc_len = torch.zeros((), dtype=torch.int32, device=dev)
     return state
 
 
@@ -89,15 +116,27 @@ def _attend(layer, h, state: DecodeState, i: int, q_pos, cfg,
     return out_project(layer.attn, o, h.dtype)
 
 
+def _cross_lengths(state: DecodeState) -> torch.Tensor:
+    """The keys each slot's cross-attention reads: all ``vision_tokens``
+    (vlm, JAX's ``cross_k.shape[1] - 1`` inclusive), or ``enc_len``
+    (audio, JAX's ``enc_len - 1`` inclusive), for every slot."""
+    b, s = state.cross_k.shape[1], state.cross_k.shape[2]
+    if state.enc_len is None:
+        return torch.full((b,), s, dtype=torch.int32, device=state.pos.device)
+    return state.enc_len.expand(b).contiguous()
+
+
 def decode_step(model: Model, state: DecodeState,
                 tokens: torch.Tensor) -> torch.Tensor:
     """tokens (B, 1) -> logits (B, 1, padded_vocab); ``state`` in place."""
     cfg = model.cfg
     x = embed_tokens(model.tokens, tokens, model.dtype, cfg.name)
     q_pos = state.pos[:, None]                     # (B, 1) rope positions
+    lens = _cross_lengths(state) if state.cross_k is not None else None
+    g = cfg.cross_attn_group
     for i, (layer, window) in enumerate(zip(model.layers, model.windows)):
         if cfg.family == "hybrid":                 # _hybrid_layer_decode
-            h = rms_norm(x, layer.norm)
+            h = norm_of(layer, "norm", x, cfg)
             a = _attend(layer, h, state, i, q_pos, cfg, window)
             m, hs, conv = mamba_decode_step(layer.mamba, h, state.mamba_h[i],
                                             state.mamba_conv[i], cfg)
@@ -105,24 +144,78 @@ def decode_step(model: Model, state: DecodeState,
             state.mamba_conv[i].copy_(conv)
             x = x + fuse_branches(a, m).to(x.dtype)
         else:                                      # _self_layer_decode
-            h = rms_norm(x, layer.attn_norm)
+            h = norm_of(layer, "attn_norm", x, cfg)
             x = x + _attend(layer, h, state, i, q_pos, cfg, window)
+        if layer.cross is not None:                # _decode_audio
+            h = norm_of(layer, "cross_norm", x, cfg)
+            x = x + cross_decode(layer.cross, h, state.cross_k[i],
+                                 state.cross_v[i], lens, cfg)
         x, _ = layer.mlp_block(x, cfg)     # a moe layer's aux is dropped
+        if cfg.family == "vlm" and (i + 1) % g == 0:   # _decode_vlm
+            c = model.cross_layers[i // g]
+            h = norm_of(c, "attn_norm", x, cfg)
+            h = cross_decode(c.attn, h, state.cross_k[i // g],
+                             state.cross_v[i // g], lens, cfg)
+            x, _ = c.mlp_block(c.gated(x, h), cfg)
     logits = model.logits(x)
     state.pos.add_(1)
     return logits
 
 
+def attach_cross_context(model: Model, state: DecodeState, *,
+                         images: Optional[torch.Tensor] = None,
+                         frames: Optional[torch.Tensor] = None) -> None:
+    """Project the images (vlm) or the encoder's output over the frames
+    (audio) into the state's cross caches, in place
+    (``_attach_cross_context``).
+
+    vlm: each cross layer's k and v of the images rounded to bfloat16
+    first, as JAX rounds them (its forward does not: the two differ by
+    ~1e-3), then cast to the cache's type.  audio: the encoder runs on
+    the kernel path (:meth:`Model.encode`), its output is cut to the
+    cache's ``enc_len_max`` frames, each decoder layer's k and v of it
+    fill the cache from the left with zeros after them, and ``enc_len``
+    becomes the frames kept.  Other families take neither and keep no
+    cross cache.
+    """
+    fam = model.cfg.family
+    if fam == "vlm":
+        if images is None or frames is not None:
+            raise ValueError("the vlm family's context is images alone")
+        img = images.to(torch.bfloat16)
+        for g, c in enumerate(model.cross_layers):
+            k, v = kv_project(c.attn, img, img.dtype)
+            state.cross_k[g].copy_(k)
+            state.cross_v[g].copy_(v)
+    elif fam == "audio":
+        if frames is None or images is not None:
+            raise ValueError("the audio family's context is frames alone")
+        enc = model.encode(frames)[:, :state.cross_k.shape[2]]
+        pad = state.cross_k.shape[2] - enc.shape[1]
+        for i, layer in enumerate(model.layers):
+            k, v = kv_project(layer.cross, enc, enc.dtype)
+            state.cross_k[i].copy_(F.pad(k, (0, 0, 0, 0, 0, pad)))
+            state.cross_v[i].copy_(F.pad(v, (0, 0, 0, 0, 0, pad)))
+        state.enc_len.fill_(enc.shape[1])
+    elif images is not None or frames is not None:
+        raise ValueError(f"the {fam} family attends to no images or frames")
+
+
 def prefill(model: Model, tokens: torch.Tensor, max_len: int,
-            cache_dtype: str = "bfloat16"
+            cache_dtype: str = "bfloat16", *,
+            images: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, DecodeState]:
     """Fill a decode state from a prompt (B, S); returns (last logits, state).
 
-    Streams the prompt through :func:`decode_step`, as the JAX
-    ``prefill`` does under a scan.
+    The cross-attention families' context (``images`` or ``frames``) is
+    projected once up front (:func:`attach_cross_context`); then the
+    prompt streams through :func:`decode_step`, as the JAX ``prefill``
+    does under a scan.
     """
     b, s = tokens.shape
     state = init_state(model, b, max_len, cache_dtype)
+    attach_cross_context(model, state, images=images, frames=frames)
     logits = None
     for t in range(s):
         logits = decode_step(model, state, tokens[:, t:t + 1])

@@ -1,9 +1,8 @@
-"""Common layers: RMSNorm, rotary embeddings, the MLP (gated or not, silu
-or gelu), embed/unembed, and the training loss.
+"""Common layers: RMSNorm and LayerNorm, rotary embeddings, the MLP
+(gated or not, silu or gelu), embed/unembed, and the training loss.
 
-The port of ``repro/models/layers.py`` for the dense and hybrid
-families.  Every product accumulates in float32 and every norm and
-rotation runs in float32, as the JAX package's
+The port of ``repro/models/layers.py``.  Every product accumulates in
+float32 and every norm and rotation runs in float32, as the JAX package's
 ``preferred_element_type=F32`` and ``astype(F32)`` do; results are cast
 back to the activation type where the reference casts them.  Weights
 keep the JAX layouts (``wi``/``wg`` ``(d, f)``, ``wo`` ``(f, d)``,
@@ -12,6 +11,7 @@ keep the JAX layouts (``wi``/``wg`` ``(d, f)``, ``wo`` ``(f, d)``,
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -33,11 +33,41 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return (xf * torch.rsqrt(ms + eps) * scale.to(F32)).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm in float32 with its scale and bias, back in x's type
+    (layers.py ``apply_norm``, ``norm="layernorm"``)."""
+    xf = x.to(F32)
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * scale.to(F32) + bias.to(F32)).to(x.dtype)
+
+
+def apply_norm(x: torch.Tensor, scale: torch.Tensor,
+               bias: Optional[torch.Tensor], norm: str) -> torch.Tensor:
+    """The config's norm (``cfg.norm``): "layernorm" with ``bias``, else
+    RMSNorm, which has none."""
+    if norm == "layernorm":
+        return layer_norm(x, scale, bias)
+    return rms_norm(x, scale)
+
+
 def rope_frequencies(head_dim: int, theta: float,
                      device=None) -> torch.Tensor:
     half = head_dim // 2
     exps = torch.arange(0, half, dtype=F32, device=device) / half
     return 1.0 / (torch.tensor(theta, dtype=F32, device=device) ** exps)
+
+
+@functools.lru_cache(maxsize=None)
+def _frequency_table(head_dim: int, theta: float,
+                     device: torch.device) -> torch.Tensor:
+    """:func:`rope_frequencies`, built once per (head dim, theta, device):
+    building it copies ``theta`` to the device, which on a card waits
+    for the work queued before it."""
+    with torch.no_grad():
+        return rope_frequencies(head_dim, theta, device)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -47,7 +77,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x (..., S, H, hd); positions broadcastable to (..., S).
     """
     hd = x.shape[-1]
-    freqs = rope_frequencies(hd, theta, x.device)          # (hd/2,)
+    freqs = _frequency_table(hd, theta, x.device)          # (hd/2,)
     angles = positions[..., :, None].to(F32) * freqs       # (..., S, hd/2)
     angles = angles[..., None, :]                          # (..., S, 1, hd/2)
     cos, sin = torch.cos(angles), torch.sin(angles)

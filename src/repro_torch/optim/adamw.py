@@ -10,8 +10,10 @@ where JAX adds it to ``delta`` first, and it decays every tensor.
 
 Which tensors decay follows the JAX package's arrays, not the port's:
 JAX decays arrays with ``ndim >= 2``, and it stacks every layer's
-parameters along a leading layer axis, so a layer's (d,) norm is an (L,
-d) array there and decays; only ``final_norm`` does not
+parameters along a leading layer axis (the encoder's and the cross
+layers' too), so a layer's (d,) norm and layernorm bias are (L, d)
+arrays there and decay, and so does a vlm cross layer's (1,) gate;
+only ``final_norm`` and ``enc_norm`` (and their biases) do not
 (:func:`decays`).
 """
 
@@ -23,8 +25,8 @@ import torch
 
 F32 = torch.float32
 
-# Parameters under this prefix are stacked along a layer axis in JAX.
-STACKED_PREFIX = "layers."
+# Parameters under these prefixes are stacked along a layer axis in JAX.
+STACKED_PREFIXES = ("layers.", "cross_layers.", "enc_layers.")
 
 
 class AdamWState(NamedTuple):
@@ -47,7 +49,7 @@ def adamw_init(params: Mapping[str, torch.Tensor]) -> AdamWState:
 def decays(name: str, p: torch.Tensor) -> bool:
     """Whether JAX's ``p.ndim >= 2`` holds for this parameter's JAX array
     (one axis more for a parameter of the layer stack)."""
-    return p.ndim + name.startswith(STACKED_PREFIX) >= 2
+    return p.ndim + name.startswith(STACKED_PREFIXES) >= 2
 
 
 @torch.no_grad()
@@ -67,7 +69,7 @@ def adamw_update(grads: Mapping[str, torch.Tensor], state: AdamWState,
         mhat = m / c1
         vhat = v / c2
         delta = mhat / (torch.sqrt(vhat) + eps)
-        if weight_decay and decays(name, p):   # no decay on final_norm
+        if weight_decay and decays(name, p):   # none on the last norms
             delta = delta + weight_decay * p.to(F32)
         new_params[name] = (p.to(F32) - lr * delta).to(p.dtype)
         new_mu[name], new_nu[name] = m, v

@@ -23,7 +23,11 @@ Mechanics, as in JAX:
 * prompt ingestion streams through the same decode step.
 
 Decoding is greedy.  The step runs eagerly (no ``torch.compile``).  The
-plane ticks after the argmax has come back to the host, as in JAX.
+plane ticks after the argmax has come back to the host, as in JAX.  The
+cross-attention families' state holds their cross caches, which no
+request fills: they stay zero, and the audio family's ``enc_len`` 0,
+as in JAX's engine; a block's bytes count the self layers' K/V alone
+(``_block_bytes``).
 """
 
 from __future__ import annotations

@@ -20,8 +20,12 @@ staged through the pipeline's pinned buffer arrives intact, and a few
 train steps of each smoke model (llama3.2-1b, hymba-1.5b, gemma3-1b,
 qwen2-1.5b) on the card follow the CPU's.  The attention kernels also
 at gemma3-1b's head dim of 256, qwen2-1.5b's group of 6 and
-qwen2-moe-a2.7b's group of 1.  One moe layer (``moe_apply``) on the card
-against the CPU, with and without drops: the same choices kept.
+qwen2-moe-a2.7b's group of 1, and at the cross-attention families'
+shapes: non-causal at hd 64 (whisper-large-v3's encoder, group 1) and
+hd 128 with Sq > Skv (llama-3.2-vision-11b's cross layers), a cross cache
+read whole, and a cross cache at length 0 (zeros).  One moe layer
+(``moe_apply``) on the card against the CPU, with and without drops: the
+same choices kept.
 """
 
 import time
@@ -242,7 +246,16 @@ DECODE_CARD_CASES = [((4, 512, 8, 2, 64, 0), None),
                      ((4, 900, 16, 4, 256, 0), [0, 1, 900, 555]),
                      ((8, 1024, 12, 2, 128, 0), None),
                      # qwen2-moe-a2.7b's 16/16 heads of 128: group 1
-                     ((8, 1024, 16, 16, 128, 0), None)]
+                     ((8, 1024, 16, 16, 128, 0), None),
+                     # llama-3.2-vision-11b's 32/8 heads of 128 (group
+                     # 4): its self cache, and its cross cache of 1600
+                     # image tokens read whole; whisper-large-v3's 20/20
+                     # heads of 64: its self cache, and its cross cache
+                     # at enc_len 1500 of 1536 and at 0
+                     ((8, 1024, 32, 8, 128, 0), None),
+                     ((8, 1600, 32, 8, 128, 0), [1600] * 8),
+                     ((8, 1024, 20, 20, 64, 0), None),
+                     ((4, 1536, 20, 20, 64, 0), [1500, 0, 1500, 0])]
 
 
 @pytest.mark.parametrize("case,lens", DECODE_CARD_CASES, ids=str)
@@ -268,6 +281,23 @@ def test_decode_kernel_matches_plain_version(card, case, lens, qdt, kdt):
     # the partials merge in a fixed order: the same bits on every call
     assert torch.equal(out, da.decode_attention(q, kc, vc, lens,
                                                 window=window))
+
+
+@pytest.mark.parametrize("kdt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_decode_kernel_gives_zeros_at_length_zero(card, kdt):
+    """A sequence with no key (an audio model's cross cache at enc_len 0)
+    gets zeros, from the kernel and its plain version, over a cache of
+    anything: whisper's 20/20 heads of 64 over 1536 frames."""
+    b, s, h, kv, hd = 4, 1536, 20, 20, 64
+    q = _randn(card, (b, h, hd), torch.float32, 10)
+    kc = _randn(card, (b, s, kv, hd), kdt, 11)
+    vc = _randn(card, (b, s, kv, hd), kdt, 12)
+    lens = torch.zeros((b,), dtype=torch.int32, device=card)
+    out = da.decode_attention(q, kc, vc, lens)
+    ref = da.decode_attention_plain(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    assert not out.any() and not ref.any()
 
 
 @pytest.mark.parametrize("window", [0, 600])   # the 700-key sequence
@@ -305,7 +335,16 @@ def test_decode_kernel_never_reads_past_length(card, window, kdt):
                                   (1, 77, 300, 25, 5, 128, False, 0),
                                   (2, 77, 77, 4, 1, 256, True, 0),
                                   (1, 77, 300, 4, 2, 256, False, 0),
-                                  (2, 600, 600, 4, 1, 256, True, 512)],
+                                  (2, 600, 600, 4, 1, 256, True, 512),
+                                  # whisper-large-v3's encoder (20/20 of
+                                  # 64, non-causal) and its decoder's
+                                  # cross-attention; the vision model's
+                                  # cross-attention (32/8 of 128) with
+                                  # Sq > Skv and Sq < Skv
+                                  (1, 300, 300, 20, 20, 64, False, 0),
+                                  (1, 77, 300, 20, 20, 64, False, 0),
+                                  (1, 300, 100, 32, 8, 128, False, 0),
+                                  (1, 77, 300, 32, 8, 128, False, 0)],
                          ids=str)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])

@@ -187,8 +187,8 @@ def test_init_kinds_and_scales():
 
 
 @pytest.mark.parametrize("change", [
-    {"family": "ssm"},           # the moe family is ported (ROADMAP A5.3)
-    {"attn_logit_softcap": 30.0}, {"norm": "layernorm"},
+    {"family": "ssm"},           # vlm and audio are ported (ROADMAP A5.3)
+    {"attn_logit_softcap": 30.0}, {"act": "relu"},   # layernorm is ported
 ])
 def test_unported_features_raise(change):
     cfg = dataclasses.replace(get_config(ARCH), **change)

@@ -283,7 +283,13 @@ def test_serving_entry_points_raise_without_cuda(monkeypatch):
                                   "gemma3-1b", "gemma3-1b-smoke",
                                   "qwen2-1.5b", "qwen2-1.5b-smoke",
                                   "qwen2-moe-a2.7b", "qwen2-moe-a2.7b-smoke",
-                                  "dbrx-132b", "dbrx-132b-smoke"])
+                                  "dbrx-132b", "dbrx-132b-smoke",
+                                  "mistral-large-123b",
+                                  "mistral-large-123b-smoke",
+                                  "llama-3.2-vision-11b",
+                                  "llama-3.2-vision-11b-smoke",
+                                  "whisper-large-v3",
+                                  "whisper-large-v3-smoke"])
 def test_config_copies_equal_the_jax_configs(arch):
     port, ref = get_config(arch), jax_config(arch)
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
