@@ -104,9 +104,16 @@ each, all at once) and drives the port's main paths on the card:
   prompts prefilled with images or frames attached (the vision model's
   gates drawn non-zero) and decoded; their forwards against the
   training forward and against decode with the context attached;
-  whisper trained at full depth and the vision model cut to one group,
+  whisper trained at half depth and the vision model cut to one group,
   at full width; the vision, whisper and mistral smoke models trained
-  on the card and the CPU alike.
+  on the card and the CPU alike;
+* the ssm family (phase 22): xlstm-125m (mLSTM and sLSTM blocks, plain
+  PyTorch: JAX has no Pallas kernel behind either) served at full width
+  and depth through the burst under the plane, its forward against the
+  training forward and against decode across mLSTM chunks, one mLSTM
+  block chunked against stepped, trained at full width and depth, and
+  its smoke model trained on the card and the CPU alike; no kernel
+  launches anywhere in the phase.
 
 Decode attention at the engines' shapes (phases 9 and 13) is timed three
 ways, also in a fresh process that has built no plane (``chip_smoke.py
@@ -190,12 +197,13 @@ from repro_torch.launch.serve import (FULL_WIDTH,  # noqa: E402
                                       FULL_WIDTH_GEMMA3, FULL_WIDTH_HYMBA,
                                       FULL_WIDTH_QWEN2, FULL_WIDTH_QWEN2_MOE,
                                       FULL_WIDTH_VLM, FULL_WIDTH_WHISPER,
-                                      build_engine, serve)
+                                      FULL_WIDTH_XLSTM, build_engine, serve)
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.launch.time_sweep import (_profiled,  # noqa: E402
                                            device_ms, time_fused_sweep)
 from repro_torch.models import Model, decode as D  # noqa: E402
 from repro_torch.models import moe as TM  # noqa: E402
+from repro_torch.models import ssm as TS  # noqa: E402
 from repro_torch.models.transformer import layer_windows  # noqa: E402
 from repro_torch.serving import ServingConfig, ServingEngine  # noqa: E402
 
@@ -241,6 +249,16 @@ def log(msg: str) -> None:
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise AssertionError(msg)
+
+
+def kernel_counts():
+    """Each kernel wrapper's launches since the counts were last zeroed."""
+    return {"sweep": ks.LAUNCHES, "decode": kd.LAUNCHES,
+            "flash": kf.LAUNCHES, "scan": kscan.LAUNCHES}
+
+
+def zero_kernel_counts():
+    ks.LAUNCHES = kd.LAUNCHES = kf.LAUNCHES = kscan.LAUNCHES = 0
 
 
 # Cycles of the device-side spin queued before the start event when a
@@ -805,8 +823,10 @@ def serve_full_width(phase, w, smi):
 def decode_launches_per_step(model):
     """Decode attention's launches in one decode step: one per self
     layer, and one per cross-attention (a vlm cross layer, an audio
-    decoder layer's cross)."""
+    decoder layer's cross); none in the ssm family."""
     n = len(model.layers)
+    if model.cfg.family == "ssm":          # attention-free
+        return 0
     if model.cfg.family == "vlm":
         return n + len(model.cross_layers)
     return 2 * n if model.cfg.family == "audio" else n
@@ -2433,12 +2453,11 @@ def phase18a(smi):
         window = profile_steps(trainer, TRAIN_PROFILED)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        ks.LAUNCHES = kd.LAUNCHES = kf.LAUNCHES = kscan.LAUNCHES = 0
+        zero_kernel_counts()
         t0 = time.monotonic()
         _, state = trainer.fit()
         t_end = time.monotonic()
-        launched = {"sweep": ks.LAUNCHES, "decode": kd.LAUNCHES,
-                    "flash": kf.LAUNCHES, "scan": kscan.LAUNCHES}
+        launched = kernel_counts()
         check(not any(launched.values()), f"the training path launched "
               f"{launched}")
         peak = torch.cuda.max_memory_allocated()
@@ -2787,11 +2806,10 @@ def phase19c(smi):
                                     host_ops=False) if hybrid else None)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            ks.LAUNCHES = kd.LAUNCHES = kf.LAUNCHES = kscan.LAUNCHES = 0
+            zero_kernel_counts()
             t0 = time.monotonic()
             trainer.fit()
-            launched = {"sweep": ks.LAUNCHES, "decode": kd.LAUNCHES,
-                        "flash": kf.LAUNCHES, "scan": kscan.LAUNCHES}
+            launched = kernel_counts()
             check(not any(launched.values()), f"{arch}: the training path "
                   f"launched {launched}")
             peak = torch.cuda.max_memory_allocated()
@@ -3217,11 +3235,10 @@ def phase20d(smi):
         trainer = ttrain.build(train_args(w, tmp), model=model, log_every=1)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        ks.LAUNCHES = kd.LAUNCHES = kf.LAUNCHES = kscan.LAUNCHES = 0
+        zero_kernel_counts()
         t0 = time.monotonic()
         trainer.fit()
-        launched = {"sweep": ks.LAUNCHES, "decode": kd.LAUNCHES,
-                    "flash": kf.LAUNCHES, "scan": kscan.LAUNCHES}
+        launched = kernel_counts()
         check(not any(launched.values()), f"the training path launched "
               f"{launched}")
         peak = torch.cuda.max_memory_allocated()
@@ -3332,8 +3349,13 @@ TRAIN_21D = {WHISPER.name: dict(TRAIN_FULL, arch=WHISPER.name, steps=4,
              VLM.name: dict(TRAIN_FULL, arch=VLM.name, steps=4, batch=4,
                             seq=1024, microbatches=1, lr=3e-5)}
 # the vision model trains cut to one group (5 self layers and a cross
-# layer): its 46 GB of float32 weights and AdamW's state do not fit
+# layer): its 46 GB of float32 weights and AdamW's state do not fit.
+# whisper trains at half its depth (16 encoder and 16 decoder layers)
+# to keep the script inside its time limit: at full depth 21d took
+# 70.4 s on an NVIDIA H100 80GB HBM3 at 700 W, most of it the two
+# end-of-run checkpoints (19 GB for whisper, 28 GB for the vision group).
 TRAIN_21D_VLM_GROUPS = 1
+TRAIN_21D_WHISPER_DEPTH = 0.5
 SMOKE_21E_ARCHS = (VLM.name + "-smoke", WHISPER.name + "-smoke",
                    "mistral-large-123b-smoke")
 
@@ -3561,24 +3583,30 @@ def phase21c(model):
 
 
 def phase21d(smi):
-    """whisper-large-v3 at full depth and the vision model cut to one
+    """whisper-large-v3 at half depth and the vision model cut to one
     group trained at full width through the training CLI's wiring, the
     context drawn beside the tokens.  Returns the numbers."""
     out = {}
     for name, w in TRAIN_21D.items():
         full = get_config(name)
-        cfg = full
         if full.family == "vlm":
             cfg = dataclasses.replace(
                 full, n_layers=TRAIN_21D_VLM_GROUPS * full.cross_attn_group)
+        else:
+            cfg = dataclasses.replace(
+                full,
+                n_layers=round(full.n_layers * TRAIN_21D_WHISPER_DEPTH),
+                n_encoder_layers=round(full.n_encoder_layers
+                                       * TRAIN_21D_WHISPER_DEPTH))
         n_ctx = WHISPER.vision_tokens if full.family == "audio" \
             else full.vision_tokens
         log(f"phase 21d: train {name} at full width"
             + (f", cut to {TRAIN_21D_VLM_GROUPS} group ({cfg.n_layers} self "
                f"layers and 1 cross layer of {full.n_layers} and "
                f"{full.n_layers // full.cross_attn_group})"
-               if cfg is not full else f", full depth ({cfg.n_encoder_layers}"
-               f" encoder and {cfg.n_layers} decoder layers)")
+               if full.family == "vlm" else f", its depth cut to "
+               f"{cfg.n_encoder_layers} encoder and {cfg.n_layers} decoder "
+               f"layers of {full.n_encoder_layers} and {full.n_layers}")
             + f" (d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
             f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
             f"float32, no TF32; seed 0) through launch/train.py's wiring: "
@@ -3596,11 +3624,10 @@ def phase21d(smi):
             with_context(trainer.pipeline, cfg, w["batch"], n_ctx)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            ks.LAUNCHES = kd.LAUNCHES = kf.LAUNCHES = kscan.LAUNCHES = 0
+            zero_kernel_counts()
             t0 = time.monotonic()
             trainer.fit()
-            launched = {"sweep": ks.LAUNCHES, "decode": kd.LAUNCHES,
-                        "flash": kf.LAUNCHES, "scan": kscan.LAUNCHES}
+            launched = kernel_counts()
             check(not any(launched.values()), f"the training path launched "
                   f"{launched}")
             peak = torch.cuda.max_memory_allocated()
@@ -3655,6 +3682,195 @@ def phase21(libs, smi):
     r["seconds"] = time.perf_counter() - t0
     log(f"phase 21 seconds (host clock): {r['seconds']:.1f}")
     return errs, rows, r
+
+
+# Phase 22: the ssm family (xlstm-125m: six pairs of an mLSTM and an
+# sLSTM block, no attention).  JAX runs both blocks as XLA (a scan over
+# chunks, a scan over time) with no Pallas kernel behind them, so the
+# port runs them in plain PyTorch and the phase gates that no kernel
+# launches.  22a served at full width and depth through the burst; 22b
+# the forward against forward_train and against decode over 2 x 300
+# tokens (three mLSTM chunks of 128), and one mLSTM block chunked
+# against stepped beside JAX's own bracket; 22c trained at full width
+# and depth; 22d the smoke model, card against CPU.
+XLSTM = get_config(FULL_WIDTH_XLSTM["arch"])
+FORWARD_22B = (2, 300)
+# tests/test_models.py::test_mlstm_chunked_matches_sequential (smoke width)
+MLSTM_BRACKET = (2e-4, 2e-3)     # (atol, rtol)
+# The sLSTM runs token by token, ~105 kernels a token a layer under full
+# remat: on an NVIDIA H100 80GB HBM3 at 700 W a step took 8678.6 ms at
+# 4 x 512 (322,717 kernels, 93.8% idle; 108.3 s for 22c) and 5201.8 ms
+# at 8 x 256 (162,685 kernels; 53.8 s).  8 x 160 keeps two mLSTM chunks,
+# the second padded, inside the script's time limit.
+TRAIN_22C = dict(TRAIN_FULL, arch=XLSTM.name, steps=4, batch=8, seq=160,
+                 microbatches=1)
+TRAIN_22C_PROFILED = (2,)
+SMOKE_22D_ARCHS = (XLSTM.name + "-smoke",)
+
+
+def phase22a(smi):
+    """xlstm-125m served through the burst; no kernel launched.  Returns
+    the model and the numbers."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_counts()                   # the ssm serving path starts here
+    eng, _, served = serve_full_width("22a", FULL_WIDTH_XLSTM, smi)
+    launched = kernel_counts()
+    check(not any(launched.values()), f"the ssm serving path launched "
+          f"{launched}")
+    peak = torch.cuda.max_memory_allocated()
+    model, st = eng.model, eng.state
+    rec = sum(t.numel() * t.element_size() for leaves in
+              st.recurrent.values() for t in leaves.values())
+    pool = eng.pool.total_blocks * eng.pool.block_bytes
+    n_params = sum(p.numel() for p in model.parameters())
+    served.update(params=n_params, peak_gb=peak / 1e9,
+                  recurrent_state_mb=rec / 1e6, notional_pool_mb=pool / 1e6,
+                  block_bytes=eng.pool.block_bytes, launched=launched)
+    log(f"  {n_params:,} parameters ({len(model.layers)} pairs of an mLSTM "
+        f"and an sLSTM); peak memory allocated {peak / 1e9:.2f} GB; "
+        f"recurrent state {rec / 1e6:.1f} MB, fixed; the plane's pool "
+        f"{pool / 1e6:.1f} MB of notional K/V blocks ({eng.pool.block_bytes:,}"
+        f" B each, ROADMAP C26); kernels launched {launched}")
+    del eng, st
+    return model, served
+
+
+def phase22b(model):
+    """The forward against forward_train and against decode (f32), and
+    the first mLSTM block chunked against stepped."""
+    b, s = FORWARD_22B
+    log(f"phase 22b: {model.cfg.name}: Model.forward against forward_train "
+        f"and against prefill/decode_step, {b} x {s} tokens (mLSTM chunks "
+        f"of 128); the first mLSTM block chunked against stepped")
+    gen = torch.Generator(device=CUDA).manual_seed(221)
+    tokens = torch.randint(0, model.cfg.vocab_size, (b, s), generator=gen,
+                           device=CUDA)
+    zero_kernel_counts()                   # the ssm forward path starts here
+    with torch.no_grad():
+        fwd = model(tokens)
+        ref = model.forward_train(tokens)
+        state = D.init_state(model, b, s, cache_dtype="float32")
+        dec = torch.cat([D.decode_step(model, state, tokens[:, t:t + 1])
+                         for t in range(s)], dim=1)
+        block = model.layers[0]["0_mlstm"]
+        u = block.norm.new_empty((b, s, model.cfg.d_model)).normal_(
+            generator=gen)
+        chunked = TS.mlstm_apply(block.block, u, model.cfg)
+        st = {k: torch.full(v, -1e30 if k == "m" else 0.0, device=CUDA)
+              for k, v in TS.mlstm_state_shapes(model.cfg, b).items()}
+        stepped = []
+        for t in range(s):
+            y, st = TS.mlstm_decode_step(block.block, u[:, t:t + 1], st,
+                                         model.cfg)
+            stepped.append(y)
+        stepped = torch.cat(stepped, dim=1)
+    launched = kernel_counts()
+    check(not any(launched.values()), f"the ssm forward path launched "
+          f"{launched}")
+    for name, t in (("forward", fwd), ("forward_train", ref),
+                    ("decode", dec), ("mLSTM chunked", chunked)):
+        check(bool(torch.isfinite(t).all()), f"non-finite {name} output")
+    rel_train = float((fwd - ref).abs().max() / ref.abs().max())
+    rel_dec = float((fwd - dec).abs().max() / fwd.abs().max())
+    check(rel_train < 5e-3, f"forward against forward_train {rel_train:.3e}")
+    check(rel_dec < 5e-3, f"forward against decode {rel_dec:.3e}")
+    atol, rtol = MLSTM_BRACKET
+    gap = (chunked - stepped).abs()
+    excess = float((gap - rtol * stepped.abs()).max())
+    block_abs = float(gap.max())
+    log(f"  forward against forward_train {rel_train:.3e}, against decode "
+        f"{rel_dec:.3e} max relative difference (bound 5e-3 each); no "
+        f"kernel launched ({launched})")
+    log(f"  mLSTM block (layer 0), chunked against stepped over {s} tokens: "
+        f"max |diff| {block_abs:.3e}, max(|diff| - rtol |stepped|) "
+        f"{excess:.3e} against JAX's smoke-width bracket atol {atol:g}, "
+        f"rtol {rtol:g}: {'within' if excess <= atol else 'outside'}")
+    return {"forward_vs_train": rel_train, "forward_vs_decode": rel_dec,
+            "mlstm_chunked_vs_stepped_abs": block_abs,
+            "mlstm_excess_over_rtol": excess,
+            "mlstm_within_jax_bracket": excess <= atol}
+
+
+def phase22c(smi):
+    """xlstm-125m trained at full width and depth through the training
+    CLI's wiring; one step profiled.  Returns the numbers."""
+    w = TRAIN_22C
+    cfg = XLSTM
+    log(f"phase 22c: train {cfg.name} at full width and depth ({cfg.n_layers}"
+        f" blocks in {cfg.n_layers // 2} pairs, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads, vocab {cfg.vocab_size}, tied; float32, no "
+        f"TF32; seed 0) through launch/train.py's wiring: batch "
+        f"{w['batch']} x {w['seq']}, {w['microbatches']} microbatch, remat "
+        f"full, {w['steps']} steps; on {smi}")
+    tmp = tempfile.mkdtemp(prefix="repro-torch-train22-")
+    try:
+        trainer = ttrain.build(train_args(w, tmp), log_every=1,
+                               model=Model(cfg, seed=0, device=CUDA))
+        window = profile_steps(trainer, TRAIN_22C_PROFILED, host_ops=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_kernel_counts()               # the ssm training path starts here
+        t0 = time.monotonic()
+        trainer.fit()
+        launched = kernel_counts()
+        check(not any(launched.values()), f"the training path launched "
+              f"{launched}")
+        peak = torch.cuda.max_memory_allocated()
+        trainer.pipeline.close()
+        losses = [r["loss"] for r in trainer.metrics_log]
+        check(len(losses) == w["steps"] and all(map(math.isfinite, losses)),
+              f"losses {losses}")
+        check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+        ends = [t0] + trainer.logged_at
+        step_ms = [(b - a) * 1e3 for a, b in zip(ends, ends[1:])]
+        plain = [step_ms[i] for i in range(1, w["steps"])
+                 if i not in TRAIN_22C_PROFILED]
+        med = statistics.median(plain)
+        tokens = w["batch"] * w["seq"]
+        window_rows(window)
+        idle = 1.0 - window["busy_ms"] / window["wall_ms"]
+        n_params = sum(p.numel() for p in trainer.model.parameters())
+        log(f"  {n_params:,} parameters; losses {[round(x, 4) for x in losses]}"
+            f": finite, {losses[0]:.4f} -> {losses[-1]:.4f}; no kernel "
+            f"launched")
+        log(f"  ms a step (host clock): {[round(x, 1) for x in step_ms]} "
+            f"(step 0 the first call's setup; step {TRAIN_22C_PROFILED} under "
+            f"the profiler); median of the others {med:.1f}, "
+            f"{tokens / med * 1e3:.1f} tokens/s; peak memory allocated "
+            f"{peak / 1e9:.2f} GB")
+        log(f"  profiler window, step {TRAIN_22C_PROFILED}: "
+            f"{window['wall_ms']:.1f} ms, device busy {window['busy_ms']:.1f} "
+            f"ms, idle {idle:.1%}, {window['launches']} kernels and copies; "
+            f"top {window['top']}")
+        del trainer
+        return {"params": n_params, "losses": losses, "step_ms": step_ms,
+                "step_ms_median": med, "tokens_s": tokens / med * 1e3,
+                "peak_gb": peak / 1e9, "idle_share": idle,
+                "profiled_ms": window["wall_ms"],
+                "busy_ms": window["busy_ms"],
+                "launches_1_step": window["launches"],
+                "shape": f"{w['batch']} x {w['seq']}"}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase22(smi):
+    """Phase 22: the ssm family's numbers; every kernel's count unmoved."""
+    t0 = time.perf_counter()
+    model, served = phase22a(smi)
+    r = {"served": served, "forward": phase22b(model)}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    r["trained"] = phase22c(smi)
+    r["smoke_card_vs_cpu"] = phase19d(SMOKE_22D_ARCHS, "22d")
+    r["seconds"] = time.perf_counter() - t0
+    log(f"phase 22 seconds (host clock): {r['seconds']:.1f}")
+    return r
 
 
 def main() -> None:
@@ -3961,6 +4177,10 @@ def main() -> None:
     decode["whisper_cross_len0"] = rows21["decode_whisper_cross_len0"]
     log("cross-attention families on the card: "
         + json.dumps(cross21, default=str))
+    ssm22 = phase22(smi)
+    log(f"main path: {XLSTM.name} served, forwarded, decoded and trained "
+        f"(phase 22) launched none of the four kernels")
+    log("ssm family on the card: " + json.dumps(ssm22, default=str))
     ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter()]
     log("seconds by phase (host clock): " + ", ".join(
         f"{name} {end - start:.1f}"

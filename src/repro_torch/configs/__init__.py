@@ -12,10 +12,11 @@ experts) and ``dbrx-132b`` (16 experts, top 4), the moe family;
 ``mistral-large-123b`` (dense); and the two cross-attention families:
 ``llama-3.2-vision-11b`` (vlm: groups of 5 self layers and one gated
 cross layer over image tokens) and ``whisper-large-v3`` (audio: a
-layernorm encoder over frames and a decoder that attends to it).
-dbrx-132b and mistral-large-123b do not fit one 80 GB card at full
-width; their ``-smoke`` reductions serve and train.  xlstm-125m, the
-ssm family, comes with ROADMAP A5.
+layernorm encoder over frames and a decoder that attends to it); and
+``xlstm-125m`` (ssm: six pairs of an mLSTM and an sLSTM block, no
+attention).  These are all of the JAX package's registry.  dbrx-132b
+and mistral-large-123b do not fit one 80 GB card at full width; their
+``-smoke`` reductions serve and train.
 """
 
 from __future__ import annotations
@@ -31,11 +32,12 @@ from .mistral_large_123b import ARCH as _MISTRAL_LARGE_123B
 from .qwen2_15b import ARCH as _QWEN2_15B
 from .qwen2_moe_a27b import ARCH as _QWEN2_MOE_A27B
 from .whisper_large_v3 import ARCH as _WHISPER_LARGE_V3
+from .xlstm_125m import ARCH as _XLSTM_125M
 
 _ARCHS = {a.name: a for a in (_LLAMA32_1B, _HYMBA_15B, _GEMMA3_1B,
                               _QWEN2_15B, _QWEN2_MOE_A27B, _DBRX_132B,
                               _MISTRAL_LARGE_123B, _LLAMA32_VISION_11B,
-                              _WHISPER_LARGE_V3)}
+                              _WHISPER_LARGE_V3, _XLSTM_125M)}
 
 ARCH_IDS = list(_ARCHS)
 
@@ -45,9 +47,7 @@ def get_config(name: str) -> ArchConfig:
     smoke = name.endswith("-smoke")
     base = name[: -len("-smoke")] if smoke else name
     if base not in _ARCHS:
-        raise KeyError(
-            f"arch {name!r} is not ported yet (available: {ARCH_IDS}); "
-            f"the other families come with ROADMAP A5")
+        raise KeyError(f"unknown arch {name!r}; available: {ARCH_IDS}")
     cfg = _ARCHS[base]
     return cfg.reduced() if smoke else cfg
 

@@ -99,10 +99,19 @@ def _stacks(tree: Mapping, cfg: ArchConfig) -> Dict[str, List[Mapping]]:
     vlm: ``layers["selfs"][g][j]`` -> ``layers`` g * cross_attn_group +
     j and ``layers["cross"][g]`` -> ``cross_layers`` g; audio:
     ``enc_layers[i]`` -> ``enc_layers`` i and ``layers[i]`` -> ``layers``
-    i, stacked directly (``Model.schema``); the other families as
-    :func:`_layer_trees` gives them.
+    i, stacked directly (``Model.schema``); ssm: ``layers[key][p]`` for
+    each block ``key`` of the pattern (``"0_mlstm"``, ``"1_slstm"``) ->
+    pair p of ``layers``; the other families as :func:`_layer_trees`
+    gives them.
     """
     layers = tree["layers"]
+    if cfg.family == "ssm":
+        keys = {f"{i}_{kind}" for i, kind in enumerate(cfg.block_pattern)}
+        if set(layers) != keys:
+            raise ValueError(f"{cfg.name} stacks pairs of {sorted(keys)}; "
+                             f"the tree holds {sorted(layers)}")
+        return {"layers": [_index(layers, p)
+                           for p in range(_stacked(layers))]}
     if cfg.family == "vlm":
         if set(layers) != {"selfs", "cross"}:
             raise ValueError(f"{cfg.name} stacks groups of selfs and a "
@@ -144,6 +153,8 @@ def _port_arrays(tree: Mapping, cfg: ArchConfig) -> Dict[str, np.ndarray]:
             "cross_layers": cfg.n_layers // max(cfg.cross_attn_group, 1)}
     if cfg.family == "vlm":
         want["layers"] = want["cross_layers"] * cfg.cross_attn_group
+    if cfg.family == "ssm":
+        want["layers"] = cfg.n_layers // len(cfg.block_pattern)
     for name, layers in stacks.items():
         if len(layers) != want[name]:
             raise ValueError(f"the tree stacks {len(layers)} {name}, "
@@ -176,9 +187,11 @@ def model_params_from_numpy(tree: Mapping, cfg: ArchConfig, *,
     untied, ``unembed`` (d, Vp); a norm's ``scale`` and, layernorm, its
     ``bias``.  The layer stack, flat or grouped, maps onto the port's
     flat layers (:func:`_layer_trees`); the vlm family's groups of
-    ``selfs`` and a ``cross`` layer, and the audio family's
-    ``enc_layers``, onto theirs (:func:`_stacks`).  The model's type is
-    the arrays' type.
+    ``selfs`` and a ``cross`` layer, the audio family's ``enc_layers``,
+    and the ssm family's pairs (``layers["0_mlstm"|"1_slstm"]["norm"|
+    "block"]``, the mLSTM and sLSTM leaves of ``mlstm_schema`` and
+    ``slstm_schema``), onto theirs (:func:`_stacks`).  The model's type
+    is the arrays' type.
     Raises on a missing, extra or misshapen array.
     """
     dtype = torch.from_numpy(

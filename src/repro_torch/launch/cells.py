@@ -4,8 +4,8 @@ The part of ``repro/launch/cells.py`` the port has: the per-cell
 FleetPlane deployment hook, :func:`cell_tenant`, and the cell-kind
 priorities it defaults to.  The rest of the JAX module -- building a
 lowerable train, prefill or decode step for an (arch x shape x mesh)
-cell -- is the training and mesh substrate, which comes with ROADMAP
-A5.
+cell -- is the sharding and mesh substrate, which comes with ROADMAP
+A5.4.
 """
 
 from __future__ import annotations

@@ -4,11 +4,11 @@
                                                gemma3-1b | qwen2-1.5b |
                                                qwen2-moe-a2.7b |
                                                llama-3.2-vision-11b |
-                                               whisper-large-v3]
+                                               whisper-large-v3 | xlstm-125m]
 
 Sets up one of the full-width serving workloads of
 :mod:`repro_torch.launch.serve` (``WORKLOADS``, llama3.2-1b by default),
-which ``chip_smoke.py`` serves in phases 7, 11, 19b, 20b and 21b: the
+which ``chip_smoke.py`` serves in phases 7, 11, 19b, 20b, 21b and 22a: the
 model at its published widths, float32 weights from seed 0, bfloat16
 cache, 8 slots of 1024 tokens, 16 requests of 256-token prompts, the KV
 pool under a live plane that ticks once per step.  Runs ``WARM`` engine steps so all

@@ -8,6 +8,7 @@
     python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b [--burst]
     python -m repro_torch.launch.serve --arch llama-3.2-vision-11b [--burst]
     python -m repro_torch.launch.serve --arch whisper-large-v3 [--burst]
+    python -m repro_torch.launch.serve --arch xlstm-125m [--burst]
     python -m repro_torch.launch.serve --arch hymba-1.5b-smoke --device cpu
 
 Serves synthetic prompts with weights drawn from ``--seed`` through an
@@ -27,7 +28,9 @@ and a second wave of ``requests // 2`` prompts serves under the new
 parameter epoch.  Without ``--device`` it runs on the card and raises
 when there is none.  The cross-attention families serve as JAX's
 engine serves them: with zero cross caches (and ``enc_len`` 0), since
-no request carries images or frames.
+no request carries images or frames.  The ssm family (xlstm-125m)
+attends nowhere: its slots carry recurrent state, and its pool is JAX's
+notional KV pool, sized as if it had K/V (ROADMAP C26).
 """
 
 from __future__ import annotations
@@ -58,7 +61,7 @@ def device_name(device: torch.device) -> str:
 # The full-width workloads, one per served architecture: served by
 # ``chip_smoke.py`` with the burst (llama in phase 7, hymba in phase 11,
 # gemma3 and qwen2 in phase 19b, qwen2-moe in phase 20b, the vision and
-# audio models in phase 21b) and profiled by
+# audio models in phase 21b, xlstm in phase 22a) and profiled by
 # ``repro_torch.launch.profile_serve``.  288 tokens a request fit
 # whisper's deployed 448-token decoder.
 FULL_WIDTH = dict(arch="llama3.2-1b", requests=16, prompt_len=256,
@@ -69,10 +72,11 @@ FULL_WIDTH_QWEN2 = dict(FULL_WIDTH, arch="qwen2-1.5b")
 FULL_WIDTH_QWEN2_MOE = dict(FULL_WIDTH, arch="qwen2-moe-a2.7b")
 FULL_WIDTH_VLM = dict(FULL_WIDTH, arch="llama-3.2-vision-11b")
 FULL_WIDTH_WHISPER = dict(FULL_WIDTH, arch="whisper-large-v3")
+FULL_WIDTH_XLSTM = dict(FULL_WIDTH, arch="xlstm-125m")
 WORKLOADS = {w["arch"]: w for w in (FULL_WIDTH, FULL_WIDTH_HYMBA,
                                     FULL_WIDTH_GEMMA3, FULL_WIDTH_QWEN2,
                                     FULL_WIDTH_QWEN2_MOE, FULL_WIDTH_VLM,
-                                    FULL_WIDTH_WHISPER)}
+                                    FULL_WIDTH_WHISPER, FULL_WIDTH_XLSTM)}
 
 
 def prompts(vocab: int, prompt_len: int, seed: int, n: int) -> list:

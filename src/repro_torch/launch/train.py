@@ -2,14 +2,16 @@
 
     python -m repro_torch.launch.train --arch llama3.2-1b --steps 50
     python -m repro_torch.launch.train --arch hymba-1.5b --steps 50
+    python -m repro_torch.launch.train --arch xlstm-125m --steps 50
     python -m repro_torch.launch.train --arch dbrx-132b-smoke --device cpu
     python -m repro_torch.launch.train --arch llama3.2-1b-smoke --device cpu
 
 Every architecture the port builds trains: llama3.2-1b, gemma3-1b and
 qwen2-1.5b (dense), hymba-1.5b (hybrid), qwen2-moe-a2.7b (moe; its
 60.6 GB of float32 weights leave no room for AdamW on one 80 GB card
-at full depth) and their ``-smoke`` reductions, with dbrx-132b's and
-mistral-large-123b's.  A moe model's rows log its load-balance loss,
+at full depth), xlstm-125m (ssm: its sLSTM runs token by token, so a
+step at a long sequence issues many small operations) and their
+``-smoke`` reductions, with dbrx-132b's and mistral-large-123b's.  A moe model's rows log its load-balance loss,
 ``aux``, beside ``ce`` (``loss`` is their sum); a microbatched step
 logs the summed loss as ``ce`` and a zero ``aux``, as JAX's step does.
 The pipeline's batches hold tokens alone, as JAX's do: the vlm and

@@ -43,8 +43,8 @@ def _no_softcap(cfg: ArchConfig) -> None:
     if cfg.attn_logit_softcap:
         raise NotImplementedError(
             f"{cfg.name}: attention logit softcap is not ported (neither "
-            f"attention kernel has one, and no ported config sets it; "
-            f"ROADMAP A5)")
+            f"attention kernel has one, and no config of the registry "
+            f"sets it; ROADMAP A5.2)")
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor,

@@ -2,12 +2,18 @@
 
 The port of ``repro/models/decode.py`` (``init_state``, ``decode_step``,
 ``_self_layer_decode``, ``_hybrid_layer_decode``, ``_decode_vlm``,
-``_decode_audio``, ``_attach_cross_context``, ``prefill``) for the
-dense, hybrid, moe, vlm and audio families.  The state is one ``(L, B,
-S, KV, hd)`` tensor each for k and v over the self layers, the
-per-sequence positions ``pos`` (B,) int32 and, for the hybrid family,
-the Mamba state ``mamba_h`` (L, B, inner, N) and ``mamba_conv`` (L, B,
-k - 1, inner) in float32 (``_mamba_state``), all on the model's device.
+``_decode_audio``, ``_decode_ssm``, ``_attach_cross_context``,
+``prefill``) for every family.  The state is one ``(L, B, S, KV, hd)``
+tensor each for k and v over the self layers (L = 0 for the ssm
+family, which attends nowhere), the per-sequence positions ``pos``
+(B,) int32 and, for the hybrid family, the Mamba state ``mamba_h`` (L,
+B, inner, N) and ``mamba_conv`` (L, B, k - 1, inner) in float32
+(``_mamba_state``), all on the model's device.  The ssm family's
+recurrent state, ``recurrent``, is JAX's tree: per block of a pair
+(``"0_mlstm"``, ``"1_slstm"``) its leaves stacked over the pairs in
+float32, the mLSTM's c (P, B, H, hd, hd), n (P, B, H, hd) and m (P, B,
+H), the sLSTM's c, n, h and m (P, B, H, hd) each; every m starts at
+-1e30 and the rest at 0 (``_mlstm_state``, ``_slstm_state``).
 The cross-attention families add a static cross cache, ``cross_k`` and
 ``cross_v`` in the cache's type: (groups, B, vision_tokens, KV, hd) for
 the vlm family, one per cross layer; (L, B, enc_len_max, KV, hd) for
@@ -19,7 +25,8 @@ attends with its own window
 Unlike JAX, which returns a new state, :func:`decode_step` updates the
 state in place: each layer writes its token's K/V into its cache slice
 (:func:`~repro_torch.models.attention.update_kv_cache`) and its Mamba
-state into its slices, and ``pos`` advances by one for every slot,
+or mLSTM/sLSTM state into its slices, and ``pos`` advances by one for
+every slot,
 occupied or not, as ``decode_step`` does in JAX.  Attention over the
 cache is the decode kernel (B3), over a self cache and over a cross
 cache alike.  The cross caches are zero, and ``enc_len`` 0, until
@@ -34,7 +41,7 @@ buffers as JAX's do, and the layer's aux loss is dropped.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,7 +49,8 @@ import torch.nn.functional as F
 from .attention import (attention_decode, cross_decode, kv_project,
                         out_project, qkv_project, update_kv_cache)
 from .layers import embed_tokens
-from .ssm import mamba_decode_step, mamba_state_shape
+from .ssm import (mamba_decode_step, mamba_state_shape, mlstm_decode_step,
+                  mlstm_state_shapes, slstm_decode_step, slstm_state_shapes)
 from .transformer import Model, fuse_branches, norm_of
 
 
@@ -56,9 +64,13 @@ class DecodeState:
     cross_k: Optional[torch.Tensor] = None      # (n_cross, B, S_ctx, KV, hd)
     cross_v: Optional[torch.Tensor] = None      # (n_cross, B, S_ctx, KV, hd)
     enc_len: Optional[torch.Tensor] = None      # () int32, audio only
+    # ssm: block name -> leaf name -> (P, B, ...) float32
+    recurrent: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
 
     def reset_slot(self, i: int) -> None:
-        """Start slot ``i`` afresh: position 0 and a zero Mamba state.
+        """Start slot ``i`` afresh: position 0 and its recurrent state at
+        its starting values (``_reset_slot_state``): the Mamba state at
+        0, every mLSTM and sLSTM m at -1e30 and their other leaves at 0.
 
         The cache needs no clearing: it is masked by position.  The cross
         caches and ``enc_len`` stay, as JAX's ``_reset_slot_state``
@@ -68,6 +80,13 @@ class DecodeState:
         if self.mamba_h is not None:
             self.mamba_h[:, i] = 0.0
             self.mamba_conv[:, i] = 0.0
+        for leaves in (self.recurrent or {}).values():
+            for name, leaf in leaves.items():
+                leaf[:, i] = STATE_START.get(name, 0.0)
+
+
+# A recurrent leaf's starting value, by name, where it is not 0
+STATE_START = {"m": -1e30}
 
 
 def cache_dtype_of(name: str) -> torch.dtype:
@@ -81,11 +100,12 @@ def cache_dtype_of(name: str) -> torch.dtype:
 
 def init_state(model: Model, batch: int, max_len: int,
                cache_dtype: str = "bfloat16") -> DecodeState:
-    """Zero caches, positions and recurrent state for ``batch`` slots;
-    zero cross caches and ``enc_len`` for the cross-attention families."""
+    """Zero caches and positions for ``batch`` slots and the recurrent
+    state at its starting values; zero cross caches and ``enc_len`` for
+    the cross-attention families."""
     cfg, dev = model.cfg, model.device
     kv = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    n = len(model.layers)
+    n = 0 if cfg.family == "ssm" else len(model.layers)
     dt = cache_dtype_of(cache_dtype)
     state = DecodeState(
         k=torch.zeros((n, *kv), dtype=dt, device=dev),
@@ -103,7 +123,30 @@ def init_state(model: Model, batch: int, max_len: int,
         state.cross_v = torch.zeros(shape, dtype=dt, device=dev)
     if cfg.family == "audio":
         state.enc_len = torch.zeros((), dtype=torch.int32, device=dev)
+    if cfg.family == "ssm":
+        shapes = {"mlstm": mlstm_state_shapes, "slstm": slstm_state_shapes}
+        state.recurrent = {
+            key: {name: torch.full((len(model.layers), *shape),
+                                   STATE_START.get(name, 0.0), device=dev)
+                  for name, shape in shapes[block.kind](cfg, batch).items()}
+            for key, block in model.layers[0].items()}
     return state
+
+
+def _ssm_pair_decode(pair, state: DecodeState, i: int, x: torch.Tensor,
+                     cfg) -> torch.Tensor:
+    """One token through pair ``i`` of the ssm stack (``_decode_ssm``):
+    ``x + block(norm(x))`` per block, its state written back in place."""
+    for key, block in pair.items():
+        leaves = state.recurrent[key]
+        step = (mlstm_decode_step if block.kind == "mlstm"
+                else slstm_decode_step)
+        h, new = step(block.block, norm_of(block, "norm", x, cfg),
+                      {name: leaf[i] for name, leaf in leaves.items()}, cfg)
+        for name, leaf in leaves.items():
+            leaf[i].copy_(new[name])
+        x = x + h
+    return x
 
 
 def _attend(layer, h, state: DecodeState, i: int, q_pos, cfg,
@@ -135,6 +178,9 @@ def decode_step(model: Model, state: DecodeState,
     lens = _cross_lengths(state) if state.cross_k is not None else None
     g = cfg.cross_attn_group
     for i, (layer, window) in enumerate(zip(model.layers, model.windows)):
+        if cfg.family == "ssm":                    # _decode_ssm
+            x = _ssm_pair_decode(layer, state, i, x, cfg)
+            continue
         if cfg.family == "hybrid":                 # _hybrid_layer_decode
             h = norm_of(layer, "norm", x, cfg)
             a = _attend(layer, h, state, i, q_pos, cfg, window)

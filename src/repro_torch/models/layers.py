@@ -25,6 +25,11 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(F32), w.to(F32))
 
 
+def rms(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Weightless RMS normalization over the last axis (``_rms``)."""
+    return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm in float32, back in x's type (layers.py ``apply_norm``)."""

@@ -2,8 +2,8 @@
 
 The port of ``repro/models/transformer.py`` (``Model``, ``forward``,
 ``_self_layer``, ``_hybrid_layer``, ``_run_vlm``, ``_run_encoder``,
-``_run_audio_decoder``) and of the init kinds of
-``repro/models/params.py`` for five families: ``dense`` (llama3.2-1b;
+``_run_audio_decoder``, ``_run_ssm_stack``) and of the init kinds of
+``repro/models/params.py`` for every family: ``dense`` (llama3.2-1b;
 gemma3-1b with its gelu MLP and scaled embedding; qwen2-1.5b with its
 QKV biases; mistral-large-123b), ``hybrid`` (hymba-1.5b: attention and
 Mamba in parallel in every layer, fused by the mean of their
@@ -15,8 +15,10 @@ layer whose attention over the image tokens enters the residual through
 ``tanh(gate)``) and ``audio`` (whisper-large-v3: a non-causal encoder
 over frame embeddings, with RoPE over frame positions, and a decoder
 whose layers attend to its output after their self-attention; layernorm
-with a bias).  The ssm family and the attention logit softcap raise
-``NotImplementedError``; they come with a later slice (ROADMAP A5).
+with a bias) and ``ssm`` (xlstm-125m: pairs of an mLSTM and an sLSTM
+block, each ``x + block(norm(x))``, no attention and no MLP).  The
+attention logit softcap, which no config of the registry sets, raises
+``NotImplementedError``.
 
 The self layers form one flat ``nn.ModuleList``, ``layers``, each with
 its window from :func:`layer_windows`, where JAX nests the grouped
@@ -24,7 +26,10 @@ local:global schedule into stacks (``_windowed_stack_schema``).  The vlm
 family's cross layers are ``cross_layers`` (cross layer g follows self
 layer ``(g + 1) * cross_attn_group - 1``); the audio family's encoder
 is ``enc_layers`` and ``enc_norm``, and its decoder layers
-(``layers``) carry ``cross_norm`` and ``cross``.  A layernorm's bias is
+(``layers``) carry ``cross_norm`` and ``cross``.  The ssm family's
+``layers`` are its ``n_layers / len(block_pattern)`` pairs, each an
+:class:`SSMPair` of blocks named as JAX names them (``0_mlstm``,
+``1_slstm``), each block its ``norm`` and its ``block``.  A layernorm's bias is
 the parameter ``<norm>_bias`` beside the norm's scale ``<norm>``.
 Parameters keep the JAX package's names and layouts, so
 :func:`repro_torch.convert.model_params_from_numpy` copies them tensor
@@ -38,11 +43,14 @@ and the scan, B4), which serving calls; and
 :meth:`Model.forward_train`, plain PyTorch under autograd for every
 family (JAX's ``attention_dense``/``attention_chunked`` by its
 ``attn_impl`` rule, the hybrid's Mamba branch as JAX's chunked
-associative scan, each layer under the ``remat`` policy), which
+associative scan, each layer under the ``remat`` policy; an ssm pair
+is one such layer), which
 :meth:`Model.loss` and the trainer call.  Both run the experts of a moe
 layer through :func:`~repro_torch.models.moe.moe_apply` and, asked
 with ``aux=True``, return the layers' mean load-balance loss beside
-the logits, as JAX's ``Model.forward`` does.  The kernels have no backward
+the logits, as JAX's ``Model.forward`` does.  The ssm family launches
+no kernel in either forward: JAX has no Pallas kernel behind the mLSTM
+or the sLSTM (:mod:`~repro_torch.models.ssm`).  The kernels have no backward
 and refuse inputs that require grad.  Parameters are created with
 ``requires_grad=False``; the train step turns it on.
 """
@@ -62,13 +70,14 @@ from ..configs.base import ArchConfig
 from ..device import DeviceLike, resolve_device
 from .attention import self_attention, self_attention_train
 from .layers import (ACTIVATIONS, apply_mlp, apply_norm, cross_entropy,
-                     embed_tokens, unembed)
+                     embed_tokens, rms, unembed)
 from .moe import MoE, moe_apply
-from .ssm import Mamba, mamba_apply, mamba_apply_chunked
+from .ssm import (MLSTM, SLSTM, Mamba, mamba_apply, mamba_apply_chunked,
+                  mlstm_apply, slstm_apply)
 
 F32 = torch.float32
 REMAT_POLICIES = ("full", "dots", "none")
-FAMILIES = ("dense", "hybrid", "moe", "vlm", "audio")
+FAMILIES = ("dense", "hybrid", "moe", "vlm", "audio", "ssm")
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default)
 
 
@@ -246,9 +255,32 @@ class HybridLayer(_Block):
         self.cross = None
 
 
-def rms(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """Weightless RMS normalization (``transformer._rms``)."""
-    return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
+class SSMBlock(nn.Module):
+    """One block of an ssm pair: its pre-norm ``norm`` and its ``block``,
+    an :class:`~repro_torch.models.ssm.MLSTM` or an
+    :class:`~repro_torch.models.ssm.SLSTM` by ``kind``."""
+
+    def __init__(self, cfg: ArchConfig, make, kind: str):
+        super().__init__()
+        if kind not in ("mlstm", "slstm"):
+            raise ValueError(f"unknown ssm block {kind!r}")
+        self.kind = kind
+        add_norm(self, "norm", cfg, make)
+        self.block = MLSTM(cfg, make) if kind == "mlstm" else SLSTM(cfg, make)
+
+    def forward(self, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+        """x + block(norm(x)) over a whole sequence (``_run_ssm_stack``)."""
+        apply = mlstm_apply if self.kind == "mlstm" else slstm_apply
+        return x + apply(self.block, norm_of(self, "norm", x, cfg), cfg)
+
+
+class SSMPair(nn.ModuleDict):
+    """One pair of the ssm stack: a block per entry of ``block_pattern``,
+    keyed ``f"{i}_{kind}"`` as JAX keys them, applied in that order."""
+
+    def __init__(self, cfg: ArchConfig, make):
+        super().__init__({f"{i}_{kind}": SSMBlock(cfg, make, kind)
+                          for i, kind in enumerate(cfg.block_pattern)})
 
 
 def fuse_branches(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -281,12 +313,14 @@ def check_supported(cfg: ArchConfig) -> None:
     missing = [k for k, bad in unsupported.items() if bad]
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the {', '.join(FAMILIES)} "
-            f"families only; not ported: {missing} (ROADMAP A5)")
+            f"{cfg.name}: the port builds the {', '.join(FAMILIES)} "
+            f"families (every family of the JAX package) with silu or "
+            f"gelu MLPs; not ported: {missing} (the attention logit "
+            f"softcap, which no config of the registry sets: ROADMAP A5.2)")
 
 
 class Model(nn.Module):
-    """A dense, hybrid, moe, vlm or audio model on one device.
+    """A dense, hybrid, moe, vlm, audio or ssm model on one device.
 
     ``device=None`` means the card, and raises without one;
     ``device="cpu"`` runs the kernels' plain versions.  ``init=False``
@@ -314,8 +348,8 @@ class Model(nn.Module):
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
 
-        def make(shape, kind):
-            t = (init_tensor(shape, kind, gen, dtype, dev) if init
+        def make(shape, kind, **kw):
+            t = (init_tensor(shape, kind, gen, dtype, dev, **kw) if init
                  else torch.empty(shape, dtype=dtype, device=dev))
             return nn.Parameter(t, requires_grad=False)
 
@@ -330,10 +364,11 @@ class Model(nn.Module):
         if fam == "vlm":       # JAX stacks L // g groups of g self layers
             n_self = cfg.n_layers // cfg.cross_attn_group \
                 * cfg.cross_attn_group
-        self.layers = nn.ModuleList(
-            HybridLayer(cfg, make) if fam == "hybrid"
-            else Layer(cfg, make, cross=fam == "audio")
-            for _ in range(n_self))
+        if fam == "ssm":       # and L // len(block_pattern) pairs
+            n_self = cfg.n_layers // len(cfg.block_pattern)
+        layer = {"hybrid": HybridLayer, "ssm": SSMPair}.get(
+            fam, functools.partial(Layer, cross=fam == "audio"))
+        self.layers = nn.ModuleList(layer(cfg, make) for _ in range(n_self))
         self.windows = layer_windows(cfg)[:n_self]
         self.cross_layers = None
         if fam == "vlm":
@@ -380,13 +415,18 @@ class Model(nn.Module):
     def _self_layer(self, i: int, x: torch.Tensor,
                     ctx: Optional[torch.Tensor], *, train: bool
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """Layer ``i`` (``_self_layer``, ``_hybrid_layer``, or an audio
+        """Layer ``i`` (``_self_layer``, ``_hybrid_layer``, an audio
         decoder layer, which attends to the encoder output ``ctx`` after
-        its self-attention); returns (x, the layer's aux loss or None).
-        A hybrid layer's Mamba branch runs the scan kernel (B4), or under
-        ``train`` JAX's chunked associative scan."""
+        its self-attention, or an ssm pair); returns (x, the layer's aux
+        loss or None).  A hybrid layer's Mamba branch runs the scan
+        kernel (B4), or under ``train`` JAX's chunked associative scan;
+        an ssm pair runs the same plain PyTorch either way."""
         cfg, layer = self.cfg, self.layers[i]
         window = self.windows[i]
+        if cfg.family == "ssm":
+            for block in layer.values():
+                x = block(x, cfg)
+            return x, None
         if cfg.family == "hybrid":
             h = norm_of(layer, "norm", x, cfg)
             a = self._attend(layer.attn, h, window, train)

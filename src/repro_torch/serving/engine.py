@@ -27,7 +27,10 @@ plane ticks after the argmax has come back to the host, as in JAX.  The
 cross-attention families' state holds their cross caches, which no
 request fills: they stay zero, and the audio family's ``enc_len`` 0,
 as in JAX's engine; a block's bytes count the self layers' K/V alone
-(``_block_bytes``).
+(``_block_bytes``).  The ssm family holds no K/V, yet its pool is sized
+by the same formula, as JAX's is: a notional pool that admission and
+preemption still gate (ROADMAP C26); admission restores the slot's
+recurrent state to its start (every m at -1e30).
 """
 
 from __future__ import annotations

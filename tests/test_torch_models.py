@@ -187,7 +187,7 @@ def test_init_kinds_and_scales():
 
 
 @pytest.mark.parametrize("change", [
-    {"family": "ssm"},           # vlm and audio are ported (ROADMAP A5.3)
+    {"family": "rnn"},           # every family of the JAX package is ported
     {"attn_logit_softcap": 30.0}, {"act": "relu"},   # layernorm is ported
 ])
 def test_unported_features_raise(change):

@@ -33,6 +33,7 @@ import torch
 
 import repro.lab as jlab
 from repro.configs import dynims as jd
+from repro.configs import ARCH_IDS as jax_arch_ids
 from repro.configs import get_config as jax_config
 from repro_torch.configs import dynims as td
 from repro_torch.configs import get_config
@@ -289,7 +290,8 @@ def test_serving_entry_points_raise_without_cuda(monkeypatch):
                                   "llama-3.2-vision-11b",
                                   "llama-3.2-vision-11b-smoke",
                                   "whisper-large-v3",
-                                  "whisper-large-v3-smoke"])
+                                  "whisper-large-v3-smoke",
+                                  "xlstm-125m", "xlstm-125m-smoke"])
 def test_config_copies_equal_the_jax_configs(arch):
     port, ref = get_config(arch), jax_config(arch)
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
@@ -298,8 +300,44 @@ def test_config_copies_equal_the_jax_configs(arch):
 
 
 def test_unported_archs_raise_naming_the_roadmap():
-    with pytest.raises(KeyError, match="ROADMAP A5"):
-        get_config("xlstm-125m")
+    """Every arch of the JAX registry is ported (ROADMAP A5.3 is done);
+    a name outside the registry raises, naming the archs there are."""
+    with pytest.raises(KeyError, match="unknown arch 'xlstm-350m'.*"
+                                       "xlstm-125m"):
+        get_config("xlstm-350m")
+
+
+@pytest.mark.parametrize("arch", jax_arch_ids)
+def test_every_jax_arch_builds_forwards_and_trains_in_the_port(arch):
+    """For every name of JAX's registry: the port's config equals JAX's,
+    full and ``-smoke``; ``check_supported`` raises for neither; the
+    ``-smoke`` model builds, forwards to finite logits and takes one
+    train step on the CPU, its loss finite."""
+    from repro_torch.models.transformer import check_supported
+    from repro_torch.train import TrainStepConfig
+    from repro_torch.train.step import (build_train_step, init_train_state,
+                                        model_params)
+    for name in (arch, arch + "-smoke"):
+        port, ref = get_config(name), jax_config(name)
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+        check_supported(port)
+    cfg = get_config(arch + "-smoke")
+    model = Model(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen)
+    ctx = {}
+    if cfg.family == "vlm":
+        ctx["images"] = torch.randn((2, cfg.vision_tokens, cfg.d_model),
+                                    generator=gen)
+    if cfg.family == "audio":
+        ctx["frames"] = torch.randn((2, 6, cfg.d_model), generator=gen)
+    assert bool(torch.isfinite(model(tokens, **ctx)).all())
+    step_cfg = TrainStepConfig(total_steps=4)
+    params = model_params(model)
+    new, _, metrics = build_train_step(model, step_cfg)(
+        params, init_train_state(params, step_cfg), {"tokens": tokens, **ctx})
+    assert np.isfinite(float(metrics["loss"]))
+    assert sorted(new) == sorted(params)
 
 
 def test_cpu_tensors_never_launch_the_attention_kernels():

@@ -382,8 +382,8 @@ def test_profile_serve_takes_either_workload(monkeypatch):
     for argv in ([], ["hymba-1.5b"]):
         with pytest.raises(RuntimeError, match="CUDA"):
             profile_serve.main(argv)
-    with pytest.raises(SystemExit):
-        profile_serve.main(["xlstm-125m"])
+    with pytest.raises(SystemExit):      # no full-width workload of its own
+        profile_serve.main(["dbrx-132b"])
 
 
 @pytest.mark.parametrize("bad", ["rank", "shapes", "h0_shape", "float16",
