@@ -113,7 +113,21 @@ each, all at once) and drives the port's main paths on the card:
   training forward and against decode across mLSTM chunks, one mLSTM
   block chunked against stepped, trained at full width and depth, and
   its smoke model trained on the card and the CPU alike; no kernel
-  launches anywhere in the phase.
+  launches anywhere in the phase;
+* the tooling (phase 23): a llama3.2-1b decode step and training step
+  counted on meta tensors (``repro_torch.roofline.analyze_step``) beside
+  the ms a step phases 7 and 18a measured, and a small
+  ``fused_sweep_demand`` with ``PLANECHECK_SANITIZERS=1``: its chunk loop
+  under ``dispatch_guard`` passes, and raises on an injected ``.item()``.
+
+Every bound comes from ``repro_torch.roofline`` (the H100's data-sheet
+peaks and each kernel's work from its shapes).  Phases 19c, 20d, 21d
+and 22c train without the end-of-run checkpoint that 18a writes and
+times.  To keep the script well inside its time limit on a slow host,
+phase 2 holds ``sweep_demand`` against the CPU at 16 of the 64 gains
+(phase 1 holds the kernel at all 64), 17b runs the registry's fleets
+over their first 1400 intervals and the 4096-node row over 500, and
+21b prefills prompts of 64 tokens.
 
 Decode attention at the engines' shapes (phases 9 and 13) is timed three
 ways, also in a fresh process that has built no plane (``chip_smoke.py
@@ -144,8 +158,10 @@ import sys
 import tempfile
 import time
 
-import numpy as np
-import torch
+T_START = time.perf_counter()
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA card is available")
@@ -205,34 +221,16 @@ from repro_torch.models import Model, decode as D  # noqa: E402
 from repro_torch.models import moe as TM  # noqa: E402
 from repro_torch.models import ssm as TS  # noqa: E402
 from repro_torch.models.transformer import layer_windows  # noqa: E402
+from repro_torch.roofline import analyze_step, bound  # noqa: E402
+from repro_torch.roofline import kernels as rk  # noqa: E402
+from repro_torch.train import step as train_step  # noqa: E402
+from repro_torch.roofline.constants import (HBM_BW,  # noqa: E402
+                                            PEAK_F32, PEAK_F64)
 from repro_torch.serving import ServingConfig, ServingEngine  # noqa: E402
 
 CUDA = torch.device("cuda")
 N_NODES, N_STEPS = 4096, 1000            # the lab benchmark's fleet
 CACHE = get_scenario("spark-iterative-cache").cache
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 FLOP/s
-# outside the tensor cores.
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_S = 67e12
-PEAK_BF16_S = 989e12                     # dense, tensor cores
-PEAK_TF32_S = 495e12                     # dense, tensor cores
-PEAK_F64_S = 34e12                       # float64 outside the tensor cores
-# Operations per (lane, node, interval) update of the paper-law step in
-# csrc/sweep.cu, counted from its source: every add, multiply, divide,
-# compare, select, min/max, the code's conversion and the histogram's
-# add.  A multiply-add rounded through float64 counts as two, each
-# float64 log2/exp2 as one, and all at the float32 rate, so the bound
-# stays a lower bound.
-OPS_PER_UPDATE = {"cache-off": 33, "cache-on": 86}
-# The AppGraph carry's operations per update on top of those, counted the
-# same way from csrc/sweep.cu's graph_segment: the held demand's add, the
-# fused pressure curve and dt_eff (cache-off only: 10), the drain, its
-# Kahan sum, the progress code, the finish and promotion tests.  The
-# lane's reductions are not counted, so the bound stays a lower bound.
-GRAPH_OPS_PER_UPDATE = {"cache-off": 36, "cache-on": 26}
-# The two float64 transcendentals of the cache-on count; phase 5 also
-# states a bound with their SASS instructions at the float64 rate.
-F64_CALLS_PER_UPDATE = 2
 
 
 # (phase, host clock at its first line), for the run's seconds by phase
@@ -424,6 +422,13 @@ def assert_same(tag, card, cpu, n_samples):
         f"{len(card._fields)} fields bit-identical)")
 
 
+# Phase 2's sweep_demand against the CPU: 16 gains spread over the
+# default 8 x 8 grid, its corners included (the CPU runs at all 64 take
+# ~60 s; phase 1 holds the kernel at all 64 lanes bit for bit)
+PHASE2_GAINS = grid_gains(lam=(0.1, 0.5, 1.0, 1.8),
+                          r0=(0.88, 0.92, 0.95, 0.98))
+
+
 def phase2(demand):
     log("phase 2: the main path, card against the port's CPU run")
     spec = get_scenario("phase-replay")
@@ -438,12 +443,12 @@ def phase2(demand):
     m = np.full(N_NODES, 125 * GiB)
     for tag, cache in (("cache-off", None), ("cache-on", CACHE)):
         t0 = time.perf_counter()
-        a = sweep_demand(demand, grid_gains(), node_memory=m, cache=cache)
+        a = sweep_demand(demand, PHASE2_GAINS, node_memory=m, cache=cache)
         t_card = time.perf_counter() - t0
-        b = sweep_demand(demand, grid_gains(), node_memory=m, cache=cache,
+        b = sweep_demand(demand, PHASE2_GAINS, node_memory=m, cache=cache,
                          device="cpu")
-        assert_same(f"sweep_demand 4096x1000x64 {tag} (card {t_card:.2f}s)",
-                    a, b, N_NODES * N_STEPS)
+        assert_same(f"sweep_demand 4096x1000x{len(PHASE2_GAINS.r0)} {tag} "
+                    f"(card {t_card:.2f}s)", a, b, N_NODES * N_STEPS)
 
 
 def phase3():
@@ -568,16 +573,14 @@ def phase5(demand, sweep_lib):
                                N_STEPS)
         fin = cuda_ms(finalize)
         fin_device = device_ms(finalize)
-        n_bytes = (args[2].numel() * 4 + args[3].numel() * 4
-                   + args[4].numel() * 4 + args[5].numel() * 4
-                   + 2 * state.numel() * 4 + hist.numel() * 4)
-        t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-        t_ops = n_upd * OPS_PER_UPDATE[tag] / PEAK_F32_S * 1e3
+        work = rk.sweep(N_NODES, N_STEPS, 64, cache=cache is not None)
+        n_bytes = work.bytes
+        t_bytes = n_bytes / HBM_BW * 1e3
+        t_ops = work.ops / work.peak * 1e3
         e2e, e2e32 = time_fused_sweep(demand, cache, (None, 32))
         r = dict(ms=ms, all_nodes_equal_ms=equal_ms, plain_ms=plain,
                  finalize_ms=fin, finalize_device_ms=fin_device,
-                 bound_ms=max(t_bytes, t_ops),
-                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 bound_ms=work.bound_ms, bound_by=work.bound_by,
                  bytes=n_bytes, kernel_plus_finalize_ms=ms + fin,
                  fused_sweep_demand=e2e, fused_sweep_demand_chunk32=e2e32)
         log(f"  {tag}: kernel {ms:.4f} ms ({n_upd / ms * 1e3:.3e} "
@@ -588,24 +591,23 @@ def phase5(demand, sweep_lib):
             f"{r['bound_ms']:.4f} ms by "
             f"{r['bound_by']} (bytes {t_bytes:.4f} ms for "
             f"{n_bytes / 1e6:.2f} MB, ops {t_ops:.4f} ms at "
-            f"{OPS_PER_UPDATE[tag]} per update)")
+            f"{rk.OPS_PER_UPDATE[tag]} per update)")
         if cache is not None:
             f64, copies, n = sass_f64_ops(sweep_lib.path)
-            t_f64 = n_upd * ((OPS_PER_UPDATE[tag] - F64_CALLS_PER_UPDATE)
-                             / PEAK_F32_S + f64 / PEAK_F64_S) * 1e3
             # the power's exponent at 1 skips the float64 exp2/log2
             linear = dict(kw, con=dataclasses.replace(kw["con"], hit_exp=1.0))
             no_pow = cuda_ms(lambda: ks.sweep_segment(*args, **linear),
                              reps=7)
             r.update(f64_ops_per_update_static=f64, sass_f64=n,
                      sass_step_copies=copies,
-                     bound_f64_static_ms=max(t_bytes, t_f64),
+                     bound_f64_static_ms=rk.sweep_f64_bound_ms(work, n_upd,
+                                                               f64),
                      power_skipped_ms=no_pow)
             log(f"    float64 power, static SASS count (an upper estimate: "
                 f"it holds exp2/log2's rarely taken special paths): {n} in "
                 f"{copies} copies of the step -> {f64:.1f} float64 "
                 f"operations per update; bound with them at "
-                f"{PEAK_F64_S / 1e12:.0f} TFLOP/s: "
+                f"{PEAK_F64 / 1e12:.0f} TFLOP/s: "
                 f"{r['bound_f64_static_ms']:.4f} ms")
             log(f"    the same kernel with the power skipped (hit_exp = 1, "
                 f"no float64): {no_pow:.4f} ms")
@@ -909,13 +911,6 @@ def sdpa(q, k, v, **kw):
         enable_gqa=True, **kw).transpose(1, 2)
 
 
-def bound(n_bytes, n_ops, peak_ops):
-    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = n_ops / peak_ops * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
-
-
 def host_us(fn, reps: int = 20) -> float:
     """Median host microseconds to issue one call of ``fn`` (no sync)."""
     fn()
@@ -955,10 +950,10 @@ def time_decode(tag, q, kc, vc, lens, flush, window=0):
     s, kv = kc.shape[1], kc.shape[2]
     hi = lens.clamp(min=0, max=s).long()
     lo = (hi - window).clamp(min=0) if window else torch.zeros_like(hi)
-    n_keys = int((hi - lo).sum())
-    n_bytes = (n_keys * kv * hd * 2 * kc.element_size()
-               + 2 * q.numel() * q.element_size() + lens.numel() * 4)
-    bound_ms, by = bound(n_bytes, 4 * n_keys * h * hd, PEAK_F32_S)
+    work = rk.decode(lens.tolist(), s, h, kv, hd, window=window,
+                     q_itemsize=q.element_size(),
+                     kv_itemsize=kc.element_size())
+    n_bytes, bound_ms, by = work.bytes, work.bound_ms, work.bound_by
     run = lambda: kd.decode_attention(  # noqa: E731
         q, kc, vc, lens, window=window)
     plain_run = lambda: kd.decode_attention_plain(  # noqa: E731
@@ -995,14 +990,6 @@ def time_decode(tag, q, kc, vc, lens, flush, window=0):
                 gb_s=n_bytes / ms / 1e6, ways=ways)
 
 
-def kept_pairs(sq, skv, causal, window):
-    """(query, key) pairs the mask keeps over positions arange(Sq/Skv)."""
-    i = torch.arange(sq, dtype=torch.int64)
-    hi = torch.clamp(i + 1, max=skv) if causal else torch.full_like(i, skv)
-    lo = torch.clamp(i - window + 1, min=0) if window else torch.zeros_like(i)
-    return int((hi - lo).clamp(min=0).sum())
-
-
 def time_flash(b, s, h, kv, hd, dtype, window, gen, flush, *, skv=None,
                causal=True):
     """B2 at one (B, S) self-attention shape, causal, or with ``skv`` and
@@ -1019,10 +1006,10 @@ def time_flash(b, s, h, kv, hd, dtype, window, gen, flush, *, skv=None,
     q = randn((b, s, h, hd), dtype, gen)
     k, v = randn((b, skv, kv, hd), dtype, gen), \
         randn((b, skv, kv, hd), dtype, gen)
-    n_ops = 4 * b * h * kept_pairs(s, skv, causal, window) * hd
-    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    bound_ms, by = bound(n_bytes, n_ops, PEAK_BF16_S if dtype == BF16
-                         else PEAK_TF32_S / 3)
+    work = rk.flash(b, s, h, kv, hd, skv=skv, causal=causal, window=window,
+                    bf16=dtype == BF16)
+    n_ops, n_bytes = work.ops, work.bytes
+    bound_ms, by = work.bound_ms, work.bound_by
     run = lambda: kf.flash_attention(  # noqa: E731
         q, k, v, causal=causal, window=window)
     plain_run = lambda: kf.flash_attention_plain(  # noqa: E731
@@ -1046,7 +1033,7 @@ def time_flash(b, s, h, kv, hd, dtype, window, gen, flush, *, skv=None,
     lib = cuda_ms(lambda: sdpa(q, k, v, **lib_kw), reps=7, flush=flush)
     extra = ""
     if dtype == F32:
-        cores_ms, _ = bound(n_bytes, n_ops, PEAK_F32_S)
+        cores_ms, _ = bound(n_bytes, n_ops, PEAK_F32)
         extra = f" (f32 CUDA cores: {cores_ms:.4f} ms)"
     log(f"  flash {tag}: kernel {ms:.4f} ms ({n_ops / ms / 1e9:.2f} "
         f"TFLOP/s), plain {plain:.3f} ms, SDPA {lib:.4f} ms, bound "
@@ -1321,10 +1308,8 @@ def phase13(state, scfg):
     dec["lens"] = lens.tolist()
     del state
     decay, drive, h0 = scan_inputs(b, s, c, n, F32, gen)
-    n_el = decay.numel()
-    # each input read once, each output written once; 2 operations each
-    n_bytes = (decay.numel() + drive.numel() + h0.numel() + n_el) * 4
-    bound_ms, by = bound(n_bytes, 2 * n_el, PEAK_F32_S)
+    work = rk.ssm_scan(b, s, c, n)
+    n_bytes, bound_ms, by = work.bytes, work.bound_ms, work.bound_by
     ms = cuda_ms(lambda: kscan.ssm_scan(decay, drive, h0), reps=7,
                  flush=flush)
     plain = cuda_ms(lambda: kscan.ssm_scan_plain(decay, drive, h0), reps=3,
@@ -2008,17 +1993,13 @@ def phase16e():
                        lead=True)
         state0, hist0, dtn, lp, rows, alive = args
         cache = "cache-on" if spec.cache else "cache-off"
-        n_upd = spec.n_nodes * spec.n_intervals * lp.shape[1]
-        n_bytes = (sum(x.numel() * x.element_size()
-                       for x in (dtn, lp, rows, alive, hist0))
-                   + 2 * state0.numel() * 4
-                   + sum(x.numel() * 4 for x in kw["graph"]))
-        t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-        t_ops = n_upd * (OPS_PER_UPDATE[cache] + GRAPH_OPS_PER_UPDATE[cache]
-                         ) / PEAK_F32_S * 1e3
+        work = rk.sweep(spec.n_nodes, spec.n_intervals, lp.shape[1],
+                        cache=bool(spec.cache),
+                        paper_law=kw["con"].paper_law,
+                        n_stages=kw["graph"][1].shape[1] - 1,
+                        demand_itemsize=dtn.element_size())
         r = dict(ms=ms, graph_free_ms=free, carry_ms=ms - free,
-                 bound_ms=max(t_bytes, t_ops),
-                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 bound_ms=work.bound_ms, bound_by=work.bound_by,
                  launches=len(range(0, lp.shape[1], ks.graph_lane_limit(
                      kw["con"], spec.n_nodes, CUDA) or lp.shape[1])),
                  us_per_interval=ms * 1e3 / spec.n_intervals)
@@ -2062,6 +2043,10 @@ FLEET_GAINS = grid_gains(lam=(0.3, 0.5, 0.8, 1.2),
 # the 4096-node fleet: 1e-3 GiB of conservation slack is the float32
 # rounding of K summed grants (the sweep's own bracket)
 SLACK_GIB = -1e-3
+# 17b runs each registry fleet over its first 1400 intervals (hpcc-spark
+# has 4200, ~10 s a policy on the card, host-bound) and the 4096-node
+# row over 500 (its CPU reference takes ~25 s at 1000)
+FLEET_17B_INTERVALS = 1400
 
 
 def phase17a():
@@ -2164,7 +2149,8 @@ def phase17b():
     out = {}
     for name in ("tenant-churn", "hpcc-spark"):
         fs_ = get_fleet_scenario(name)
-        demand = fs_.build_demand(seed=0)
+        demand = np.ascontiguousarray(
+            fs_.build_demand(seed=0)[..., :FLEET_17B_INTERVALS])
         for policy in POLICIES:
             kw = dict(node_memory=fs_.node_memory_gib * GiB,
                       weights=fs_.weights(), floors=fs_.floors_bytes(),
@@ -2178,7 +2164,7 @@ def phase17b():
     # its 16 gains; its largest row, then the sweep bench's 4096 nodes
     bench_gains = grid_gains(lam=np.linspace(0.1, 1.8, 4),
                              r0=np.linspace(0.88, 0.98, 4))
-    for k, n, t in ((8, 1024, 500), (4, 4096, 1000)):
+    for k, n, t in ((8, 1024, 500), (4, 4096, 500)):
         demand = np.stack([fleet_demand_traces(n, t, 0.1, seed=j * 7919)
                            for j in range(k)])
         floors = np.zeros(k)
@@ -2354,6 +2340,19 @@ def train_args(w, tmp, device=None):
         "--checkpoint-dir", os.path.join(tmp, "ckpt"), "--device", device])
 
 
+class NoCheckpoint:
+    """A trainer's checkpointer that writes nothing.  Phases 19c, 20d,
+    21d and 22c train through it: phase 18a writes and times the same
+    code's checkpoint and 18b restarts from one, while theirs would put
+    tens of GB on disk that nothing reads (ROADMAP C29)."""
+
+    def save(self, tree, step):
+        pass
+
+    def wait(self):
+        pass
+
+
 def host_available_bytes():
     with open("/proc/meminfo") as fh:
         for line in fh:
@@ -2416,7 +2415,7 @@ def time_adamw(trainer, state):
     ms = cuda_ms(lambda: adamw_update(state.adam.mu, state.adam, params,
                                       lr=lr), reps=3, warm=1)
     n = sum(p.numel() for p in params.values())
-    return {"ms": ms, "bound_ms": 28 * n / PEAK_BYTES_S * 1e3}
+    return {"ms": ms, "bound_ms": rk.adamw(n).bound_ms}
 
 
 def phase18a(smi):
@@ -2802,6 +2801,7 @@ def phase19c(smi):
         try:
             trainer = ttrain.build(train_args(w, tmp), log_every=1,
                                    model=Model(cfg, seed=0, device=CUDA))
+            trainer.ckpt = NoCheckpoint()
             window = (profile_steps(trainer, TRAIN_19C_PROFILED,
                                     host_ops=False) if hybrid else None)
             torch.cuda.synchronize()
@@ -3233,6 +3233,7 @@ def phase20d(smi):
     try:
         model = Model(cfg, seed=0, device=CUDA)
         trainer = ttrain.build(train_args(w, tmp), model=model, log_every=1)
+        trainer.ckpt = NoCheckpoint()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_kernel_counts()
@@ -3336,9 +3337,10 @@ CROSS_FLASH_TIMED = [(2, 1536, 1536, 20, 20, 64), (2, 288, 1536, 20, 20, 64),
                      (2, 2048, 1600, 32, 8, 128), (2, 300, 1600, 32, 8, 128),
                      (1, 1500, 1500, 20, 20, 64)]
 # 21b: the context (image tokens, whisper's 1500 frames) prefilled with
-# 8 prompts of 256 tokens, then 32 greedy decode steps
+# 8 prompts of 64 tokens, then 32 greedy decode steps (the prefill is
+# one decode step a token: prompts of 256 take ~22 s a model)
 CONTEXT_LEN = {VLM.name: VLM.vision_tokens, WHISPER.name: 1500}
-PREFILL_21B = (8, 256, 32)
+PREFILL_21B = (8, 64, 32)
 FORWARD_21C = (2, 40)            # 21c's tokens, with the full context
 # Both train at a peak lr of 3e-5: at the CLI's 3e-4 (one warmup step)
 # their losses rose after the first step on an NVIDIA H100 80GB HBM3 at
@@ -3353,7 +3355,8 @@ TRAIN_21D = {WHISPER.name: dict(TRAIN_FULL, arch=WHISPER.name, steps=4,
 # whisper trains at half its depth (16 encoder and 16 decoder layers)
 # to keep the script inside its time limit: at full depth 21d took
 # 70.4 s on an NVIDIA H100 80GB HBM3 at 700 W, most of it the two
-# end-of-run checkpoints (19 GB for whisper, 28 GB for the vision group).
+# end-of-run checkpoints (19 GB for whisper, 28 GB for the vision group),
+# which it no longer writes (NoCheckpoint).
 TRAIN_21D_VLM_GROUPS = 1
 TRAIN_21D_WHISPER_DEPTH = 0.5
 SMOKE_21E_ARCHS = (VLM.name + "-smoke", WHISPER.name + "-smoke",
@@ -3621,6 +3624,7 @@ def phase21d(smi):
                 draw_gates(model, 22)
             trainer = ttrain.build(train_args(w, tmp), model=model,
                                    log_every=1)
+            trainer.ckpt = NoCheckpoint()
             with_context(trainer.pipeline, cfg, w["batch"], n_ctx)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -3808,6 +3812,7 @@ def phase22c(smi):
     try:
         trainer = ttrain.build(train_args(w, tmp), log_every=1,
                                model=Model(cfg, seed=0, device=CUDA))
+        trainer.ckpt = NoCheckpoint()
         window = profile_steps(trainer, TRAIN_22C_PROFILED, host_ops=False)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3871,6 +3876,129 @@ def phase22(smi):
     r["seconds"] = time.perf_counter() - t0
     log(f"phase 22 seconds (host clock): {r['seconds']:.1f}")
     return r
+
+
+# Phase 23: the tooling (repro_torch.roofline, repro_torch.analysis).
+# 23b's sweep: (nodes, intervals) of a small fleet under 16 gains
+SANITIZED_SWEEP = (256, 200)
+
+
+def count_steps(w):
+    """23a: one llama3.2-1b decode step at the engine's (slots, max_len)
+    and one training step at 18a's shape (``w``), counted on meta
+    tensors: nothing runs on the card and nothing is allocated."""
+    cfg = get_config(ARCH)
+    model = Model(cfg, device="meta", init=False)
+    n = sum(p.numel() for p in model.parameters())
+    b, s = FULL_WIDTH["max_batch"], FULL_WIDTH["max_len"]
+    state = D.init_state(model, b, s)
+    tokens = torch.zeros((b, 1), dtype=torch.int64, device="meta")
+    with torch.no_grad():
+        dec = analyze_step(D.decode_step, model, state, tokens, desc=dict(
+            arch=cfg.name, kind="decode", tokens=b, n_params=n,
+            dtype="float32", shape=f"{b} slots x {s}"))
+    params = train_step.model_params(model)
+    step_cfg = train_step.TrainStepConfig(microbatches=w["microbatches"])
+    batch = {k: torch.zeros((w["batch"], w["seq"]), dtype=torch.int32,
+                            device="meta") for k in ("tokens", "labels")}
+    train = analyze_step(
+        train_step.build_train_step(model, step_cfg), params,
+        train_step.init_train_state(params, step_cfg), batch, desc=dict(
+            arch=cfg.name, kind="train", tokens=w["batch"] * w["seq"],
+            n_params=n, dtype="float32",
+            shape=f"{w['batch']} x {w['seq']}, {w['microbatches']} "
+                  f"microbatches, remat full"))
+    return dec, train
+
+
+def sanitized_sweeps():
+    """23b, 23c: ``fused_sweep_demand`` on the card with the sanitizers
+    on, its chunk loop under ``dispatch_guard``: once as it is, equal to
+    the same sweep without them, and once with a ``.item()`` injected
+    into the loop's body, which must raise.  Returns the error's text."""
+    n, t = SANITIZED_SWEEP
+    demand = fleet_demand_traces(n, t, 0.1, seed=23)
+    gains = grid_gains(lam=np.linspace(0.2, 1.8, 8), r0=(0.9, 0.95))
+    kw = dict(node_memory=125 * GiB, chunk=8)          # two launches
+    plain = fs.fused_sweep_demand(demand, gains, **kw)
+    before = os.environ.get("PLANECHECK_SANITIZERS")
+    inner = fs._sweep_program
+
+    def injected(demand_tn, *args):
+        demand_tn.sum().item()                 # the injected host sync
+        return inner(demand_tn, *args)
+
+    raised = None
+    os.environ["PLANECHECK_SANITIZERS"] = "1"
+    try:
+        guarded = fs.fused_sweep_demand(demand, gains, **kw)
+        fs._sweep_program = injected
+        try:
+            fs.fused_sweep_demand(demand, gains, **kw)
+        except RuntimeError as e:              # the guard's error, expected
+            raised = str(e)
+    finally:
+        fs._sweep_program = inner
+        if before is None:
+            del os.environ["PLANECHECK_SANITIZERS"]
+        else:
+            os.environ["PLANECHECK_SANITIZERS"] = before
+    check(all(np.array_equal(a, b) for a, b in zip(guarded, plain)),
+          "the guarded sweep differs from the same sweep unguarded")
+    check(raised is not None and "synchroniz" in raised,
+          f"an .item() inside the guarded chunk loop did not raise: {raised}")
+    check(torch.cuda.get_sync_debug_mode() == 0,
+          "dispatch_guard left the sync debug mode set")
+    return raised
+
+
+def phase23(served, trained, smi):
+    """Phase 23: a decode step and a training step counted beside the
+    times phases 7 and 18a measured; the sanitizers on the card."""
+    t0 = time.perf_counter()
+    log(f"phase 23: the roofline of a {ARCH} decode step and training step"
+        f" (repro_torch.roofline.analyze_step on meta tensors, so nothing "
+        f"is launched: FLOPs from FlopCounterMode, bytes of every aten op "
+        f"with gathers and in-place writes counted as slices, B3's work "
+        f"from its shapes; float32 at 67 TFLOP/s, 3.35 TB/s; data-sheet "
+        f"peaks) "
+        f"beside the measured ms a step on {smi}")
+    dec, train = count_steps(TRAIN_FULL)
+    measured = {"decode": 1e3 * served["seconds"] / served["steps"],
+                "train": trained["step_ms_median"]}
+    rows = {}
+    for kind, row, where in (("decode", dec, "phase 7's serving, host "
+                              "clock, every step of the run"),
+                             ("train", train, "phase 18a, host clock, "
+                              "median of the unprofiled steps")):
+        t = row["roofline"]
+        log(f"  {kind} ({row['shape']}): {row['hlo_flops_per_chip']:.4e} "
+            f"FLOPs, {row['hlo_bytes_per_chip']:.4e} bytes; compute "
+            f"{t['compute_s'] * 1e3:.4f} ms, memory {t['memory_s'] * 1e3:.4f}"
+            f" ms, bound {t['bound_s'] * 1e3:.4f} ms by {t['dominant']}; "
+            f"model FLOPs {row['model_flops_total']:.4e} (useful ratio "
+            f"{row['useful_flops_ratio']:.4f}, MFU bound "
+            f"{row['model_flops_utilization_bound']:.4f}); kernel calls "
+            f"counted on meta {row['kernels']}; measured "
+            f"{measured[kind]:.3f} ms a step ({where}), "
+            f"{t['bound_s'] * 1e3 / measured[kind]:.2%} of it the bound")
+        rows[kind] = {k: row[k] for k in (
+            "shape", "hlo_flops_per_chip", "hlo_bytes_per_chip", "roofline",
+            "model_flops_total", "useful_flops_ratio",
+            "model_flops_utilization_bound")}
+        rows[kind]["kernel_calls_counted_on_meta"] = row["kernels"]
+        rows[kind]["measured_ms"] = measured[kind]
+    log(f"phase 23b: fused_sweep_demand ({SANITIZED_SWEEP[0]} nodes x "
+        f"{SANITIZED_SWEEP[1]} intervals x 16 gains, 8 lanes a launch) with "
+        f"PLANECHECK_SANITIZERS=1, its chunk loop under dispatch_guard "
+        f"(torch.cuda.set_sync_debug_mode('error'))")
+    raised = sanitized_sweeps()
+    log("  guarded sweep: no error, equal to the unguarded sweep")
+    log(f"phase 23c: an .item() injected into the guarded chunk loop "
+        f"raised: {raised.splitlines()[0][:120]}")
+    rows["seconds"] = time.perf_counter() - t0
+    log(f"phase 23 seconds (host clock): {rows['seconds']:.1f}")
+    return rows
 
 
 def main() -> None:
@@ -4181,10 +4309,14 @@ def main() -> None:
     log(f"main path: {XLSTM.name} served, forwarded, decoded and trained "
         f"(phase 22) launched none of the four kernels")
     log("ssm family on the card: " + json.dumps(ssm22, default=str))
+    tooling = phase23(served, training["full_width"], smi)
+    log("tooling on the card: " + json.dumps(tooling, default=str))
     ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter()]
     log("seconds by phase (host clock): " + ", ".join(
         f"{name} {end - start:.1f}"
         for (name, start), end in zip(PHASE_STARTS, ends)))
+    log(f"script total (host clock, from its start): "
+        f"{time.perf_counter() - T_START:.1f} s")
     print(smi)
     print(json.dumps({"kernels": [kernel, decode, flash, scan]},
                      default=float))

@@ -926,7 +926,7 @@ class ArrayController:
         with self._lock:
             self._pending[agg.node] = agg
 
-    def flush(self) -> List[ControlAction]:
+    def flush(self) -> List[ControlAction]:      # planecheck: hot-loop
         """One control interval: fused decide, then per-node actuation."""
         with self._lock:
             pending, self._pending = self._pending, {}

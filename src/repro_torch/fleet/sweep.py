@@ -46,6 +46,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..analysis.runtime import dispatch_guard
 from ..core.control import f32, fma, vectorized_step
 from ..core.traces import GiB
 from ..device import DeviceLike, resolve_device
@@ -304,11 +305,12 @@ def fleet_sweep_demand(
     cols = [f32(np.asarray(getattr(gains, f.name), np.float32), dev)
             for f in dataclasses.fields(GainSet)]
     pending = []
-    for lo in range(0, n_real, chunk):
-        pending.append(_fleet_chunk(
-            demand_dev, m_dev, w_dev, fl_dev,
-            [c[lo:lo + chunk] for c in cols], interval_s, policy=policy,
-            priority_order=tuple(int(i) for i in priority_order)))
+    with dispatch_guard():
+        for lo in range(0, n_real, chunk):     # planecheck: hot-loop
+            pending.append(_fleet_chunk(
+                demand_dev, m_dev, w_dev, fl_dev,
+                [c[lo:lo + chunk] for c in cols], interval_s, policy=policy,
+                priority_order=tuple(int(i) for i in priority_order)))
 
     def host(x):
         return x.cpu().numpy()

@@ -25,6 +25,8 @@ import time
 from pathlib import Path
 from typing import Callable, Dict, Tuple
 
+from ..analysis.runtime import record_trace
+
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
@@ -136,6 +138,8 @@ def load_library(source: str = "sweep.cu") -> Library:
     src = _CSRC / source
     digest = hashlib.sha1(src.read_bytes()
                           + repr(spec.flags).encode()).hexdigest()[:16]
+    # once per library and flags in a process, unless the cache is lost
+    record_trace("kernels.build", library=src.stem, digest=digest)
     out = BUILD_DIR / f"{src.stem}-{digest}.so"
     build_s, log = 0.0, ""
     if not out.exists():

@@ -45,7 +45,7 @@ from typing import Dict
 
 import torch
 
-from . import refuse_autograd
+from . import count_call, refuse_autograd
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -200,14 +200,29 @@ def _launch(q, k_cache, v_cache, lengths, window: int) -> torch.Tensor:
     return out
 
 
+def _work(q, k_cache, lengths, window: int):
+    """One call's :func:`repro_torch.roofline.kernels.decode` work; on
+    meta tensors the lengths are unknown and every sequence counts at
+    the cache's length."""
+    from ..roofline.kernels import decode
+    b, h, hd = q.shape
+    s, kvh = k_cache.shape[1], k_cache.shape[2]
+    lens = [s] * b if lengths.device.type == "meta" else lengths.tolist()
+    return decode(lens, s, h, kvh, hd, window=window,
+                  q_itemsize=q.element_size(),
+                  kv_itemsize=k_cache.element_size())
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor, *,
                      window: int = 0) -> torch.Tensor:
     """q (B, H, hd), caches (B, S, KV, hd), lengths (B,) -> (B, H, hd).
 
-    CPU tensors run :func:`decode_attention_plain`; CUDA tensors launch
-    the kernel.  Any other device raises, and so do inputs that require
-    grad while grad mode is on.
+    CPU tensors run :func:`decode_attention_plain`; CUDA tensors launch the
+    kernel.  Under a :mod:`repro_torch.roofline.cost` count each call
+    reports its work, and meta tensors are counted, not run.  Any other
+    device raises, and so do inputs that require grad while grad mode is
+    on.
     """
     refuse_autograd("decode_attention", (q, k_cache, v_cache),
                     "the differentiable plain path, repro_torch.models."
@@ -215,6 +230,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, lengths,
                                       window=window)
+    if count_call("decode_attention", q,
+                  lambda lens: _work(q, k_cache, lens, window), lengths):
+        return torch.empty_like(q)                # counted on meta, not run
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cpu or cuda, not "
                          f"{q.device}")

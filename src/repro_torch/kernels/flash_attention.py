@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from . import refuse_autograd
+from . import count_call, refuse_autograd
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -120,13 +120,23 @@ def _launch(q, k, v, causal: bool, window: int) -> torch.Tensor:
     return out
 
 
+def _work(q, k, causal: bool, window: int):
+    """One call's :func:`repro_torch.roofline.kernels.flash` work."""
+    from ..roofline.kernels import flash
+    b, sq, h, hd = q.shape
+    return flash(b, sq, h, k.shape[2], hd, skv=k.shape[1], causal=causal,
+                 window=window, bf16=q.dtype == torch.bfloat16)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q (B, Sq, H, hd), k/v (B, Skv, KV, hd) -> (B, Sq, H, hd).
 
-    CPU tensors run :func:`flash_attention_plain`; CUDA tensors launch
-    the kernel.  Any other device raises, and so do inputs that require
-    grad while grad mode is on.
+    CPU tensors run :func:`flash_attention_plain`; CUDA tensors launch the
+    kernel.  Under a :mod:`repro_torch.roofline.cost` count each call
+    reports its work, and meta tensors are counted, not run.  Any other
+    device raises, and so do inputs that require grad while grad mode is
+    on.
     """
     refuse_autograd("flash_attention", (q, k, v),
                     "the differentiable plain path, repro_torch.models."
@@ -134,6 +144,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     "(Model.forward_train)")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if count_call("flash_attention", q,
+                  lambda: _work(q, k, causal, window)):
+        return torch.empty_like(q)                # counted on meta, not run
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not "
                          f"{q.device}")

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from . import refuse_autograd
+from . import count_call, refuse_autograd
 
 # Kernel launches since import (or since a caller reset it).
 LAUNCHES = 0
@@ -85,19 +85,29 @@ def _launch(decay, drive, h0) -> torch.Tensor:
     return out
 
 
+def _work(decay):
+    """One call's :func:`repro_torch.roofline.kernels.ssm_scan` work."""
+    from ..roofline.kernels import ssm_scan as scan_work
+    return scan_work(*decay.shape, itemsize=decay.element_size())
+
+
 def ssm_scan(decay: torch.Tensor, drive: torch.Tensor,
              h0: torch.Tensor) -> torch.Tensor:
     """decay/drive (B, S, C, N), h0 (B, C, N) -> (B, S, C, N) float32.
 
-    CPU tensors run :func:`ssm_scan_plain`; CUDA tensors launch the
-    kernel.  Any other device raises, and so do inputs that require grad
-    while grad mode is on.
+    CPU tensors run :func:`ssm_scan_plain`; CUDA tensors launch the kernel.
+    Under a :mod:`repro_torch.roofline.cost` count each call reports its
+    work, and meta tensors are counted, not run.  Any other device raises,
+    and so do inputs that require grad while grad mode is on.
     """
     refuse_autograd("ssm_scan", (decay, drive, h0),
                     "the differentiable plain path, repro_torch.models."
                     "ssm.mamba_apply_chunked (Model.forward_train)")
     if decay.device.type == "cpu":
         return ssm_scan_plain(decay, drive, h0)
+    if count_call("ssm_scan", decay, lambda: _work(decay)):
+        return torch.empty(decay.shape, dtype=torch.float32,
+                           device="meta")         # counted on meta, not run
     if decay.device.type != "cuda":
         raise ValueError(f"ssm_scan runs on cpu or cuda, not {decay.device}")
     return _launch(decay, drive, h0)

@@ -351,6 +351,8 @@ def _check(state, hist, demand_seg, lp, np_rows, alive, t0, con,
         raise ValueError(f"demand must be {dem_dtype} for precision="
                          f"{con.precision!r}; got {demand_seg.dtype}")
     for name, (x, shape, dtype) in want.items():
+        # shapes and types only; the table's tuples hold the tensors too
+        # planecheck: ignore[PC-H003]
         if tuple(x.shape) != shape or x.dtype != dtype:
             raise ValueError(f"{name} must be {dtype} of shape {shape}; got "
                              f"{x.dtype} of shape {tuple(x.shape)}")

@@ -43,6 +43,7 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..analysis.runtime import dispatch_guard
 from ..core.control import f32, fma
 from ..core.eviction import policy_model
 from ..core.traces import GiB
@@ -360,11 +361,13 @@ def fused_sweep_demand(
                                     precision, dev)
     graph, total_work = _stage_graph(app_graph, n_nodes, dev)
     alive = _alive(len(gains), n_real, dev)
-    chunks = [_sweep_program(demand_tn, np_rows,
-                             lp[:, lo:lo + chunk].contiguous(),
-                             alive[:, lo:lo + chunk].contiguous(), con, names,
-                             graph, total_work)
-              for lo in range(0, len(gains), chunk)]
+    with dispatch_guard():
+        # planecheck: hot-loop
+        chunks = [_sweep_program(demand_tn, np_rows,
+                                 lp[:, lo:lo + chunk].contiguous(),
+                                 alive[:, lo:lo + chunk].contiguous(), con,
+                                 names, graph, total_work)
+                  for lo in range(0, len(gains), chunk)]
     return FleetStats(*(np.concatenate(f)[:n_real]
                         for f in zip(*map(_to_host, chunks))))
 

@@ -169,7 +169,7 @@ def _cross_lengths(state: DecodeState) -> torch.Tensor:
     return state.enc_len.expand(b).contiguous()
 
 
-def decode_step(model: Model, state: DecodeState,
+def decode_step(model: Model, state: DecodeState,  # planecheck: hot-loop
                 tokens: torch.Tensor) -> torch.Tensor:
     """tokens (B, 1) -> logits (B, 1, padded_vocab); ``state`` in place."""
     cfg = model.cfg

@@ -116,8 +116,10 @@ def embed_tokens(tokens_table: torch.Tensor, ids: torch.Tensor,
     starting "gemma") scales them by sqrt(d) in the table's type first."""
     out = tokens_table[ids]
     if name.startswith("gemma"):
-        out = out * torch.tensor(tokens_table.shape[1] ** 0.5,
-                                 dtype=out.dtype, device=out.device)
+        # filled on the device: a copy from the host would wait for the
+        # device's queue on every decode step
+        out = out * torch.full((), tokens_table.shape[1] ** 0.5,
+                               dtype=out.dtype, device=out.device)
     return out.to(dtype)
 
 

@@ -345,8 +345,10 @@ class Model(nn.Module):
         self.attn_impl = attn_impl
         self.attn_chunk = attn_chunk
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
+        gen = None                 # none on "meta", where nothing is drawn
+        if init:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
 
         def make(shape, kind, **kw):
             t = (init_tensor(shape, kind, gen, dtype, dev, **kw) if init

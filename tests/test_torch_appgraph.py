@@ -35,6 +35,10 @@ from repro_torch.lab.sweep import (GainSet, plan_specialization, run_sweep,
 from repro_torch.lab.tune import grid_gains, halving_tune, tune_gains
 from repro_torch.runtime import limplock_nodes
 
+# One intra-op thread: the suite's workers share the cores, and torch's
+# OpenMP threads, oversubscribed, spin-wait ~100x longer than the ops.
+torch.set_num_threads(1)
+
 M = 125.0 * GiB
 STABILITY_FIELDS = FleetStats._fields[:10]
 

@@ -24,6 +24,10 @@ from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models.attention import attention_decode
 
+# One intra-op thread: the suite's workers share the cores, and torch's
+# OpenMP threads, oversubscribed, spin-wait ~100x longer than the ops.
+torch.set_num_threads(1)
+
 FLASH_CASES = [
     # (b, sq, skv, h, kv, hd, causal, window) of tests/test_kernels.py
     (2, 256, 256, 4, 2, 64, True, 0),

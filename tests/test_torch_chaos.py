@@ -38,6 +38,11 @@ from repro_torch.launch import chaos_drill
 from repro_torch.runtime import (ACTUATION_KINDS, ChaosError, ChaosSpec,
                                  FAULT_KINDS, FaultSpec, HeartbeatMonitor,
                                  TELEMETRY_KINDS, inject)
+import torch
+
+# One intra-op thread: the suite's workers share the cores, and torch's
+# OpenMP threads, oversubscribed, spin-wait ~100x longer than the ops.
+torch.set_num_threads(1)
 
 CPU = "cpu"
 M = 125.0 * GiB

@@ -1,7 +1,8 @@
 """The port's checkpoints: JAX's layout, atomicity, manifest checks,
 retention and async staging (``tests/test_checkpoint.py``'s cases), the
-leaves' names checked on restore, and the files equal to JAX's for the
-same tree."""
+leaves' names checked on restore, the files equal to JAX's for the
+same tree, and the trainer's tree of every family's ``-smoke`` model
+saved and restored."""
 
 import json
 import os
@@ -15,7 +16,15 @@ import torch
 from repro.checkpoint import save_pytree as jax_save_pytree
 from repro_torch.checkpoint import (CheckpointManager, latest_step,
                                     restore_pytree, save_pytree)
+from repro_torch.configs import get_config
+from repro_torch.models import Model
 from repro_torch.optim import AdamWState
+from repro_torch.optim.adamw import adamw_init, adamw_update
+from repro_torch.train.step import model_params
+
+# One intra-op thread: the suite's workers share the cores, and torch's
+# OpenMP threads, oversubscribed, spin-wait ~100x longer than the ops.
+torch.set_num_threads(1)
 
 
 def tree(seed=0):
@@ -144,3 +153,37 @@ def test_named_tuple_leaves_roundtrip(tmp_path):
 def test_restore_latest_without_a_checkpoint(tmp_path):
     assert CheckpointManager(str(tmp_path)).restore_latest(
         tree(), device="cpu") == (None, None)
+
+
+# one arch of each family the port trains
+FAMILY_ARCHS = ("llama3.2-1b", "hymba-1.5b", "gemma3-1b", "qwen2-1.5b",
+                "qwen2-moe-a2.7b", "llama-3.2-vision-11b",
+                "whisper-large-v3", "xlstm-125m")
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_each_familys_training_tree_roundtrips(tmp_path, arch):
+    """The tree the trainer saves (``params``, the AdamW state ``opt``
+    past one update, ``step``) of the ``-smoke`` model comes back leaf
+    for leaf into a tree of another seed, through the async manager."""
+    cfg = get_config(arch + "-smoke")
+    params = model_params(Model(cfg, device="cpu", seed=0))
+    rng = np.random.default_rng(3)
+    grads = {n: torch.from_numpy(rng.normal(0, 1, p.shape).astype(
+        np.float32)) for n, p in params.items()}
+    params, adam = adamw_update(grads, adamw_init(params), params, lr=1e-3)
+    mgr = CheckpointManager(str(tmp_path), async_save=True)
+    mgr.save({"params": params, "opt": adam, "step": 1}, 1)
+    mgr.wait()
+    like = model_params(Model(cfg, device="cpu", seed=1))
+    restored, step = mgr.restore_latest(
+        {"params": like, "opt": adamw_init(like), "step": 0}, device="cpu")
+    assert step == 1 and restored["step"] == 1
+    assert isinstance(restored["opt"], AdamWState)
+    assert torch.equal(restored["opt"].step, adam.step)
+    for got, want in ((restored["params"], params),
+                      (restored["opt"].mu, adam.mu),
+                      (restored["opt"].nu, adam.nu)):
+        assert sorted(got) == sorted(want)
+        for name in want:
+            assert torch.equal(got[name], want[name]), name

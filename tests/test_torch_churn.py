@@ -20,6 +20,11 @@ from repro_torch.convert import gainset_from_numpy
 from repro_torch.lab import scenarios as tsc
 from repro_torch.lab.score import stats_mismatches
 from repro_torch.lab.sweep import run_sweep
+import torch
+
+# One intra-op thread: the suite's workers share the cores, and torch's
+# OpenMP threads, oversubscribed, spin-wait ~100x longer than the ops.
+torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("kw", [

@@ -29,6 +29,11 @@ from repro_torch.core.traces import GiB, IterativeAppSpec
 from repro_torch.lab import scenarios as tsc
 from repro_torch.lab.scenarios import CacheSpec, ScenarioSpec
 from repro_torch.lab.sweep import GainSet, run_sweep
+import torch
+
+# One intra-op thread: the suite's workers share the cores, and torch's
+# OpenMP threads, oversubscribed, spin-wait ~100x longer than the ops.
+torch.set_num_threads(1)
 
 PARITY_KEYS = ("mean_utilization", "p99_utilization", "max_utilization",
                "mean_capacity_gib", "capacity_std_gib",

@@ -20,6 +20,10 @@ from repro.core import control as jc
 from repro_torch.convert import params_from_dict
 from repro_torch.core import control as tc
 
+# One intra-op thread: the suite's workers share the cores, and torch's
+# OpenMP threads, oversubscribed, spin-wait ~100x longer than the ops.
+torch.set_num_threads(1)
+
 GiB = 2.0**30
 N = 16
 

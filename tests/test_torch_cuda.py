@@ -751,3 +751,26 @@ def test_moe_layer_on_the_card_equals_the_cpu(card, cf):
     assert bool((~kc).any()) == (cf < 8.0)
     torch.testing.assert_close(yg, yc, atol=1e-5, rtol=1e-5)
     assert abs(ag - ac) <= 1e-5 * ac
+
+
+def test_analyze_step_counts_a_card_decode_steps_attention(card):
+    """A decode step of the llama smoke model on the card: each decode
+    attention launch is counted at the lengths it was given, which no
+    dispatch mode sees (the kernel goes through ctypes)."""
+    from repro_torch.roofline import analyze_step
+    from repro_torch.roofline import kernels as rk
+    cfg = get_config("llama3.2-1b-smoke")
+    model = Model(cfg, device=card)
+    state = D.init_state(model, 4, 64)
+    state.pos.copy_(torch.tensor([0, 5, 17, 63], dtype=torch.int32))
+    tokens = torch.zeros((4, 1), dtype=torch.int64, device=card)
+    before = da.LAUNCHES
+    with torch.no_grad():
+        row = analyze_step(D.decode_step, model, state, tokens,
+                           desc=dict(kind="decode", tokens=4, n_params=0))
+    dec = row["kernels"]["decode_attention"]
+    assert dec["calls"] == da.LAUNCHES - before == cfg.n_layers
+    one = rk.decode([1, 6, 18, 64], 64, cfg.n_heads, cfg.n_kv_heads,
+                    cfg.head_dim, q_itemsize=4, kv_itemsize=2)
+    assert dec["bytes"] == cfg.n_layers * one.bytes
+    assert dec["ops"] == cfg.n_layers * one.ops

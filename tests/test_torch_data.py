@@ -19,6 +19,10 @@ from repro.data import write_corpus as jax_write_corpus
 from repro_torch.data import (DataPipeline, PipelineConfig, ShardStore,
                               write_corpus)
 
+# One intra-op thread: the suite's workers share the cores, and torch's
+# OpenMP threads, oversubscribed, spin-wait ~100x longer than the ops.
+torch.set_num_threads(1)
+
 CORPUS = dict(n_shards=6, tokens_per_shard=2048, vocab_size=101, seed=3)
 
 

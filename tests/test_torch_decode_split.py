@@ -24,6 +24,10 @@ from hypothesis import given, settings, strategies as st
 from repro.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels import decode_attention as da
 
+# One intra-op thread: the suite's workers share the cores, and torch's
+# OpenMP threads, oversubscribed, spin-wait ~100x longer than the ops.
+torch.set_num_threads(1)
+
 LOG2E = 1.4426950408889634
 SMS = 132                         # an H100 SXM's SMs
 MIN_SPLIT_TILES = 8               # the kernel's kMinSplitTiles

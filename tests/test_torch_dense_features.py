@@ -32,6 +32,10 @@ from repro_torch.models import Model, decode as D
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import layer_windows
 
+# One intra-op thread: the suite's workers share the cores, and torch's
+# OpenMP threads, oversubscribed, spin-wait ~100x longer than the ops.
+torch.set_num_threads(1)
+
 ARCHS = ["gemma3-1b-smoke", "qwen2-1.5b-smoke"]
 BIASES = ("bq", "bk", "bv")
 

@@ -30,6 +30,10 @@ import torch
 from repro.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels import flash_attention as fa
 
+# One intra-op thread: the suite's workers share the cores, and torch's
+# OpenMP threads, oversubscribed, spin-wait ~100x longer than the ops.
+torch.set_num_threads(1)
+
 NEG_INF = -1e30
 
 CASES = [

@@ -55,6 +55,10 @@ from repro_torch.lab.score import stats_mismatches
 from repro_torch.lab.sweep import GainSet
 from repro_torch.runtime.churn import FAILED_DEMAND, churn_demand
 
+# One intra-op thread: the suite's workers share the cores, and torch's
+# OpenMP threads, oversubscribed, spin-wait ~100x longer than the ops.
+torch.set_num_threads(1)
+
 CPU = "cpu"
 M = 125.0 * GiB
 

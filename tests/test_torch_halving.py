@@ -26,6 +26,10 @@ from repro_torch.lab.score import HIST_BINS, stats_mismatches
 from repro_torch.lab.sweep import GainSet, plan_specialization
 from repro_torch.lab.tune import halving_tune
 
+# One intra-op thread: the suite's workers share the cores, and torch's
+# OpenMP threads, oversubscribed, spin-wait ~100x longer than the ops.
+torch.set_num_threads(1)
+
 N_NODES, N_STEPS = 16, 120
 
 

@@ -58,6 +58,10 @@ from repro_torch.optim import adamw_update
 from repro_torch.optim.adamw import decays
 from repro_torch.train import Trainer, TrainerConfig, TrainStepConfig
 
+# One intra-op thread: the suite's workers share the cores, and torch's
+# OpenMP threads, oversubscribed, spin-wait ~100x longer than the ops.
+torch.set_num_threads(1)
+
 HYMBA = "hymba-1.5b-smoke"
 ARCHS = [HYMBA, "gemma3-1b-smoke", "qwen2-1.5b-smoke"]
 # Logged losses, port against JAX from the same init (absolute, on a loss

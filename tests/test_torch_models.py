@@ -30,6 +30,10 @@ from repro_torch.models import layers as L
 from repro_torch.models.attention import make_mask, update_kv_cache
 from repro_torch.models.transformer import init_tensor
 
+# One intra-op thread: the suite's workers share the cores, and torch's
+# OpenMP threads, oversubscribed, spin-wait ~100x longer than the ops.
+torch.set_num_threads(1)
+
 ARCH = "llama3.2-1b-smoke"
 
 

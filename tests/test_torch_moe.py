@@ -58,6 +58,10 @@ from repro_torch.models import moe as TM
 from repro_torch.optim.adamw import decays
 from repro_torch.train import Trainer, TrainerConfig, TrainStepConfig
 
+# One intra-op thread: the suite's workers share the cores, and torch's
+# OpenMP threads, oversubscribed, spin-wait ~100x longer than the ops.
+torch.set_num_threads(1)
+
 QWEN = "qwen2-moe-a2.7b-smoke"
 DBRX = "dbrx-132b-smoke"
 ARCHS = [QWEN, DBRX]

@@ -29,6 +29,10 @@ from repro_torch.optim import (adamw_init, adamw_update, compress_decompress,
 from repro_torch.optim.adamw import decays
 from repro_torch.train.step import clip_by_global_norm, global_norm
 
+# One intra-op thread: the suite's workers share the cores, and torch's
+# OpenMP threads, oversubscribed, spin-wait ~100x longer than the ops.
+torch.set_num_threads(1)
+
 
 def _rel(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)

@@ -34,6 +34,10 @@ from repro_torch.core import (AGG_TOPIC, CONTROL_TOPIC, RAW_TOPIC,
                               StoreSpec, validate_sample)
 from repro_torch.core.plane import FaultEvent, FaultLog
 
+# One intra-op thread: the suite's workers share the cores, and torch's
+# OpenMP threads, oversubscribed, spin-wait ~100x longer than the ops.
+torch.set_num_threads(1)
+
 CPU = "cpu"
 M = 125.0 * GiB
 BACKENDS = ("scalar", "array")

@@ -51,6 +51,10 @@ from repro_torch.launch import time_sweep as ttime
 from repro_torch.models import Model
 from repro_torch.serving import ServingConfig, ServingEngine
 
+# One intra-op thread: the suite's workers share the cores, and torch's
+# OpenMP threads, oversubscribed, spin-wait ~100x longer than the ops.
+torch.set_num_threads(1)
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
@@ -78,8 +82,9 @@ def test_port_imports_nothing_of_jax_or_repro(path):
 def test_import_rule_covers_every_package_of_the_port():
     """Each subpackage of the port (the runtime copies too) is walked."""
     walked = {p.parent.name for p in _port_files()}
-    for pkg in ("checkpoint", "core", "data", "fleet", "kernels", "lab",
-                "launch", "optim", "runtime", "serving", "train"):
+    for pkg in ("analysis", "checkpoint", "core", "data", "fleet",
+                "kernels", "lab", "launch", "optim", "roofline", "runtime",
+                "serving", "train"):
         assert pkg in walked
 
 

@@ -32,6 +32,11 @@ from repro_torch.lab import scenarios as tsc
 from repro_torch.lab.scenarios import ScenarioSpec
 from repro_torch.lab.sweep import GainSet, run_sweep
 from repro_torch.lab.tune import retune_online
+import torch
+
+# One intra-op thread: the suite's workers share the cores, and torch's
+# OpenMP threads, oversubscribed, spin-wait ~100x longer than the ops.
+torch.set_num_threads(1)
 
 
 def _arrays(n=4, t=120, seed=0):

@@ -15,6 +15,10 @@ import torch
 from repro.lab import score as js
 from repro_torch.lab import score as ts
 
+# One intra-op thread: the suite's workers share the cores, and torch's
+# OpenMP threads, oversubscribed, spin-wait ~100x longer than the ops.
+torch.set_num_threads(1)
+
 T, L, N = 40, 5, 12
 
 

@@ -35,6 +35,10 @@ from repro_torch.core.store import KVBlockPool
 from repro_torch.launch import profile_serve, serve
 from repro_torch.serving import ServingConfig, ServingEngine
 
+# One intra-op thread: the suite's workers share the cores, and torch's
+# OpenMP threads, oversubscribed, spin-wait ~100x longer than the ops.
+torch.set_num_threads(1)
+
 ARCH = "llama3.2-1b-smoke"
 
 

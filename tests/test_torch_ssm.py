@@ -45,6 +45,10 @@ from repro_torch.models import ssm as tssm
 from repro_torch.models.transformer import layer_windows
 from repro_torch.serving import ServingConfig, ServingEngine
 
+# One intra-op thread: the suite's workers share the cores, and torch's
+# OpenMP threads, oversubscribed, spin-wait ~100x longer than the ops.
+torch.set_num_threads(1)
+
 ARCH = "hymba-1.5b-smoke"
 
 # (b, s, c, n) of tests/test_kernels.py's SSM_CASES, then its chunk-carry

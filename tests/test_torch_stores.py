@@ -17,6 +17,11 @@ import repro_torch.core as T
 from repro_torch.core import (KVBlockPool, LFUPolicy, LRUPolicy, ShardCache,
                               StoreRegistry, make_policy)
 from repro_torch.core.eviction import AdaptivePolicy, FIFOPolicy
+import torch
+
+# One intra-op thread: the suite's workers share the cores, and torch's
+# OpenMP threads, oversubscribed, spin-wait ~100x longer than the ops.
+torch.set_num_threads(1)
 
 
 class Blob:

@@ -33,6 +33,10 @@ from repro_torch.lab.sweep import (DEFAULT_CHUNK, _resolve_chunk,
                                    plan_specialization, run_sweep,
                                    sweep_demand)
 
+# One intra-op thread: the suite's workers share the cores, and torch's
+# OpenMP threads, oversubscribed, spin-wait ~100x longer than the ops.
+torch.set_num_threads(1)
+
 N_NODES, N_STEPS = 12, 96
 
 # Every registry scenario: the two AppGraph ones run their stage DAG

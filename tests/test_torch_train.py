@@ -68,6 +68,10 @@ from repro_torch.models import attention as TA
 from repro_torch.train import Trainer, TrainerConfig, TrainStepConfig
 from repro_torch.train.step import TrainState, model_params
 
+# One intra-op thread: the suite's workers share the cores, and torch's
+# OpenMP threads, oversubscribed, spin-wait ~100x longer than the ops.
+torch.set_num_threads(1)
+
 ARCH = "llama3.2-1b-smoke"
 STEPS = 8
 # Logged losses, port against JAX from the same init (absolute, on a loss

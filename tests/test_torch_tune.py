@@ -20,6 +20,11 @@ from repro_torch.convert import gainset_from_numpy, params_from_dict
 from repro_torch.lab import scenarios as tsc
 from repro_torch.lab.tune import (_default_candidates, tune_gains,
                                   tune_portfolio)
+import torch
+
+# One intra-op thread: the suite's workers share the cores, and torch's
+# OpenMP threads, oversubscribed, spin-wait ~100x longer than the ops.
+torch.set_num_threads(1)
 
 
 def _port(g):

@@ -64,6 +64,10 @@ from repro_torch.optim.adamw import decays
 from repro_torch.serving import ServingConfig, ServingEngine
 from repro_torch.train import Trainer, TrainerConfig, TrainStepConfig
 
+# One intra-op thread: the suite's workers share the cores, and torch's
+# OpenMP threads, oversubscribed, spin-wait ~100x longer than the ops.
+torch.set_num_threads(1)
+
 ARCH = "llama-3.2-vision-11b-smoke"
 # Logged losses, port against JAX from the same init (absolute, on a loss
 # of ~6.9), as tests/test_torch_train.py holds llama's.
