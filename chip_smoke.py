@@ -118,7 +118,18 @@ each, all at once) and drives the port's main paths on the card:
   counted on meta tensors (``repro_torch.roofline.analyze_step``) beside
   the ms a step phases 7 and 18a measured, and a small
   ``fused_sweep_demand`` with ``PLANECHECK_SANITIZERS=1``: its chunk loop
-  under ``dispatch_guard`` passes, and raises on an injected ``.item()``.
+  under ``dispatch_guard`` passes, and raises on an injected ``.item()``;
+* the multi-device sweeps (phase 24), on one card laid out as four
+  shards with a stream each (``("cuda:0",) * 4``; distinct cards too
+  where the machine has them): ``sweep_demand`` at 4096 x 1000 x 64,
+  cache off and on, over 4 gain shards (bit for bit one device's) and
+  2 x 2 and 1 x 4 node shards (within the test brackets); the AppGraph
+  at 16e's spark-dag 4096 x 1800 x 64 over 4 node shards, the sweep
+  kernel's one-interval graph entry launched per interval with the
+  barrier's min exchanged between launches (the makespans bit for bit,
+  no host sync under the sanitizers); that entry against its plain
+  version, and one launch timed beside its bound; the fleet sweep over
+  node shards.
 
 Every bound comes from ``repro_torch.roofline`` (the H100's data-sheet
 peaks and each kernel's work from its shapes).  Phases 19c, 20d, 21d
@@ -126,8 +137,9 @@ and 22c train without the end-of-run checkpoint that 18a writes and
 times.  To keep the script well inside its time limit on a slow host,
 phase 2 holds ``sweep_demand`` against the CPU at 16 of the 64 gains
 (phase 1 holds the kernel at all 64), 17b runs the registry's fleets
-over their first 1400 intervals and the 4096-node row over 500, and
-21b prefills prompts of 64 tokens.
+over their first 700 intervals and fleet_bench's rows over 250, 16e
+times the graph instance's plain version at 4096 nodes only, and 21b
+prefills prompts of 64 tokens.
 
 Decode attention at the engines' shapes (phases 9 and 13) is timed three
 ways, also in a fresh process that has built no plane (``chip_smoke.py
@@ -194,6 +206,7 @@ from repro_torch.kernels import flash_attention as kf  # noqa: E402
 from repro_torch.kernels import ssm_scan as kscan  # noqa: E402
 from repro_torch.kernels import sweep as ks  # noqa: E402
 from repro_torch.lab import fused_sweep as fs  # noqa: E402
+from repro_torch.lab import mesh  # noqa: E402
 from repro_torch.lab import tune as tune_mod  # noqa: E402
 from repro_torch.lab.scenarios import (ScenarioSpec,  # noqa: E402
                                        get_scenario)
@@ -2003,7 +2016,7 @@ def phase16e():
                  launches=len(range(0, lp.shape[1], ks.graph_lane_limit(
                      kw["con"], spec.n_nodes, CUDA) or lp.shape[1])),
                  us_per_interval=ms * 1e3 / spec.n_intervals)
-        if tag.startswith("spark-dag"):
+        if tag == f"spark-dag {N_NODES}x1800":
             # one run: a Python loop of small launches, host-bound
             r["plain_ms"] = cuda_ms(lambda: ks.sweep_segment_plain(*args,
                                                                    **kw),
@@ -2043,10 +2056,11 @@ FLEET_GAINS = grid_gains(lam=(0.3, 0.5, 0.8, 1.2),
 # the 4096-node fleet: 1e-3 GiB of conservation slack is the float32
 # rounding of K summed grants (the sweep's own bracket)
 SLACK_GIB = -1e-3
-# 17b runs each registry fleet over its first 1400 intervals (hpcc-spark
-# has 4200, ~10 s a policy on the card, host-bound) and the 4096-node
-# row over 500 (its CPU reference takes ~25 s at 1000)
-FLEET_17B_INTERVALS = 1400
+# 17b runs each registry fleet over its first 700 intervals (hpcc-spark
+# has 4200, ~10 s a policy on the card, host-bound) and fleet_bench's
+# rows over 250 (the 4096-node row's CPU reference takes ~25 s at 1000)
+FLEET_17B_INTERVALS = 700
+FLEET_17B_BENCH_INTERVALS = 250
 
 
 def phase17a():
@@ -2164,7 +2178,8 @@ def phase17b():
     # its 16 gains; its largest row, then the sweep bench's 4096 nodes
     bench_gains = grid_gains(lam=np.linspace(0.1, 1.8, 4),
                              r0=np.linspace(0.88, 0.98, 4))
-    for k, n, t in ((8, 1024, 500), (4, 4096, 500)):
+    t = FLEET_17B_BENCH_INTERVALS
+    for k, n in ((8, 1024), (4, 4096)):
         demand = np.stack([fleet_demand_traces(n, t, 0.1, seed=j * 7919)
                            for j in range(k)])
         floors = np.zeros(k)
@@ -4001,6 +4016,339 @@ def phase23(served, trained, smi):
     return rows
 
 
+# ---- the multi-device sweeps (phase 24) ----
+
+# One card laid out as four shards, each with a stream of its own: the
+# port's counterpart of JAX's --xla_force_host_platform_device_count=4
+ONE_CARD_FOUR = ("cuda:0",) * 4
+LAYOUTS_24 = (("4 gain shards", dict(devices=ONE_CARD_FOUR)),
+              ("2 x 2", dict(devices=ONE_CARD_FOUR, node_shards=2)),
+              ("1 x 4", dict(devices=ONE_CARD_FOUR, node_shards=4)))
+# fields a fold over node shards leaves exact: counts, maxes, the settle
+# interval
+EXACT_24 = ("max_utilization", "frac_intervals_over_r0", "max_over_r0",
+            "pressure_violation_rate", "settle_intervals")
+# 24c: (nodes, intervals, lanes) of the entry against its plain version
+ENTRY_24C = (1024, 600, 16)
+# 24c: the intervals of the case at 24b's own operands
+HORIZON_24C = 40
+# 24d: 17b's 8 x 1024 fleet row over its first 200 intervals (hpcc-spark's
+# 5 nodes divide by neither 2 nor 4)
+FLEET_24D = (8, 1024, 200)
+
+
+def distinct_cards():
+    """Up to four distinct cards, or None on a one-card machine."""
+    n = torch.cuda.device_count()
+    return tuple(f"cuda:{i}" for i in range(min(n, 4))) if n >= 2 else None
+
+
+def synced_ms(fn):
+    """(fn(), its host-clock ms with the card idle before and after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def bits_differing(a, b, fields):
+    return [f for f in fields
+            if not np.array_equal(getattr(a, f), getattr(b, f))]
+
+
+def phase24a(demand):
+    """sweep_demand at the lab benchmark's fleet in four layouts of one
+    card (and of distinct cards where the machine has them)."""
+    log("phase 24a: sweep_demand 4096 x 1000 x 64, cache off and on, in "
+        "four layouts of one card (devices=1; 4 gain shards, bit for bit; "
+        "2 x 2 and 1 x 4 node shards, within the test brackets); ms end to "
+        "end on the host clock, numpy in and out, each layout's second run")
+    layouts = list(LAYOUTS_24)
+    cards = distinct_cards()
+    if cards:
+        layouts += [(f"{len(cards)} cards, gain shards",
+                     dict(devices=cards)),
+                    (f"{len(cards)} cards, 1 x {len(cards)}",
+                     dict(devices=cards, node_shards=len(cards)))]
+    log("  distinct cards: " + (f"{cards} ran too" if cards else
+                                f"not run ({torch.cuda.device_count()} "
+                                f"card on this machine)"))
+    gains, m = grid_gains(), np.full(N_NODES, 125 * GiB)
+    out = {"distinct_cards": cards}
+    launches = 0        # the timed sharded runs' (not devices=1 or warm-ups)
+    for tag, cache in (("cache-off", None), ("cache-on", CACHE)):
+        kw = dict(node_memory=m, cache=cache)
+        # each layout timed on its second run: the first makes its
+        # streams and allocations
+        sweep_demand(demand, gains, devices=1, **kw)
+        one, ms1 = synced_ms(lambda: sweep_demand(demand, gains, devices=1,
+                                                  **kw))
+        row = {"devices=1": {"ms": ms1}}
+        for name, lay in layouts:
+            sweep_demand(demand, gains, **lay, **kw)
+            ks.LAUNCHES = 0                # this sharded run starts here
+            got, ms = synced_ms(lambda: sweep_demand(demand, gains, **lay,
+                                                     **kw))
+            launches += ks.LAUNCHES
+            bits = bits_differing(got, one, FleetStats._fields)
+            bad = stats_mismatches(got, one, n_samples=N_NODES * N_STEPS)
+            sharded = lay.get("node_shards", 1) > 1
+            log(f"  {tag} {name}: {ms:.1f} ms end to end (devices=1 "
+                f"{ms1:.1f}); fields differing from devices=1 bit for bit: "
+                f"{bits or 'none'}; brackets: {bad or 'held'}")
+            if sharded:
+                check(not bad, f"24a {tag} {name}: {bad}")
+                check(not set(bits) & set(EXACT_24),
+                      f"24a {tag} {name}: an exact field differs: {bits}")
+            else:
+                check(not bits, f"24a {tag} {name}: gain shards differ from "
+                      f"one device: {bits}")
+            row[name] = {"ms": ms, "fields_differing": bits}
+        out[tag] = row
+    out["launches"] = launches
+    log(f"main path: sweep kernel launched {launches} times (phase 24a's "
+        f"timed sharded sweeps, each counted from 0 just before it)")
+    check(launches > 0, "24a's sharded sweeps launched no sweep kernel")
+    return out
+
+
+def exchange_operands(spec, gains, device, n_shards, n_dead=0):
+    """Each node shard's graph segment operands of ``spec``'s horizon."""
+    con = fs._engine_consts(plan_specialization(gains), spec.cache,
+                            spec.interval_s, 1.0, "f32", spec.app_graph)
+    names = ks.state_names(con.paper_law, con.has_cache, True)
+    demand = spec.build_demand(seed=0)
+    work, stage, total = fs._graph_host(spec.app_graph, spec.n_nodes)
+    cols = spec.n_nodes // n_shards
+    ops = []
+    for j in range(n_shards):
+        c = slice(j * cols, (j + 1) * cols)
+        dtn, rows, lp = fs._stage(demand[c], gains, GRAPH_M, spec.cache,
+                                  "f32", device)
+        g = (torch.from_numpy(np.ascontiguousarray(work[:, c])).to(device),
+             torch.from_numpy(stage).to(device))
+        alive = fs._alive(len(gains), len(gains) - n_dead, device)
+        ops.append(dict(state=fs._init_state(lp, rows, dtn[0], con, names,
+                                             g),
+                        hist=fs._zero_hist(lp), demand=dtn, lp=lp,
+                        rows=rows, alive=alive, graph=g))
+    return ops, con, names, total
+
+
+def run_exchange(spec, gains, device, n_shards, n_dead):
+    """graph_exchange over ``n_shards`` shards of one device: the state
+    (nodes in order) and the histograms summed, on the CPU."""
+    ops, con, names, _ = exchange_operands(spec, gains, device, n_shards,
+                                           n_dead)
+    shards = [mesh.Shard(torch.device(device)) for _ in ops]
+    states = [o["state"].clone() for o in ops]
+    hists = [o["hist"].clone() for o in ops]
+    mesh.graph_exchange(shards, states, hists, [o["demand"] for o in ops],
+                        [o["lp"] for o in ops], [o["rows"] for o in ops],
+                        [o["alive"] for o in ops], [o["graph"] for o in ops],
+                        t0=0, con=con, names=names)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return (torch.cat(states, -1).cpu(), sum(h.cpu() for h in hists),
+            names)
+
+
+def phase24b(big_ms):
+    """The graph instance over 4 node shards at phase 16e's spark-dag
+    4096 x 1800 x 64 (the one-interval entry and its exchange) against
+    one device, guarded against host syncs."""
+    spec = spark_dag_fleet(N_NODES)
+    log(f"phase 24b: spark-dag {N_NODES} x {spec.n_intervals} x 64 "
+        f"(cache-on) over 1 x 4 node shards of one card, the barrier's min "
+        f"exchanged every interval, against devices=1")
+    gains = gains_64("paper")
+    demand = spec.build_demand(seed=0)
+    kw = dict(node_memory=GRAPH_M, interval_s=spec.interval_s,
+              cache=spec.cache, app_graph=spec.app_graph)
+    one, ms1 = synced_ms(lambda: sweep_demand(demand, gains, devices=1,
+                                              **kw))
+    ks.INTERVAL_LAUNCHES = 0               # the node-sharded path starts here
+    four, ms4 = synced_ms(lambda: sweep_demand(
+        demand, gains, devices=ONE_CARD_FOUR, node_shards=4, **kw))
+    launches = ks.INTERVAL_LAUNCHES
+    log(f"main path: the one-interval graph entry launched {launches} "
+        f"times (phase 24b)")
+    check(launches == 4 * (spec.n_intervals + 2),
+          f"24b: {launches} launches, not 4 x (T + 2)")
+    same = np.array_equal(four.makespan, one.makespan)
+    bad = stats_mismatches(four, one, n_samples=N_NODES * spec.n_intervals)
+    bits = bits_differing(four, one, FleetStats._fields)
+    finished = int((one.makespan < spec.n_intervals * spec.interval_s).sum())
+    log(f"  makespan bit for bit: {same} ({finished} of 64 lanes finished, "
+        f"{float(one.makespan.min()):.2f}-{float(one.makespan.max()):.2f} "
+        f"s); brackets: {bad or 'held'}; fields differing bit for bit: "
+        f"{bits or 'none'}")
+    check(same, "24b: the node-sharded makespans differ from one device's")
+    check(not bad, f"24b: {bad}")
+    before = os.environ.get("PLANECHECK_SANITIZERS")
+    os.environ["PLANECHECK_SANITIZERS"] = "1"
+    try:
+        guarded = sweep_demand(demand, gains, devices=ONE_CARD_FOUR,
+                               node_shards=4, **kw)
+    finally:
+        if before is None:
+            del os.environ["PLANECHECK_SANITIZERS"]
+        else:
+            os.environ["PLANECHECK_SANITIZERS"] = before
+    check(not bits_differing(guarded, four, FleetStats._fields),
+          "24b: the guarded sharded sweep differs")
+    log(f"  under PLANECHECK_SANITIZERS=1 (sync debug mode 'error' over the "
+        f"dispatch): no host sync, the same stats")
+    log(f"  route: {ms4:.1f} ms end to end over 4 x {spec.n_intervals + 2} "
+        f"launches ({ms4 * 1e3 / spec.n_intervals:.1f} us an interval); "
+        f"devices=1 {ms1:.1f} ms end to end; the unsharded graph kernel "
+        f"{big_ms:.4f} ms (phase 16e)")
+    return dict(launches=launches, route_ms=ms4, devices1_ms=ms1,
+                unsharded_kernel_ms=big_ms, makespan_equal=same,
+                fields_differing=bits, lanes_finished=finished)
+
+
+def phase24c(smi):
+    """The one-interval entry against its plain version (the exchange on
+    the CPU), at a cut size and at the main path's own shard shape, and
+    one launch's time at that shape."""
+    n, t, lanes = ENTRY_24C
+    log(f"phase 24c: the one-interval graph entry over node shards on the "
+        f"card against its plain version on the CPU: {n} nodes x {t} "
+        f"intervals x {lanes} lanes (2 dead) over 2 shards, and 24b's own "
+        f"operands ({N_NODES} nodes over 4 shards x 64 lanes) over "
+        f"{HORIZON_24C} intervals; one launch timed at 24b's shard shape "
+        f"on {smi}")
+    small = grid_gains(lam=np.linspace(0.2, 1.6, 8), r0=(0.9, 0.95))
+    limp = get_scenario("limplock")
+    cases = [("limplock, cache-off", limp.replace(
+        n_nodes=n, n_intervals=t, app_graph=limp.app_graph.replace(
+            iterations=1, slow_nodes=(n - n // 3,))), small, 2, 2),
+             ("spark-dag, cache-on", spark_dag_fleet(n // 2).replace(
+                 n_intervals=t // 2), small, 2, 2),
+             ("spark-dag at 24b's shard shape, cache-on",
+              spark_dag_fleet(N_NODES).replace(n_intervals=HORIZON_24C),
+              gains_64("paper"), 4, 0)]
+    worst, out = 0.0, {}
+    for tag, spec, gains, n_shards, n_dead in cases:
+        live = len(gains) - n_dead
+        sk, hk, names = run_exchange(spec, gains, CUDA, n_shards, n_dead)
+        sp, hp, _ = run_exchange(spec, gains, "cpu", n_shards, n_dead)
+        max_abs, max_rel = compare_planes(names, sk, sp)
+        exact = torch.equal(sk, sp) and torch.equal(hk, hp)
+        n_bins = int((hk != hp).sum())
+        rows_equal = all(torch.equal(sk[names.index(p)], sp[names.index(p)])
+                         for p in ("sidx", "t_done"))
+        t_done = sk[names.index("t_done"), :live, 0]
+        log(f"  {tag} ({spec.n_nodes} x {spec.n_intervals} over {n_shards} "
+            f"shards): bit-identical={exact} max_abs={max_abs:.3e} "
+            f"max_rel={max_rel:.3e} hist_bins_differing={n_bins} "
+            f"rows_and_t_done_equal={rows_equal} lanes finished "
+            f"{int((t_done >= 0).sum())} of {live}")
+        check(rows_equal, f"24c {tag}: stage rows or t_done differ")
+        if spec.cache is None:
+            check(exact, f"24c {tag}: not bit-identical to the plain version")
+        else:
+            check(max_rel <= 1e-6 and n_bins <= live,
+                  f"24c {tag}: {max_rel:.3e} relative, {n_bins} bins")
+        worst = max(worst, max_abs)
+        out[tag] = dict(bit_identical=exact, max_abs_err=max_abs,
+                        max_rel_err=max_rel, hist_bins_differing=n_bins)
+    spec = spark_dag_fleet(N_NODES)
+    ops, con, names, _ = exchange_operands(spec, gains_64("paper"), CUDA, 4)
+    o = ops[0]
+    fleet_in = torch.zeros((64,), dtype=torch.int32, device=CUDA)
+    lvl = torch.full((64,), ks.LVL_EMPTY, dtype=torch.int32, device=CUDA)
+    kw = dict(k=1, t0=0, con=con, names=names, graph=o["graph"],
+              fleet_in=fleet_in, out=lvl,
+              mode=ks.GRAPH_STEP | ks.GRAPH_PROMOTE)
+    args = (o["state"], o["hist"], o["demand"], o["lp"], o["rows"],
+            o["alive"])
+    before = ks.INTERVAL_LAUNCHES
+    # what the timed launch touches, from one launch on copies: the bins
+    # it adds to and the work entries (row, node) its promotions read
+    st, hist = o["state"].clone(), o["hist"].clone()
+    ks.graph_interval(st, hist, *args[2:], **{**kw, "out": lvl.clone()})
+    hist_updates = int((hist != o["hist"]).sum())
+    sidx = names.index("sidx")
+    moved = st[sidx] != o["state"][sidx]
+    node = torch.arange(st.shape[-1], device=CUDA).expand_as(moved)
+    work_reads = int(torch.unique(st[sidx][moved].long() * st.shape[-1]
+                                  + node[moved]).numel())
+    ms = cuda_ms(lambda: ks.graph_interval(*args, **kw), reps=21,
+                 lead=True)
+    ks.INTERVAL_LAUNCHES = before          # timing launches are not the path
+    plain_ms = cuda_ms(lambda: ks.graph_interval_plain(*args, **kw),
+                       reps=5, warm=1)
+    work = rk.sweep_interval(N_NODES // 4, 64, cache=True, paper_law=True,
+                             n_stages=o["graph"][1].shape[1] - 1,
+                             hist_updates=hist_updates,
+                             work_reads=work_reads)
+    log(f"  one launch (a shard of {N_NODES // 4} nodes x 64 lanes, "
+        f"cache-on, stepping and promoting): {ms:.4f} ms (CUDA events after "
+        f"a ~1 ms device-side lead, median of 21); plain {plain_ms:.4f} ms; "
+        f"bound {work.bound_ms:.4f} ms by {work.bound_by} "
+        f"({work.bytes / 1e6:.2f} MB: the state read and written, "
+        f"{hist_updates} histogram bins added to, {work_reads} work entries "
+        f"read), the launch at {work.bound_ms / ms:.1%} of it")
+    out.update(ms=ms, plain_ms=plain_ms, bound_ms=work.bound_ms,
+               bound_by=work.bound_by, max_abs_err=worst,
+               hist_updates=hist_updates, work_reads=work_reads)
+    return out
+
+
+def phase24d():
+    """The fleet sweep over node shards against one device."""
+    k, n, t = FLEET_24D
+    log(f"phase 24d: fleet_sweep_demand {k} x {n} x {t} x 16 over 2 x 2 "
+        f"and 1 x 4 layouts of one card against devices=1")
+    demand = np.stack([fleet_demand_traces(n, t, 0.1, seed=j * 7919)
+                       for j in range(k)])
+    floors = np.zeros(k)
+    floors[-1] = 8.0 * GiB
+    kw = dict(node_memory=FLEET_M, weights=np.linspace(3.0, 1.0, k),
+              floors=floors, policy="proportional", epoch_intervals=50,
+              interval_s=0.1)
+    gains = grid_gains(lam=np.linspace(0.1, 1.8, 4),
+                       r0=np.linspace(0.88, 0.98, 4))
+    (one, one_ex), ms1 = synced_ms(lambda: fleet_sweep_demand(
+        demand, gains, devices=1, **kw))
+    out = {"devices=1": {"ms": ms1}}
+    for name, lay in LAYOUTS_24[1:]:
+        (got, ex), ms = synced_ms(lambda: fleet_sweep_demand(
+            demand, gains, **lay, **kw))
+        bad = stats_mismatches(got, one, n_samples=n * t)
+        bits = bits_differing(got, one, FleetStats._fields)
+        ex_bits = bits_differing(ex, one_ex, FleetExtras._fields)
+        for f in FleetExtras._fields:
+            np.testing.assert_allclose(getattr(ex, f), getattr(one_ex, f),
+                                       rtol=2e-4, atol=1e-3,
+                                       err_msg=f"24d {name} {f}")
+        mins_exact = not set(ex_bits) & {"conservation_slack_gib",
+                                         "floor_slack_gib",
+                                         "tenant_budget_min_gib"}
+        log(f"  {name}: {ms:.1f} ms end to end (devices=1 {ms1:.1f}); "
+            f"brackets: {bad or 'held'}; differing bit for bit: stats "
+            f"{bits or 'none'}, extras {ex_bits or 'none'}")
+        check(not bad, f"24d {name}: {bad}")
+        check(mins_exact, f"24d {name}: a min fold differs: {ex_bits}")
+        out[name] = {"ms": ms, "fields_differing": bits + ex_bits}
+    return out
+
+
+def phase24(demand, big_ms, smi):
+    """Phase 24: the multi-device sweeps on one card."""
+    t0 = time.perf_counter()
+    a = phase24a(demand)
+    b = phase24b(big_ms)
+    c = phase24c(smi)
+    d = phase24d()
+    seconds = time.perf_counter() - t0
+    log(f"phase 24 seconds (host clock): {seconds:.1f}")
+    return dict(sweep=a, graph=b, entry=c, fleet=d, seconds=seconds)
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--decode-times"]:
         print(json.dumps(fresh_decode_times(json.loads(sys.argv[2]))))
@@ -4311,6 +4659,34 @@ def main() -> None:
     log("ssm family on the card: " + json.dumps(ssm22, default=str))
     tooling = phase23(served, training["full_width"], smi)
     log("tooling on the card: " + json.dumps(tooling, default=str))
+    mesh24 = phase24(demand, big["ms"], smi)
+    kernel["launches_by_path"]["timed sharded sweep_demand layouts (phase "
+                               "24a)"] = \
+        mesh24["sweep"]["launches"]
+    kernel["launches"] = sum(kernel["launches_by_path"].values())
+    entry = mesh24["entry"]
+    interval = {
+        "name": "graph_interval (sweep_segment's graph instance, one "
+                "interval a launch)", "route": "cuda",
+        "source": "src/repro_torch/csrc/sweep.cu",
+        "replaces": "src/repro/lab/sweep.py:403 (the barrier's pmin across "
+                    "node shards; XLA beside "
+                    "src/repro/lab/pallas_sweep.py:407)",
+        "launches": mesh24["graph"]["launches"],
+        "launches_by_path": {"spark-dag 4096 x 1800 x 64 over 1 x 4 node "
+                             "shards (phase 24b)":
+                             mesh24["graph"]["launches"]},
+        "max_abs_err": entry["max_abs_err"],
+        **{k: entry[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "shape": f"one launch: a shard of {N_NODES // 4} nodes x 64 lanes, "
+                 f"spark-dag cache-on, stepping and promoting",
+        "route_ms": mesh24["graph"]["route_ms"],
+        "unsharded_kernel_ms": mesh24["graph"]["unsharded_kernel_ms"],
+        "parity": {k: v for k, v in entry.items()
+                   if isinstance(v, dict)}}
+    log("multi-device sweeps on the card: "
+        + json.dumps(mesh24, default=str))
     ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter()]
     log("seconds by phase (host clock): " + ", ".join(
         f"{name} {end - start:.1f}"
@@ -4318,7 +4694,7 @@ def main() -> None:
     log(f"script total (host clock, from its start): "
         f"{time.perf_counter() - T_START:.1f} s")
     print(smi)
-    print(json.dumps({"kernels": [kernel, decode, flash, scan]},
+    print(json.dumps({"kernels": [kernel, interval, decode, flash, scan]},
                      default=float))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -99,6 +99,21 @@
 // it, the CacheLoop's dt_app.  Bound: the carry adds ~20 operations per
 // update and the lane's reductions, which serialise the intervals: a
 // small fleet is bound by their latency, not by operations or bytes.
+//
+// The one-interval graph entry (dynims_sweep_graph_interval): when a
+// lane's nodes are split over shards (devices, or streams of one card),
+// the lane min has to leave the launch.  Each launch then runs one
+// interval with the loop body rotated: it first finishes the previous
+// interval with the fleet min the caller folded over the shards (the
+// t_done test and the promotion, mode bit kPromote, reading `fleet_in`),
+// then steps its interval up to the progress code and atomicMins its
+// shard's lane min into `lvl_out` (kStep).  The segment's closing
+// reduction is two more launches: the min of the stage rows (kRows),
+// then the t_done of a DAG that finished on the last interval (kClose).
+// State stays in `state`, read and written in place once a launch; the
+// histogram row gets each interval's counts by warp-aggregated atomics.
+
+#include <climits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -594,6 +609,165 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(
   }
 }
 
+// Mode bits of the one-interval graph entry (kernels/sweep.py GRAPH_*).
+constexpr int kPromote = 1;  // finish interval t - 1 with fleet_in
+constexpr int kStep = 2;     // step interval t (demand row `row`)
+constexpr int kRows = 4;     // the lane min of the stage rows
+constexpr int kClose = 8;    // fleet_in is the rows min: t_done = t
+
+// One update into a lane's histogram row in device memory: the warp's
+// equal bins are added by one atomic.  A loop past the last node counts
+// nothing.
+__device__ __forceinline__ void count_row(int* row, int bin, bool counted) {
+  const int key = counted ? bin : -1;
+  const unsigned peers = __match_any_sync(0xffffffffu, key);
+  if (key >= 0 && (threadIdx.x & 31) == __ffs(peers) - 1) {
+    atomicAdd(row + key, __popc(peers));
+  }
+}
+
+template <bool PAPER_LAW, bool UNIT_OCC, bool HAS_CACHE, bool BF16>
+__global__ void __launch_bounds__(kThreads) graph_interval_kernel(
+    const void* __restrict__ demand, int row, const float* __restrict__ lp,
+    const float* __restrict__ np_rows, const float* __restrict__ alive,
+    float* __restrict__ state, int* __restrict__ hist,
+    const float* __restrict__ work, const float* __restrict__ stage,
+    const int* __restrict__ fleet_in, int* __restrict__ lvl_out, int L,
+    int N, int t, int S, float comp_itv, SweepConsts c, int mode) {
+  constexpr int J = nodes_per_thread(HAS_CACHE);
+  __shared__ int red[kWarps];
+  const int l = blockIdx.y;
+  if (!(alive[l] > 0.5f)) return;  // the whole block: its lane is dead
+  const size_t LN = static_cast<size_t>(L) * N;
+  int n[J];
+  bool active[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int node = (blockIdx.x * J + j) * kThreads + threadIdx.x;
+    active[j] = node < N;
+    n[j] = active[j] ? node : N - 1;
+  }
+  Lane p;
+  p.r0 = lp[R0 * L + l];
+  p.lam = lp[LAM * L + l];
+  p.lam_grant = lp[LAM_GRANT * L + l];
+  p.u_min = lp[U_MIN * L + l];
+  p.u_max = lp[U_MAX * L + l];
+  p.db = lp[DB * L + l];
+  p.ff = lp[FF * L + l];
+  p.inv_r0 = lp[INV_R0 * L + l];
+  p.thr_over = lp[THR_OVER * L + l];
+  p.thr_settle = lp[THR_SETTLE * L + l];
+  const float* stage_demand = stage;
+  const float* stage_barrier = stage + (S + 1);
+  Loop loop[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    Loop& s = loop[j];
+    load_loop<PAPER_LAW, HAS_CACHE, true>(s, state, LN,
+                                          static_cast<size_t>(l) * N + n[j]);
+    s.inv_m = np_rows[ROW_INV_M * N + n[j]];
+    s.w = np_rows[ROW_W * N + n[j]];
+    s.inv_w = np_rows[ROW_INV_W * N + n[j]];
+    s.wf0 = HAS_CACHE ? (c.warm_frac * fminf(p.u_max, s.w)) * s.inv_w : 0.0f;
+  }
+  if (mode & kPromote) {
+    // the end of interval t - 1, as graph_segment ends each interval
+    const int fleet = fleet_in[l];
+    const float tf_prev = static_cast<float>(t - 1);
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      Loop& s = loop[j];
+      if (fleet == 2 * S && s.t_done < 0.0f) s.t_done = tf_prev;
+      const bool fin = s.sidx < S && s.wleft <= 0.0f;
+      const bool barrier_row = __ldg(stage_barrier + s.sidx) != 0.0f;
+      if (fin && (!barrier_row || fleet >= 2 * s.sidx + 1)) {
+        s.sidx += 1;
+        s.wleft = work[s.sidx * N + n[j]];
+      }
+    }
+  }
+  if (mode & kClose) {
+    const int rows_done = fleet_in[l];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      if (rows_done >= S && loop[j].t_done < 0.0f) {
+        loop[j].t_done = static_cast<float>(t);
+      }
+    }
+  }
+  int v = INT_MAX;
+  if (mode & kStep) {
+    const float tf = static_cast<float>(t);
+    int* bins = hist + static_cast<size_t>(l) * kBins;
+    v = 2 * S;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      Loop& s = loop[j];
+      const float d = load_demand<BF16>(demand, row * N + n[j]) +
+                      __ldg(stage_demand + s.sidx);
+      count_row(bins, step<PAPER_LAW, UNIT_OCC, HAS_CACHE>(s, p, c, d, tf),
+                active[j]);
+      const float dt_eff =
+          HAS_CACHE ? s.dt : c.interval_s * hpl_slowdown_fused(s.r);
+      const bool on_row = s.sidx < S;
+      const float adv = on_row ? comp_itv * (c.interval_s / dt_eff) : 0.0f;
+      kahan(s.wd, s.wd_c, fminf(adv, s.wleft));
+      s.wleft = fmaxf(s.wleft - adv, 0.0f);
+      const bool fin = on_row && s.wleft <= 0.0f;
+      v = min(v, 2 * s.sidx + (fin ? 1 : 0));
+    }
+  } else if (mode & kRows) {
+    v = S;
+#pragma unroll
+    for (int j = 0; j < J; ++j) v = min(v, loop[j].sidx);
+  }
+  if (mode & (kStep | kRows)) {
+    v = __reduce_min_sync(0xffffffffu, v);
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int m = red[0];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) m = min(m, red[w]);
+      atomicMin(lvl_out + l, m);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    if (active[j]) {
+      store_loop<PAPER_LAW, HAS_CACHE, true>(
+          loop[j], state, LN, static_cast<size_t>(l) * N + n[j]);
+    }
+  }
+}
+
+using IntervalFn = void (*)(const void*, int, const float*, const float*,
+                            const float*, float*, int*, const float*,
+                            const float*, const int*, int*, int, int, int,
+                            int, float, SweepConsts, int);
+
+template <bool PAPER_LAW, bool UNIT_OCC, bool HAS_CACHE>
+IntervalFn pick_interval_instance(bool bf16) {
+  return bf16 ? graph_interval_kernel<PAPER_LAW, UNIT_OCC, HAS_CACHE, true>
+              : graph_interval_kernel<PAPER_LAW, UNIT_OCC, HAS_CACHE, false>;
+}
+
+IntervalFn pick_interval(int paper_law, int unit_occupancy, int has_cache,
+                         int bf16) {
+  const bool b = bf16 != 0;
+  if (has_cache) {
+    return paper_law ? pick_interval_instance<true, true, true>(b)
+                     : pick_interval_instance<false, true, true>(b);
+  }
+  if (paper_law) {
+    return unit_occupancy ? pick_interval_instance<true, true, false>(b)
+                          : pick_interval_instance<true, false, false>(b);
+  }
+  return unit_occupancy ? pick_interval_instance<false, true, false>(b)
+                        : pick_interval_instance<false, false, false>(b);
+}
+
 using SweepFn = void (*)(const void*, const float*, const float*,
                          const float*, const float*, float*, int*, int, int,
                          int, int, SweepConsts, const float*, const float*,
@@ -665,6 +839,28 @@ extern "C" int dynims_sweep_segment(int paper_law, int unit_occupancy,
   fn<<<grid, kThreads, 0, s>>>(demand, lp, np_rows, alive, state_in,
                                state_out, hist, T, L, N, t0, c, work, stage,
                                ws, S, comp_itv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches one interval of the graph carry on `stream` (see the header's
+// one-interval entry); returns the launch's CUDA error (0 on success).
+// `state` (S, L, N) and `hist` (L, 4096) are updated in place; `lvl_out`
+// (L,) int32 must hold INT_MAX, or a min to fold into, before the launch.
+extern "C" int dynims_sweep_graph_interval(
+    int paper_law, int unit_occupancy, int has_cache, int bf16,
+    const void* demand, int row, const float* lp, const float* np_rows,
+    const float* alive, float* state, int* hist, const float* work,
+    const float* stage, const int* fleet_in, int* lvl_out, int L, int N,
+    int t, int S, float comp_itv, const SweepConsts* consts, int mode,
+    void* stream) {
+  if (L <= 0 || N <= 0) return 0;
+  const int block_nodes = kThreads * nodes_per_thread(has_cache != 0);
+  const dim3 grid((N + block_nodes - 1) / block_nodes, L);
+  const IntervalFn fn = pick_interval(paper_law, unit_occupancy, has_cache,
+                                      bf16);
+  fn<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      demand, row, lp, np_rows, alive, state, hist, work, stage, fleet_in,
+      lvl_out, L, N, t, S, comp_itv, *consts, mode);
   return static_cast<int>(cudaGetLastError());
 }
 

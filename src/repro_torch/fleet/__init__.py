@@ -17,14 +17,13 @@ single-tenant controller, many tenants arbitrated over one memory.
 * :mod:`.sweep`    -- :func:`fleet_sweep_demand` rolls the composed
   system over a :class:`~repro_torch.lab.sweep.GainSet` in plain
   PyTorch on the card (the JAX package runs it as XLA, not Pallas),
-  with the arbitration invariants as :class:`FleetExtras`;
+  with the arbitration invariants as :class:`FleetExtras`, on one
+  device or over a (gains x nodes) layout (``devices=``,
+  ``node_shards=``; :mod:`repro_torch.lab.mesh`);
   :func:`fleet_reference` is the float64 oracle.
 * :mod:`.scenario` -- :class:`FleetScenario` composes per-tenant
   :class:`~repro_torch.lab.scenarios.ScenarioSpec` s (``hpcc-spark``,
   ``tenant-churn``) for registry-driven sweeps.
-
-The JAX package's meshes (``node_shards``, the 2-D gains x nodes mesh)
-come with the multi-GPU work (ROADMAP A4).
 """
 
 from .arbiter import (FleetArbiter, FleetGrant, MIN_TENANT_BUDGET,

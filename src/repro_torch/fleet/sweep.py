@@ -49,12 +49,14 @@ import torch
 from ..analysis.runtime import dispatch_guard
 from ..core.control import f32, fma, vectorized_step
 from ..core.traces import GiB
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike
+from ..lab.mesh import check_layout, layout, node_columns, to_lead
 from ..lab.score import (FleetStats, HIST_BINS, OVER_R0_EPS, SETTLE_TOL,
-                         compute_fleet_stats, finalize_fleet_stats,
-                         hist_add, kahan_add, quantile_from_hist,
-                         utilization_codes)
-from ..lab.sweep import GainSet
+                         _axis_min, _axis_sum, compute_fleet_stats,
+                         finalize_fleet_stats, finalize_partials,
+                         fleet_partials, hist_add, kahan_add,
+                         quantile_from_hist, utilization_codes)
+from ..lab.sweep import DevicesLike, GainSet, resolve_devices
 from .arbiter import (MIN_TENANT_BUDGET, arbitrate, arbitrate_reference,
                       kdot, ksum)
 from .specs import POLICIES
@@ -130,6 +132,12 @@ def _fleet_chunk(demand, m, w, fl, gains, interval_s, *, policy,
     misses nothing), shrunk tenants evict down to their grant at once
     (``u = min(u, B)``), and every tenant then runs Eq. 1 inside its
     grant for the epoch's ``E`` intervals.
+
+    Returns the per-node accumulators (:func:`finalize_fleet_stats`'
+    keywords), the (G, HIST_BINS) code histogram and the extras'
+    ``(cons_min, floor_min, b_sum, b_min)``, still unfolded over devices:
+    the arbitration is per node, so a node shard runs this on its
+    columns alone.
     """
     n_epochs, ep_len, k, n_nodes = demand.shape
     dev = demand.device
@@ -219,20 +227,70 @@ def _fleet_chunk(demand, m, w, fl, gains, interval_s, *, policy,
         # node sums in float64, rounded once: one order on both devices
         b_sum = b_sum + b.sum(-1, dtype=torch.float64).to(torch.float32)
         b_min = torch.minimum(b_min, b.amin(-1))
+    acc = dict(util_sum=us, util_max=mx, caps_sum_gib=cs, caps_sumsq_gib=c2,
+               over_r0_count=n_r0, violation_count=n_viol, last_bad=last_bad)
+    return acc, hist, (cons_min, floor_min, b_sum, b_min)
+
+
+def _finalize_chunk(acc, hist, ext, r0, *, n_epochs: int, ep_len: int,
+                    interval_s: float) -> Tuple[FleetStats, FleetExtras]:
+    """One device's chunk: the stats and extras of its lanes."""
+    dev = hist.device
+    n_nodes = acc["util_sum"].shape[-1]
     n_steps = n_epochs * ep_len
     p99 = quantile_from_hist(hist, 0.99, n_steps * n_nodes)
-    stats = finalize_fleet_stats(
-        util_sum=us, util_max=mx, caps_sum_gib=cs, caps_sumsq_gib=c2,
-        over_r0_count=n_r0, violation_count=n_viol, last_bad=last_bad,
-        p99_utilization=p99, r0=r0, n_intervals=n_steps,
-        interval_s=interval_s)
-    extras = FleetExtras(
+    stats = finalize_fleet_stats(p99_utilization=p99, r0=r0,
+                                 n_intervals=n_steps, interval_s=interval_s,
+                                 **acc)
+    return stats, _extras(*ext, n_epochs * n_nodes, dev)
+
+
+def _extras(cons_min, floor_min, b_sum, b_min, n_budgets: int,
+            dev) -> FleetExtras:
+    inv_gib = f32(1.0 / GiB, dev)
+    return FleetExtras(
         conservation_slack_gib=cons_min * inv_gib,
         floor_slack_gib=floor_min * inv_gib,
-        tenant_budget_mean_gib=b_sum * inv_gib / f32(n_epochs * n_nodes,
-                                                     dev),
+        tenant_budget_mean_gib=b_sum * inv_gib / f32(n_budgets, dev),
         tenant_budget_min_gib=b_min * inv_gib)
-    return stats, extras
+
+
+def _fold_row(row, results, r0, *, n_nodes: int, n_epochs: int,
+              ep_len: int, interval_s: float
+              ) -> Tuple[FleetStats, FleetExtras]:
+    """A gain shard's chunk from its node shards' ``(acc, hist, extras)``,
+    on the row's first shard.  One node shard finalizes its own nodes
+    (:func:`_finalize_chunk`); several fold as JAX's mesh folds them:
+    each shard's node partials, then the stats' sums and maxes, the
+    histograms (read with the global count), ``cons_min``,
+    ``floor_min`` and ``b_min`` by min, ``b_sum`` by sum (in float64,
+    rounded once)."""
+    lead = row[0]
+    if len(row) == 1:
+        with lead.ctx():
+            return _finalize_chunk(*results[0], r0, n_epochs=n_epochs,
+                                   ep_len=ep_len, interval_s=interval_s)
+    parts = []
+    for s, (acc, _, _) in zip(row, results):
+        with s.ctx():
+            parts.append(fleet_partials(**acc))
+    with lead.ctx():
+        parts = [{key: to_lead(lead, s, v) for key, v in p.items()}
+                 for s, p in zip(row, parts)]
+        hists = [to_lead(lead, s, hist) for s, (_, hist, _) in
+                 zip(row, results)]
+        exts = [tuple(to_lead(lead, s, x) for x in ext)
+                for s, (_, _, ext) in zip(row, results)]
+        n_steps = n_epochs * ep_len
+        p99 = quantile_from_hist(_axis_sum(hists), 0.99, n_steps * n_nodes)
+        stats = finalize_partials(parts, n_nodes=n_nodes,
+                                  p99_utilization=p99, r0=r0,
+                                  n_intervals=n_steps, interval_s=interval_s)
+        cons_min, floor_min, b_sum, b_min = (list(x) for x in zip(*exts))
+        b_sum = _axis_sum([b.double() for b in b_sum]).float()
+        return stats, _extras(_axis_min(cons_min), _axis_min(floor_min),
+                              b_sum, _axis_min(b_min), n_epochs * n_nodes,
+                              hists[0].device)
 
 
 def fleet_sweep_demand(
@@ -248,6 +306,8 @@ def fleet_sweep_demand(
     interval_s: float = 0.1,
     chunk: Optional[int] = None,
     horizon: Optional[int] = None,
+    devices: DevicesLike = None,
+    node_shards: int = 1,
     device: DeviceLike = None,
 ) -> Tuple[FleetStats, FleetExtras]:
     """Sweep a ``(K, N, T)`` per-tenant demand tensor over every gain.
@@ -263,8 +323,13 @@ def fleet_sweep_demand(
     ``horizon`` intervals (still a whole number of epochs); ``chunk``
     bounds the gain lanes one pass carries (default
     :data:`FLEET_CHUNK`).  Runs on ``device``, the card by default.
+
+    ``devices`` and ``node_shards`` lay the sweep out as the lab sweep's
+    (:func:`~repro_torch.lab.sweep.sweep_demand`): gain shards, and node
+    shards whose stats and extras fold at the chunk's end (JAX's
+    ``psum``/``pmin``).  One device runs the unsharded program
+    whatever ``node_shards`` says.
     """
-    dev = resolve_device(device)
     demand = np.asarray(demand)
     if demand.ndim != 3:
         raise ValueError("demand must be (tenants, nodes, intervals)")
@@ -287,6 +352,10 @@ def fleet_sweep_demand(
         priority_order = tuple(range(k))
     if sorted(priority_order) != list(range(k)):
         raise ValueError("priority_order must be a permutation of tenants")
+    if node_shards < 1:
+        raise ValueError("node_shards must be >= 1")
+    devs = resolve_devices(devices, device)
+    node_shards = check_layout(devs, node_shards, n_nodes)
     n_epochs = n_steps // epoch_intervals
     # epoch-major (n_epochs, E, K, N): one interval's tenants x nodes
     # is a contiguous slice
@@ -298,30 +367,83 @@ def fleet_sweep_demand(
     n_real = len(gains)
     chunk = min(FLEET_CHUNK if chunk is None else max(int(chunk), 1),
                 max(n_real, 1))
-    demand_dev = torch.from_numpy(demand_e).to(dev)
-    m_dev = torch.from_numpy(m).to(dev)
-    w_dev = f32(weights.astype(np.float32), dev)
-    fl_dev = f32(floors.astype(np.float32), dev)
-    cols = [f32(np.asarray(getattr(gains, f.name), np.float32), dev)
-            for f in dataclasses.fields(GainSet)]
+    run_kw = dict(interval_s=interval_s, policy=policy,
+                  priority_order=tuple(int(i) for i in priority_order))
+    fin_kw = dict(n_epochs=n_epochs, ep_len=epoch_intervals,
+                  interval_s=interval_s)
+    return _layout_sweep(demand_e, m, weights, floors, gains, devs,
+                         node_shards, chunk, run_kw, fin_kw)
+
+
+def _concat_host(pending, n_real: int) -> Tuple[FleetStats, FleetExtras]:
+    """The chunks' ``(shard, (stats, extras))`` as numpy, each read on
+    the stream that made it, concatenated in gain order and cut to the
+    real gains."""
+    host = []
+    for shard, pair in pending:
+        with shard.ctx():
+            host.append([[x.cpu().numpy() for x in part] for part in pair])
+    stats, extras = ([np.concatenate(f)[:n_real] for f in zip(*parts)]
+                     for parts in zip(*host))
+    return FleetStats(*stats), FleetExtras(*extras)
+
+
+def _layout_sweep(demand_e, m, weights, floors, gains: GainSet, devs,
+                  node_shards: int, chunk: int, run_kw, fin_kw
+                  ) -> Tuple[FleetStats, FleetExtras]:
+    """:func:`fleet_sweep_demand`'s chunk loop over a (gains x nodes)
+    layout, one process driving every shard
+    (:mod:`repro_torch.lab.mesh`); one device is the unsharded program.
+
+    As the JAX package's fleet mesh: with several gain shards the chunk
+    rounds up to a multiple of them and the gains pad to whole chunks by
+    repeating the last one; each chunk's gains split evenly over the
+    gain shards.  A node shard runs the carry on its columns (the
+    arbitration is per node, so nothing crosses the shards until the
+    chunk ends), and the row's first shard folds them (:func:`_fold_row`).
+    """
+    grid = layout(devs, node_shards)
+    n_gain = len(grid)
+    n_nodes = demand_e.shape[-1]
+    n_real = len(gains)
+    if n_gain > 1:
+        chunk = -(-chunk // n_gain) * n_gain
+        if n_real % chunk:
+            pad = GainSet(*(np.repeat(getattr(gains, f.name)[-1:],
+                                      chunk - n_real % chunk)
+                            for f in dataclasses.fields(GainSet)))
+            gains = gains.concat(pad)
+    per = chunk // n_gain
+    columns = node_columns(n_nodes, node_shards)
+    staged = []          # per shard: demand, m, weights, floors, gain cols
+    for row in grid:
+        for s, cols in zip(row, columns):
+            with s.ctx():
+                staged.append((
+                    torch.from_numpy(np.ascontiguousarray(
+                        demand_e[..., cols])).to(s.device),
+                    torch.from_numpy(m[cols]).to(s.device),
+                    f32(weights.astype(np.float32), s.device),
+                    f32(floors.astype(np.float32), s.device),
+                    [f32(np.asarray(getattr(gains, f.name), np.float32),
+                         s.device) for f in dataclasses.fields(GainSet)]))
     pending = []
     with dispatch_guard():
-        for lo in range(0, n_real, chunk):     # planecheck: hot-loop
-            pending.append(_fleet_chunk(
-                demand_dev, m_dev, w_dev, fl_dev,
-                [c[lo:lo + chunk] for c in cols], interval_s, policy=policy,
-                priority_order=tuple(int(i) for i in priority_order)))
-
-    def host(x):
-        return x.cpu().numpy()
-
-    stats = FleetStats(*(
-        np.concatenate([host(getattr(st, f)) for st, _ in pending])
-        for f in FleetStats._fields))
-    extras = FleetExtras(*(
-        np.concatenate([host(getattr(ex, f)) for _, ex in pending])
-        for f in FleetExtras._fields))
-    return stats, extras
+        for lo in range(0, len(gains), chunk):     # planecheck: hot-loop
+            for g, row in enumerate(grid):
+                a, b = lo + g * per, lo + (g + 1) * per
+                results = []
+                for j, s in enumerate(row):
+                    dem, m_s, w_s, fl_s, cols = staged[g * node_shards + j]
+                    with s.ctx():
+                        results.append(_fleet_chunk(
+                            dem, m_s, w_s, fl_s, [c[a:b] for c in cols],
+                            **run_kw))
+                r0 = staged[g * node_shards][4][0][a:b]
+                pending.append((row[0], _fold_row(row, results, r0,
+                                                  n_nodes=n_nodes,
+                                                  **fin_kw)))
+    return _concat_host(pending, n_real)
 
 
 # ---------------------------------------------------------------------------
@@ -430,6 +552,7 @@ def fleet_reference(
 def run_fleet_sweep(scenario, gains: GainSet, *, seed: int = 0,
                     chunk: Optional[int] = None,
                     horizon: Optional[int] = None,
+                    devices: DevicesLike = None, node_shards: int = 1,
                     device: DeviceLike = None
                     ) -> Tuple[FleetStats, FleetExtras]:
     """Sweep a registered (or inline) :class:`FleetScenario`.
@@ -445,4 +568,5 @@ def run_fleet_sweep(scenario, gains: GainSet, *, seed: int = 0,
         weights=fs.weights(), floors=fs.floors_bytes(),
         policy=fs.policy, priority_order=fs.priority_order(),
         epoch_intervals=fs.epoch_intervals, interval_s=fs.interval_s,
-        chunk=chunk, horizon=horizon, device=device)
+        chunk=chunk, horizon=horizon, devices=devices,
+        node_shards=node_shards, device=device)

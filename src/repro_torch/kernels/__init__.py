@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the port, each beside its plain version."""
 
-from typing import Callable, List
+from typing import Callable, List, Sequence
 
 import torch
 
@@ -45,3 +45,19 @@ def count_call(kernel: str, x: torch.Tensor, work: Callable,
     for count in WORK_COUNTS:
         count.append((kernel, work, data))
     return x.device.type == "meta"
+
+
+def count_collective(kind: str, parts: Sequence[torch.Tensor]) -> None:
+    """Report one collective over shards to every open work count.
+
+    ``kind`` is the HLO name of the collective JAX would run (a fold over
+    shards is an ``"all-reduce"``, as ``psum``, ``pmax`` and ``pmin``
+    are); ``parts`` are the shards' operands, whose bytes (from their
+    shapes, so meta tensors count too) are the payload, every shard's
+    summed.  :func:`repro_torch.roofline.cost.step_cost` reads these
+    records into its ``collective_bytes``.
+    """
+    if not WORK_COUNTS:
+        return
+    n_bytes = float(sum(p.numel() * p.element_size() for p in parts))
+    count_call(kind, parts[0], lambda: n_bytes)

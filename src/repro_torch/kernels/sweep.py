@@ -20,6 +20,9 @@ are accumulators, handed in and returned anew, never updated in place.
   for op in float32, and bins each interval's codes with
   :func:`~repro_torch.lab.score.hist_add`.
 * :data:`LAUNCHES` counts kernel launches, and only those.
+* :func:`graph_interval` is the graph instance one interval a launch,
+  for a lane whose nodes are split over shards (below);
+  :data:`INTERVAL_LAUNCHES` counts its launches.
 
 **AppGraph.**  With a scenario's stage DAG (``graph=``: the ``(S+1, N)``
 work matrix and the ``(2, S+1)`` stage-demand and barrier rows of
@@ -34,9 +37,15 @@ it, the queue drains ``comp_itv * (interval_s / dt_eff)``, and a barrier
 row promotes once the lane-wide min of ``2 * sidx + fin`` says every
 node finished it.  On the card the lane-wide min is a block reduction
 when one block holds the lane, and a per-lane barrier between blocks
-(a cooperative launch) when it does not.  Without the cache ``dt_eff``
-is the interval stretched by the pressure curve in the form XLA compiles
-it (:func:`hpl_slowdown_fused`); with it, the CacheLoop's ``dt_app``.
+(a cooperative launch) when it does not.  When the lane's nodes are
+split over shards the min leaves the launch: :func:`graph_interval`
+runs one interval a launch with the loop body rotated (promote with the
+previous interval's fleet min, then step up to the progress code and
+write this shard's lane min), and the caller folds the shards' mins
+between launches (:mod:`repro_torch.lab.mesh`).  Without the cache
+``dt_eff`` is the interval stretched by the pressure curve in the form
+XLA compiles it (:func:`hpl_slowdown_fused`); with it, the CacheLoop's
+``dt_app``.
 
 **On the card.**  A thread owns the (lane, node) loops of two nodes (one
 with the cache) and keeps their state in registers for the whole
@@ -69,6 +78,7 @@ either way).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -205,17 +215,33 @@ def _fast_pow(x: torch.Tensor, e: float, k: _Lifted) -> torch.Tensor:
     return torch.exp2(k.hit_exp.double() * torch.log2(x64)).float()
 
 
+def _promote(sidx, wleft, fin, fleet, graph, k: _Lifted):
+    """A barrier row promotes when the fleet min of the progress code
+    says every node finished it; a free row promotes once its own work
+    is drained.  ``fleet`` is (L, 1)."""
+    work, stage = graph
+    can = fin & ((stage[_STAGE_BARRIER][sidx.long()] == k.zero)
+                 | (fleet >= sidx * 2 + 1))
+    sidx = sidx + can.float()
+    return sidx, torch.where(can, work.gather(0, sidx.long()), wleft)
+
+
 def fused_step(state: Tuple[torch.Tensor, ...], d: torch.Tensor, t: int,
                cols: torch.Tensor, rows: torch.Tensor, wf0, con,
                names: Tuple[str, ...], ix: Dict[str, int], k: _Lifted,
-               graph: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+               graph: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               exchange: bool = False):
     """One closed-loop interval on a tuple of (L, N) state planes.
 
     ``cols[row]`` are lane parameters of shape (L, 1) and ``rows[row]``
     node constants of shape (N,); ``graph`` is the AppGraph's (work,
     stage constants) pair when ``con.has_graph``.  Returns the new
     planes (in ``names`` order) and the interval's (L, N) ``uint16``
-    codes, which the caller bins into its histogram.
+    codes, which the caller bins into its histogram.  With ``exchange``
+    (the one-interval entry's step) the graph carry stops at the
+    progress code: the planes keep their row and finish interval, and a
+    third value is each lane's (L,) int32 min of the code over these
+    nodes, for the caller to fold over the shards.
     """
     if con.has_graph:
         # An active stage holds its declared bytes: the law observes
@@ -294,11 +320,14 @@ def fused_step(state: Tuple[torch.Tensor, ...], d: torch.Tensor, t: int,
                              torch.minimum(adv, wleft))
         wleft = torch.maximum(wleft - adv, k.zero)
         fin = active & (wleft <= k.zero)
-        fleet_lvl = (sidx * 2 + fin.float()).amin(-1, keepdim=True)
-        can = fin & ((stage[_STAGE_BARRIER][row] == k.zero)
-                     | (fleet_lvl >= sidx * 2 + 1))
-        sidx = sidx + can.float()
-        wleft = torch.where(can, work.gather(0, sidx.long()), wleft)
+        level = sidx * 2 + fin.float()
+        if exchange:
+            out.update(sidx=sidx, wleft=wleft, wd=wd, wd_c=wd_c,
+                       t_done=state[ix["t_done"]])
+            return (tuple(out[n] for n in names), utilization_codes(r),
+                    level.amin(-1).to(torch.int32))
+        sidx, wleft = _promote(sidx, wleft, fin,
+                               level.amin(-1, keepdim=True), graph, k)
         done_all = sidx.amin(-1, keepdim=True) >= n_rows
         t_done = torch.where((state[ix["t_done"]] < 0) & done_all,
                              float(t + 1), state[ix["t_done"]])
@@ -379,6 +408,164 @@ def sweep_segment_plain(state, hist, demand_seg, lp, np_rows, alive, *,
     live = alive[0] > 0.5
     out = torch.where(live[None, :, None], torch.stack(st), state)
     return out, torch.where(live[:, None], hist + counts, hist)
+
+
+# ---- The one-interval graph entry (node-sharded AppGraph) ---------------
+
+# Mode bits of one launch (csrc/sweep.cu kPromote, kStep, kRows, kClose).
+GRAPH_PROMOTE, GRAPH_STEP, GRAPH_ROWS, GRAPH_CLOSE = 1, 2, 4, 8
+# What a lane-min output holds before any shard folds into it.
+LVL_EMPTY = 2**31 - 1
+# Launches of the one-interval entry since import (or since a reset).
+INTERVAL_LAUNCHES = 0
+
+
+def interval_schedule(t_seg: int):
+    """``(k, mode)`` of the ``T + 2`` launches that run a ``T``-interval
+    segment through :func:`graph_interval`: launch ``k < T`` steps
+    interval ``t0 + k`` (from ``k = 1`` first promoting with the fold of
+    interval ``k - 1``), launch ``T`` promotes the last interval and takes
+    the min of the stage rows, launch ``T + 1`` closes the segment."""
+    for k in range(t_seg):
+        yield k, GRAPH_STEP | (GRAPH_PROMOTE if k else 0)
+    yield t_seg, GRAPH_PROMOTE | GRAPH_ROWS
+    yield t_seg + 1, GRAPH_CLOSE
+
+
+def _check_interval(state, hist, lp, fleet_in, out, mode) -> None:
+    n_lanes = lp.shape[-1]
+    if mode & (GRAPH_PROMOTE | GRAPH_CLOSE) and fleet_in is None:
+        raise ValueError("promoting or closing needs the folded fleet_in")
+    if mode & (GRAPH_STEP | GRAPH_ROWS) and out is None:
+        raise ValueError("stepping or taking the rows' min needs out")
+    for name, x in (("fleet_in", fleet_in), ("out", out)):
+        if x is not None and (x.shape != (n_lanes,) or x.dtype != torch.int32
+                              or x.device != state.device
+                              or not x.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous int32 of shape "
+                             f"({n_lanes},) on {state.device}")
+    if not (state.is_contiguous() and hist.is_contiguous()):
+        raise ValueError("state and hist are updated in place and must be "
+                         "contiguous")
+
+
+def graph_interval_plain(state, hist, demand_seg, lp, np_rows, alive, *,
+                         k: int, t0: int, con, names: Tuple[str, ...], graph,
+                         fleet_in=None, out=None, mode: int) -> None:
+    """The plain PyTorch version of the one-interval entry, on any
+    device: launch ``k`` of :func:`interval_schedule` in place."""
+    _check(state, hist, demand_seg, lp, np_rows, alive, t0, con, names,
+           graph)
+    _check_interval(state, hist, lp, fleet_in, out, mode)
+    ix = {n: i for i, n in enumerate(names)}
+    kk = _Lifted(con, state.device)
+    t_seg = demand_seg.shape[0]
+    t = t0 + min(k, t_seg)
+    n_rows = graph[1].shape[1] - 1
+    st = dict(zip(names, state.unbind(0)))
+    live = alive[0] > 0.5
+    if mode & GRAPH_PROMOTE:
+        # the end of interval t - 1, as fused_step ends each interval
+        fleet = fleet_in.float()[:, None]
+        st["t_done"] = torch.where((fleet == 2 * n_rows) & (st["t_done"] < 0),
+                                   float(t - 1), st["t_done"])
+        fin = (st["sidx"] < n_rows) & (st["wleft"] <= kk.zero)
+        st["sidx"], st["wleft"] = _promote(st["sidx"], st["wleft"], fin,
+                                           fleet, graph, kk)
+    if mode & GRAPH_CLOSE:
+        done = fleet_in.float()[:, None] >= n_rows
+        st["t_done"] = torch.where(done & (st["t_done"] < 0), float(t),
+                                   st["t_done"])
+    lvl = None
+    if mode & GRAPH_STEP:
+        cols = lp[:, :, None]
+        wf0 = warm_fraction0(cols, np_rows, con)[1] if con.has_cache \
+            else None
+        planes, codes, lvl = fused_step(
+            tuple(st[n] for n in names), demand_seg[k].float(), t, cols,
+            np_rows, wf0, con, names, ix, kk, graph, exchange=True)
+        st = dict(zip(names, planes))
+        counts = hist_add(torch.zeros_like(hist), codes)
+        hist.add_(torch.where(live[:, None], counts, 0))
+    elif mode & GRAPH_ROWS:
+        lvl = st["sidx"].amin(-1).to(torch.int32)
+    if lvl is not None:
+        out.copy_(torch.where(live, torch.minimum(out, lvl), out))
+    state.copy_(torch.where(live[None, :, None],
+                            torch.stack([st[n] for n in names]), state))
+
+
+@functools.lru_cache(maxsize=None)
+def _interval_fn():
+    from ._build import load_library
+    fn = load_library().lib.dynims_sweep_graph_interval
+    # (paper_law, unit_occupancy, has_cache, bf16, demand, row, lp,
+    #  np_rows, alive, state, hist, work, stage, fleet_in, lvl_out, L, N,
+    #  t, S, comp_itv, consts, mode, stream)
+    fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.POINTER(_SweepConsts),
+                      ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_interval(state, hist, demand_seg, lp, np_rows, alive, *, k, t0,
+                     con, names, graph, fleet_in, out, mode) -> None:
+    _check(state, hist, demand_seg, lp, np_rows, alive, t0, con, names,
+           graph)
+    _check_interval(state, hist, lp, fleet_in, out, mode)
+    t_seg, n_nodes = demand_seg.shape
+    n_lanes = lp.shape[1]
+    if n_lanes > 65535:
+        raise ValueError("at most 65535 gain lanes per launch")
+    demand_seg, lp, np_rows, alive = (x.contiguous() for x in (
+        demand_seg, lp, np_rows, alive))
+    work, stage = (x.contiguous() for x in graph)
+    rc = _interval_fn()(
+        int(con.paper_law), int(con.unit_occupancy), int(con.has_cache),
+        int(con.precision == "bf16"), demand_seg.data_ptr(),
+        k if mode & GRAPH_STEP else 0, lp.data_ptr(), np_rows.data_ptr(),
+        alive.data_ptr(), state.data_ptr(), hist.data_ptr(),
+        work.data_ptr(), stage.data_ptr(),
+        0 if fleet_in is None else fleet_in.data_ptr(),
+        0 if out is None else out.data_ptr(), n_lanes, n_nodes,
+        t0 + min(k, t_seg), stage.shape[1] - 1, con.comp_itv,
+        ctypes.byref(_consts(con)), mode,
+        torch.cuda.current_stream(state.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"graph interval launch failed: CUDA error {rc}")
+    global INTERVAL_LAUNCHES
+    INTERVAL_LAUNCHES += 1
+
+
+def graph_interval(state, hist, demand_seg, lp, np_rows, alive, *, k: int,
+                   t0: int, con, names: Tuple[str, ...], graph,
+                   fleet_in=None, out=None, mode: int) -> None:
+    """Launch ``k`` of a segment's :func:`interval_schedule`, in place.
+
+    The graph instance with the lane min taken out of the launch, for a
+    lane whose nodes are split over shards: ``state`` (S, L, N) and
+    ``hist`` (L, HIST_BINS) are this shard's, updated in place (both
+    contiguous); ``demand_seg``, ``lp``, ``np_rows``, ``alive`` and
+    ``graph`` are :func:`sweep_segment`'s for this shard's nodes.  A
+    promoting or closing launch reads ``fleet_in``, the (L,) int32 min
+    the caller folded over every shard from their ``out`` of the launch
+    before; a stepping or rows launch folds this shard's lane min into
+    ``out`` (L,) int32, which holds :data:`LVL_EMPTY` or another shard's
+    min.  CPU tensors run :func:`graph_interval_plain`; CUDA tensors
+    launch ``dynims_sweep_graph_interval``.
+    """
+    kw = dict(k=k, t0=t0, con=con, names=names, graph=graph,
+              fleet_in=fleet_in, out=out, mode=mode)
+    if state.device.type == "cpu":
+        return graph_interval_plain(state, hist, demand_seg, lp, np_rows,
+                                    alive, **kw)
+    if state.device.type != "cuda":
+        raise ValueError(f"graph_interval runs on cpu or cuda, not "
+                         f"{state.device}")
+    return _launch_interval(state, hist, demand_seg, lp, np_rows, alive,
+                            **kw)
 
 
 class _SweepConsts(ctypes.Structure):

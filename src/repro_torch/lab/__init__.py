@@ -9,10 +9,12 @@ loaded from its module on first use: the kernel module reads
   and :meth:`ScenarioSpec.from_capture` (a live capture as a replay
   scenario);
 * :mod:`.sweep` / :mod:`.fused_sweep` -- :func:`run_sweep` and
-  :func:`sweep_demand` over the sweep kernel;
+  :func:`sweep_demand` over the sweep kernel; ``devices=`` and
+  ``node_shards=`` (:func:`resolve_devices`) shard them over a (gains x
+  nodes) layout that one process drives (:mod:`.mesh`);
 * :mod:`.score` -- :class:`FleetStats`, :func:`compute_fleet_stats`
   (the dense history's stats, which the fleet sweep's float64 oracle
-  scores with) and the objectives;
+  scores with), the folds over shards and the objectives;
 * :mod:`.tune` -- :func:`tune_gains`, :func:`halving_tune`,
   :func:`tune_portfolio` and the ReplayLoop's :func:`retune_online`.
 
@@ -21,7 +23,8 @@ loaded from its module on first use: the kernel module reads
   sweep runs.
 
 The JAX package's engine selection (``ENGINES``, ``XLA_DEFAULT_CHUNK``,
-``CODES_BUDGET_BYTES``, ``resolve_devices``) has no counterpart here.
+``CODES_BUDGET_BYTES``) has no counterpart here: the port has one
+engine.
 """
 
 import importlib
@@ -38,7 +41,8 @@ _EXPORTS = {
               "hpl_slowdown_curve", "kahan_add", "makespan_score", "quantile_from_codes", "runtime_score",
               "stats_to_dict", "utilization_codes"),
     "sweep": ("GainSet", "SweepPlan", "SweepResult", "paper_law_mask",
-              "plan_specialization", "run_sweep", "sweep_demand"),
+              "plan_specialization", "resolve_devices", "run_sweep",
+              "sweep_demand"),
     "tune": ("OBJECTIVES", "Objective", "PortfolioResult", "RetuneHandle",
              "RetuneResult", "TuneResult", "grid_gains", "halving_tune",
              "random_gains", "resolve_objective", "retune_online",

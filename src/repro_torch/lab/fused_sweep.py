@@ -13,7 +13,8 @@ programs:
 
 * :func:`fused_sweep_demand` -- every gain over the full horizon, in
   lane chunks (:func:`~repro_torch.lab.sweep._resolve_chunk`), mixed
-  law classes partitioned;
+  law classes partitioned: the layout loop of
+  :func:`~repro_torch.lab.mesh.mesh_sweep_demand` with one device;
 * :func:`halving_sweep` -- the whole successive-halving schedule on the
   device: at each horizon boundary the lanes are finalized, scored and
   ranked with a stable descending sort, and the survivors (plus the
@@ -38,12 +39,12 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..analysis.runtime import dispatch_guard
 from ..core.control import f32, fma
 from ..core.eviction import policy_model
 from ..core.traces import GiB
@@ -52,14 +53,14 @@ from ..kernels.sweep import (N_NODE_ROWS, N_PARAM_ROWS, _DB, _FF, _INV_M,
                              _INV_R0, _INV_W, _LAM, _LAM_GRANT, _M, _R0,
                              _STAGE_BARRIER, _STAGE_DEMAND, _THR_OVER,
                              _THR_SETTLE, _U_MAX, _U_MIN, _W,
-                             graph_lane_limit, state_names, sweep_segment,
-                             warm_fraction0)
+                             state_names, sweep_segment, warm_fraction0)
 from .appgraph import AppGraphSpec, compile_graph
 from .scenarios import CacheSpec
 from .score import (FleetStats, HIST_BINS, OVER_R0_EPS, SETTLE_TOL,
-                    default_score, finalize_fleet_stats, quantile_from_hist)
-from .sweep import GainSet, _resolve_chunk, paper_law_mask, \
-    plan_specialization
+                    _axis_sum, default_score, finalize_partials,
+                    fleet_partials, quantile_from_hist)
+from .sweep import (DevicesLike, GainSet, paper_law_mask,
+                    plan_specialization, resolve_devices)
 
 # Lane blocks are padded to a multiple of this many lanes (the
 # reference's 8-lane tile); padding lanes are marked dead.
@@ -191,6 +192,45 @@ def _init_state(lp: torch.Tensor, np_rows: torch.Tensor, d0: torch.Tensor,
     return torch.stack([planes[n] for n in names])
 
 
+def _lane_partials(state: torch.Tensor, con: _EngineConsts,
+                   names: Tuple[str, ...]) -> dict:
+    """One shard's node fold of a lane chunk (:func:`fleet_partials`),
+    and, with an AppGraph, its lanes' finish interval."""
+    planes = dict(zip(names, state.unbind(0)))
+    kw = {}
+    if con.has_cache:
+        kw = dict(hits_gib=planes["hs"], evicted_gib=planes["es"],
+                  app_time_s=planes["ts"])
+    if con.has_graph:
+        kw["work_done_gib"] = planes["wd"]
+    part = fleet_partials(
+        util_sum=planes["us"], util_max=planes["mx"],
+        caps_sum_gib=planes["cs"], caps_sumsq_gib=planes["c2"],
+        over_r0_count=planes["n_r0"], violation_count=planes["n_viol"],
+        last_bad=planes["last_bad"], **kw)
+    if con.has_graph:
+        part["t_done"] = planes["t_done"][..., 0]
+    return part
+
+
+def _finalize_parts(parts: Sequence[dict], hists: Sequence[torch.Tensor],
+                    lp: torch.Tensor, con: _EngineConsts, n_nodes: int,
+                    n_steps: int, total_work_gib: Optional[float] = None
+                    ) -> FleetStats:
+    """Per-lane :class:`FleetStats` from the node shards' partials and
+    histograms, on the first shard's device: the histograms summed, the
+    p99 read with the global count ``n_steps * n_nodes``.  Every shard
+    holds the lanes' finish interval (their barrier mins agree); the
+    first shard's is read."""
+    hist = _axis_sum(hists)
+    p99 = quantile_from_hist(hist, 0.99, n_steps * n_nodes)
+    return finalize_partials(
+        parts, n_nodes=n_nodes, p99_utilization=p99, r0=lp[_R0],
+        n_intervals=n_steps, interval_s=con.interval_s,
+        accesses_gib=con.access_g * n_steps if con.has_cache else None,
+        total_work_gib=total_work_gib, t_done=parts[0].get("t_done"))
+
+
 def _finalize_lanes(state: torch.Tensor, hist: torch.Tensor,
                     lp: torch.Tensor, con: _EngineConsts,
                     names: Tuple[str, ...], n_steps: int,
@@ -202,24 +242,8 @@ def _finalize_lanes(state: torch.Tensor, hist: torch.Tensor,
     ``total_work_gib`` is the DAG's fleet-total work (the makespan's
     extrapolation when the DAG has not finished).
     """
-    planes = dict(zip(names, state.unbind(0)))
-    n_nodes = state.shape[-1]
-    p99 = quantile_from_hist(hist, 0.99, n_steps * n_nodes)
-    cache_kw = {}
-    if con.has_cache:
-        cache_kw = dict(hits_gib=planes["hs"], evicted_gib=planes["es"],
-                        app_time_s=planes["ts"],
-                        accesses_gib=con.access_g * n_steps)
-    if con.has_graph:
-        cache_kw.update(work_done_gib=planes["wd"],
-                        total_work_gib=total_work_gib,
-                        t_done=planes["t_done"][..., 0])
-    return finalize_fleet_stats(
-        util_sum=planes["us"], util_max=planes["mx"],
-        caps_sum_gib=planes["cs"], caps_sumsq_gib=planes["c2"],
-        over_r0_count=planes["n_r0"], violation_count=planes["n_viol"],
-        last_bad=planes["last_bad"], p99_utilization=p99, r0=lp[_R0],
-        n_intervals=n_steps, interval_s=con.interval_s, **cache_kw)
+    return _finalize_parts([_lane_partials(state, con, names)], [hist], lp,
+                           con, state.shape[-1], n_steps, total_work_gib)
 
 
 def _stage(demand: np.ndarray, lanes: GainSet, node_memory,
@@ -242,24 +266,33 @@ def _stage(demand: np.ndarray, lanes: GainSet, node_memory,
     return demand_tn, np_rows, lp
 
 
-def _stage_graph(app_graph: Optional[AppGraphSpec], n_nodes: int,
-                 device: torch.device):
-    """The AppGraph's launch operands on ``device`` and its total work.
-
-    Returns ``((work (S+1, N), stage constants (2, S+1)), total GiB)``,
-    or ``(None, None)`` without a graph.  The reference stages the
-    per-row demand and barrier flags from a 1-node compile with
-    ``slow_nodes`` stripped; they depend on the row only, so the
-    N-node compile gives the same values.
-    """
-    if app_graph is None:
-        return None, None
+def _graph_host(app_graph: AppGraphSpec, n_nodes: int):
+    """The AppGraph's launch operands as host arrays, compiled against
+    the whole fleet of ``n_nodes`` (task round-robin and the slow nodes
+    need true node indices; a node shard takes its columns of the work
+    matrix): ``(work (S+1, N), stage constants (2, S+1), total GiB)``.
+    The reference stages the per-row demand and barrier flags from a
+    1-node compile with ``slow_nodes`` stripped; they depend on the row
+    only, so the N-node compile gives the same values."""
     cg = compile_graph(app_graph, n_nodes)
     stage = np.zeros((2, cg.n_rows + 1), np.float32)
     stage[_STAGE_DEMAND] = cg.demand_bytes
     stage[_STAGE_BARRIER] = cg.barrier
     total = float(np.float32(cg.work_gib.astype(np.float64).sum()))
-    return ((torch.from_numpy(cg.work_gib).to(device),
+    return cg.work_gib, stage, total
+
+
+def _stage_graph(app_graph: Optional[AppGraphSpec], n_nodes: int,
+                 device: torch.device):
+    """The AppGraph's launch operands on ``device`` and its total work.
+
+    Returns ``((work (S+1, N), stage constants (2, S+1)), total GiB)``,
+    or ``(None, None)`` without a graph (:func:`_graph_host`).
+    """
+    if app_graph is None:
+        return None, None
+    work, stage, total = _graph_host(app_graph, n_nodes)
+    return ((torch.from_numpy(work).to(device),
              torch.from_numpy(stage).to(device)), total)
 
 
@@ -300,6 +333,59 @@ def _sweep_program(demand_tn, np_rows, lp, alive, con, names, graph=None,
                            total_work_gib)
 
 
+_WARNED: set = set()
+
+
+def _warn_once(key: str, message: str) -> None:
+    """Warn the first time ``key`` is seen in this process."""
+    if key not in _WARNED:
+        _WARNED.add(key)
+        warnings.warn(message, RuntimeWarning, stacklevel=3)
+
+
+def _single_device(devices: DevicesLike, node_shards: int,
+                   device: DeviceLike, who: str) -> torch.device:
+    """The device of an entry that does not shard, as the JAX package's
+    pallas engine takes a mesh: the first device, warned once."""
+    if node_shards < 1:
+        raise ValueError("node_shards must be >= 1")
+    if devices is None:
+        return resolve_device(device)
+    devs = resolve_devices(devices, device)
+    if len(devs) > 1:
+        _warn_once(f"{who}:devices",
+                   f"{who} runs on one device (its lane chunks already "
+                   f"tile the gain axis); ignoring the {len(devs)}-device "
+                   f"layout")
+    if node_shards > 1:
+        _warn_once(f"{who}:node_shards",
+                   f"{who} does not shard the node axis; ignoring "
+                   f"node_shards={node_shards}")
+    return devs[0]
+
+
+def by_law_class(gains: GainSet, run: Callable[[GainSet], FleetStats]
+                 ) -> Optional[FleetStats]:
+    """A gain set mixing paper-faithful and beyond-paper points, run one
+    law class at a time (``run`` on each) and stitched back in gain
+    order; None when the set is of one class."""
+    mask = paper_law_mask(gains)
+    if not (mask.any() and not mask.all()):
+        return None
+    idx_fast = np.flatnonzero(mask)
+    idx_slow = np.flatnonzero(~mask)
+    fast = run(gains.take(idx_fast))
+    slow = run(gains.take(idx_slow))
+    merged = []
+    for f in FleetStats._fields:
+        a, b = getattr(fast, f), getattr(slow, f)
+        out = np.empty(len(gains), dtype=a.dtype)
+        out[idx_fast] = a
+        out[idx_slow] = b
+        merged.append(out)
+    return FleetStats(*merged)
+
+
 def fused_sweep_demand(
     demand: np.ndarray,
     gains: GainSet,
@@ -312,6 +398,8 @@ def fused_sweep_demand(
     app_graph: Optional[AppGraphSpec] = None,
     horizon: Optional[int] = None,
     precision: str = "f32",
+    devices: DevicesLike = None,
+    node_shards: int = 1,
     device: DeviceLike = None,
 ) -> FleetStats:
     """Sweep an ``(N, T)`` demand matrix (bytes) over every gain point.
@@ -325,51 +413,14 @@ def fused_sweep_demand(
     can all be resident at once.  ``precision="bf16"`` stores only the
     demand stream in bfloat16.
     """
-    dev = resolve_device(device)
-    demand = _check_args(np.asarray(demand), cache, occupancy, precision,
-                         horizon)
-    mask = paper_law_mask(gains)
-    if mask.any() and not mask.all():
-        sub_kw = dict(node_memory=node_memory, interval_s=interval_s,
-                      occupancy=occupancy, chunk=chunk, cache=cache,
-                      app_graph=app_graph, precision=precision, device=dev)
-        idx_fast = np.flatnonzero(mask)
-        idx_slow = np.flatnonzero(~mask)
-        fast = fused_sweep_demand(demand, gains.take(idx_fast), **sub_kw)
-        slow = fused_sweep_demand(demand, gains.take(idx_slow), **sub_kw)
-        merged = []
-        for f in FleetStats._fields:
-            a, b = getattr(fast, f), getattr(slow, f)
-            out = np.empty(len(gains), dtype=a.dtype)
-            out[idx_fast] = a
-            out[idx_slow] = b
-            merged.append(out)
-        return FleetStats(*merged)
-    n_nodes = demand.shape[0]
-    chunk = _resolve_chunk(chunk, len(gains), n_nodes)
-    chunk = -(-chunk // LANE_TILE) * LANE_TILE
-    n_real = len(gains)
-    plan = plan_specialization(gains, occupancy)
-    con = _engine_consts(plan, cache, interval_s, occupancy, precision,
-                         app_graph)
-    if con.has_graph and dev.type == "cuda":
-        limit = graph_lane_limit(con, n_nodes, dev)
-        chunk = chunk if limit is None else min(chunk, limit)
-    gains = _pad_gains(gains, chunk)
-    names = state_names(con.paper_law, con.has_cache, con.has_graph)
-    demand_tn, np_rows, lp = _stage(demand, gains, node_memory, cache,
-                                    precision, dev)
-    graph, total_work = _stage_graph(app_graph, n_nodes, dev)
-    alive = _alive(len(gains), n_real, dev)
-    with dispatch_guard():
-        # planecheck: hot-loop
-        chunks = [_sweep_program(demand_tn, np_rows,
-                                 lp[:, lo:lo + chunk].contiguous(),
-                                 alive[:, lo:lo + chunk].contiguous(), con,
-                                 names, graph, total_work)
-                  for lo in range(0, len(gains), chunk)]
-    return FleetStats(*(np.concatenate(f)[:n_real]
-                        for f in zip(*map(_to_host, chunks))))
+    from .mesh import mesh_sweep_demand
+
+    dev = _single_device(devices, node_shards, device, "fused_sweep_demand")
+    return mesh_sweep_demand(
+        demand, gains, devices=(dev,), node_shards=1,
+        node_memory=node_memory, interval_s=interval_s, occupancy=occupancy,
+        chunk=chunk, cache=cache, app_graph=app_graph, horizon=horizon,
+        precision=precision)
 
 
 def _to_host(stats: FleetStats) -> FleetStats:
@@ -474,6 +525,8 @@ def halving_sweep(
     objective: Callable = default_score,
     horizon: Optional[int] = None,
     precision: str = "f32",
+    devices: DevicesLike = None,
+    node_shards: int = 1,
     device: DeviceLike = None,
 ) -> HalvingSweep:
     """Run the whole successive-halving schedule as one device program.
@@ -485,9 +538,11 @@ def halving_sweep(
     (identical results; the lanes must share one block for the
     gathers).  Returns a :class:`HalvingSweep`;
     :func:`repro_torch.lab.tune.halving_tune` wraps it into a
-    :class:`~repro_torch.lab.tune.TuneResult`.
+    :class:`~repro_torch.lab.tune.TuneResult`.  ``devices`` and
+    ``node_shards`` run on the first device with a warning, as in
+    :func:`fused_sweep_demand`.
     """
-    dev = resolve_device(device)
+    dev = _single_device(devices, node_shards, device, "halving_sweep")
     demand = _check_args(np.asarray(demand), cache, occupancy, precision,
                          horizon)
     n_steps = demand.shape[1]

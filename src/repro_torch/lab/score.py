@@ -27,13 +27,15 @@ reference's true division.
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Tuple, Union
+from typing import (Dict, List, NamedTuple, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
 
 from ..core.control import f32, fma
 from ..core.traces import GiB
+from ..kernels import count_collective
 
 Array = Union[np.ndarray, torch.Tensor]
 
@@ -281,9 +283,137 @@ def quantile_from_hist(hist: torch.Tensor, q: float, n_total: int,
     return out[0] if hist.ndim == 1 else out
 
 
-def _fold(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the node axis in float64, rounded once to float32."""
-    return x.sum(-1, dtype=torch.float64).to(torch.float32)
+def _axis_fold(parts: Sequence[torch.Tensor], op) -> torch.Tensor:
+    """The shards' partials folded by ``op`` in shard order on the first
+    shard's device, reported as one all-reduce.  One part is returned as
+    it is, so an unsharded caller's arithmetic is unchanged."""
+    out = parts[0]
+    if len(parts) > 1:
+        count_collective("all-reduce", parts)
+        for p in parts[1:]:
+            out = op(out, p.to(out.device, non_blocking=True))
+    return out
+
+
+def _axis_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """JAX's ``psum`` over node shards."""
+    return _axis_fold(parts, torch.add)
+
+
+def _axis_max(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """JAX's ``pmax`` over node shards."""
+    return _axis_fold(parts, torch.maximum)
+
+
+def _axis_min(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """JAX's ``pmin`` over node shards (the fleet's slacks)."""
+    return _axis_fold(parts, torch.minimum)
+
+
+def fleet_partials(
+    *,
+    util_sum: torch.Tensor,          # (..., N) Kahan sum of r over T
+    util_max: torch.Tensor,          # (..., N) running max of r
+    caps_sum_gib: torch.Tensor,      # (..., N) Kahan sum of u / GiB
+    caps_sumsq_gib: torch.Tensor,    # (..., N) sum of (u / GiB)^2
+    over_r0_count: torch.Tensor,     # (..., N) count of r > r0 + OVER_R0_EPS
+    violation_count: torch.Tensor,   # (..., N) count of r > 1
+    last_bad: torch.Tensor,          # (..., N) last t with r > r0 + SETTLE_TOL
+    hits_gib: Optional[torch.Tensor] = None,     # (..., N) hit GiB
+    evicted_gib: Optional[torch.Tensor] = None,  # (..., N) evicted GiB
+    app_time_s: Optional[torch.Tensor] = None,   # (..., N) modeled app time
+    work_done_gib: Optional[torch.Tensor] = None,  # (..., N) AppGraph wd
+) -> Dict[str, torch.Tensor]:
+    """One shard's fold of its nodes (the last axis), on its device.
+
+    ``"sums"`` stacks the node sums, each in float64 (unrounded: the
+    shards' sums fold in float64 and round once); ``"util_max"``,
+    ``"last_bad"`` and, with the cache, ``"app_time"`` are node maxes.
+    :func:`finalize_partials` folds the shards' partials.
+    """
+    summed = [util_sum, caps_sum_gib, caps_sumsq_gib, over_r0_count,
+              violation_count]
+    if app_time_s is not None:
+        summed += [hits_gib, evicted_gib]
+    if work_done_gib is not None:
+        summed.append(work_done_gib)
+    out = {"sums": torch.stack(summed).sum(-1, dtype=torch.float64),
+           "util_max": util_max.amax(-1), "last_bad": last_bad.amax(-1)}
+    if app_time_s is not None:
+        out["app_time"] = app_time_s.amax(-1)
+    return out
+
+
+def finalize_partials(
+    parts: Sequence[Dict[str, torch.Tensor]],
+    *,
+    n_nodes: int,                    # the fleet's nodes, every shard's
+    p99_utilization: torch.Tensor,   # (...) from quantile_from_hist
+    r0: torch.Tensor,                # (...)
+    n_intervals: int,
+    interval_s: float,
+    accesses_gib: Optional[float] = None,        # per-node access total
+    total_work_gib: Optional[float] = None,      # the DAG's work, fleet
+    t_done: Optional[torch.Tensor] = None,       # (...) finish interval
+) -> FleetStats:
+    """:class:`FleetStats` from the shards' :func:`fleet_partials`.
+
+    The shards' float64 sums fold in shard order and round once to
+    float32, their maxes fold as maxes (JAX's ``psum`` and ``pmax`` in
+    ``finalize_fleet_stats``); every mean divides by the global sample
+    count ``n_intervals * n_nodes``.  With one part this is
+    :func:`finalize_fleet_stats`' arithmetic, unchanged.
+    """
+    dev = parts[0]["sums"].device
+    t = n_intervals
+    n = n_nodes
+    samples = f32(t * n, dev)
+    has_cache = "app_time" in parts[0]
+    # every node sum in one fold, and the five means in one division:
+    # the sweep's finalize is host-bound, so each operation saved counts
+    totals = _axis_sum([p["sums"] for p in parts]).to(torch.float32)
+    caps_total = totals[1]
+    util_mean, caps_mean, caps_sq_mean, over_frac, viol_rate = \
+        (totals[:5] / samples).unbind(0)
+    caps_var = torch.clamp_min(fma(-caps_mean, caps_mean, caps_sq_mean),
+                               0.0)
+    max_util = _axis_max([p["util_max"] for p in parts])
+    ideal_s = t * interval_s
+    lanes = max_util.shape
+    if not has_cache:
+        hit_ratio = torch.ones(lanes, dtype=torch.float32, device=dev)
+        evicted_bytes = torch.zeros(lanes, dtype=torch.float32, device=dev)
+        app_runtime = torch.full(lanes, ideal_s, dtype=torch.float32,
+                                 device=dev)
+    else:
+        hits_total, evicted_total = totals[5:7].unbind(0)
+        hit_ratio = hits_total / f32(n * accesses_gib, dev)
+        # a float32 product with a scalar rounds as with a 0-d tensor
+        evicted_bytes = evicted_total * float(np.float32(GiB))
+        app_runtime = _axis_max([p["app_time"] for p in parts])
+    return FleetStats(
+        mean_utilization=util_mean,
+        p99_utilization=p99_utilization,
+        max_utilization=max_util,
+        frac_intervals_over_r0=over_frac,
+        max_over_r0=torch.clamp_min(max_util - r0, 0.0),
+        pressure_violation_rate=viol_rate,
+        mean_capacity_gib=caps_mean,
+        # float64, rounded once: correctly rounded on both devices (the
+        # CPU's float32 sqrt is not, in one of ~160 elements)
+        capacity_std_gib=torch.sqrt(caps_var.double()).float(),
+        granted_volume_gib_s=(caps_total / f32(n, dev)
+                              * float(np.float32(interval_s))),
+        settle_intervals=(_axis_max([p["last_bad"] for p in parts])
+                          + 1).to(torch.int32),
+        hit_ratio=hit_ratio,
+        evicted_bytes=evicted_bytes,
+        app_runtime=app_runtime,
+        app_slowdown=app_runtime / f32(ideal_s, dev),
+        makespan=_makespan(t_done, totals[-1] if t_done is not None
+                           else None, total_work_gib, t, interval_s, lanes,
+                           dev),
+    )
 
 
 def finalize_fleet_stats(
@@ -321,70 +451,32 @@ def finalize_fleet_stats(
     the work-linear extrapolation ``max(horizon * total / max(done,
     1e-6), horizon)`` (the node sum of ``work_done_gib`` folded in
     float64 as the other fields are); without a graph it is the neutral
-    ideal horizon.
+    ideal horizon.  A sharded sweep folds each shard's nodes with
+    :func:`fleet_partials` and the shards with :func:`finalize_partials`.
     """
-    dev = util_sum.device
-    t = n_intervals
-    n = util_sum.shape[-1]
-    samples = f32(t * n, dev)
-    summed = [util_sum, caps_sum_gib, caps_sumsq_gib, over_r0_count,
-              violation_count]
-    if app_time_s is not None:
-        summed += [hits_gib, evicted_gib]
-    # every node sum in one fold, and the five means in one division:
-    # the sweep's finalize is host-bound, so each operation saved counts
-    totals = _fold(torch.stack(summed))
-    caps_total = totals[1]
-    util_mean, caps_mean, caps_sq_mean, over_frac, viol_rate = \
-        (totals[:5] / samples).unbind(0)
-    caps_var = torch.clamp_min(fma(-caps_mean, caps_mean, caps_sq_mean),
-                               0.0)
-    max_util = util_max.amax(-1)
-    ideal_s = t * interval_s
-    lanes = max_util.shape
-    if app_time_s is None:
-        hit_ratio = torch.ones(lanes, dtype=torch.float32, device=dev)
-        evicted_bytes = torch.zeros(lanes, dtype=torch.float32, device=dev)
-        app_runtime = torch.full(lanes, ideal_s, dtype=torch.float32,
-                                 device=dev)
-    else:
-        hits_total, evicted_total = totals[5:].unbind(0)
-        hit_ratio = hits_total / f32(n * accesses_gib, dev)
-        # a float32 product with a scalar rounds as with a 0-d tensor
-        evicted_bytes = evicted_total * float(np.float32(GiB))
-        app_runtime = app_time_s.amax(-1)
-    return FleetStats(
-        mean_utilization=util_mean,
-        p99_utilization=p99_utilization,
-        max_utilization=max_util,
-        frac_intervals_over_r0=over_frac,
-        max_over_r0=torch.clamp_min(max_util - r0, 0.0),
-        pressure_violation_rate=viol_rate,
-        mean_capacity_gib=caps_mean,
-        # float64, rounded once: correctly rounded on both devices (the
-        # CPU's float32 sqrt is not, in one of ~160 elements)
-        capacity_std_gib=torch.sqrt(caps_var.double()).float(),
-        granted_volume_gib_s=(caps_total / f32(n, dev)
-                              * float(np.float32(interval_s))),
-        settle_intervals=(last_bad.amax(-1) + 1).to(torch.int32),
-        hit_ratio=hit_ratio,
-        evicted_bytes=evicted_bytes,
-        app_runtime=app_runtime,
-        app_slowdown=app_runtime / f32(ideal_s, dev),
-        makespan=_makespan(t_done, work_done_gib, total_work_gib, t,
-                           interval_s, lanes, dev),
-    )
+    part = fleet_partials(
+        util_sum=util_sum, util_max=util_max, caps_sum_gib=caps_sum_gib,
+        caps_sumsq_gib=caps_sumsq_gib, over_r0_count=over_r0_count,
+        violation_count=violation_count, last_bad=last_bad,
+        hits_gib=hits_gib, evicted_gib=evicted_gib, app_time_s=app_time_s,
+        work_done_gib=work_done_gib)
+    return finalize_partials(
+        [part], n_nodes=util_sum.shape[-1], p99_utilization=p99_utilization,
+        r0=r0, n_intervals=n_intervals, interval_s=interval_s,
+        accesses_gib=accesses_gib, total_work_gib=total_work_gib,
+        t_done=t_done)
 
 
-def _makespan(t_done, work_done_gib, total_work_gib, n_intervals,
+def _makespan(t_done, work_done, total_work_gib, n_intervals,
               interval_s, lanes, dev) -> torch.Tensor:
-    """``FleetStats.makespan``: the reference's float32 arithmetic."""
+    """``FleetStats.makespan``: the reference's float32 arithmetic, from
+    the fleet's float32 node sum of the work done."""
     if t_done is None:
         return torch.full(lanes, n_intervals * interval_s,
                           dtype=torch.float32, device=dev)
     iv = f32(interval_s, dev)
     horizon = f32(n_intervals, dev) * iv
-    done = torch.clamp_min(_fold(work_done_gib), 1e-6)
+    done = torch.clamp_min(work_done, 1e-6)
     extrapolated = torch.maximum(horizon * f32(total_work_gib, dev) / done,
                                  horizon)
     return torch.where(t_done >= 0, t_done * iv, extrapolated)

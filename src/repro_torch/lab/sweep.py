@@ -12,19 +12,26 @@ the card by default (``device=None``); ``device="cpu"`` runs the
 kernel's plain PyTorch version.  A scenario's ``app_graph`` (AppGraph)
 runs its queue/barrier carry in the same kernel, in its graph instance,
 and scores a live ``FleetStats.makespan``.
+
+``devices=`` (:func:`resolve_devices`) shards a sweep as the JAX
+package's meshes do, with one process driving every shard
+(:mod:`repro_torch.lab.mesh`): the gain axis splits over the devices,
+and with ``node_shards > 1`` the node axis too, the stat folds and the
+AppGraph barrier's min crossing the shards.  One device always runs the
+unsharded program.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import NamedTuple, Optional, Sequence, Union
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..core.control import ControllerParams
-from ..device import DeviceLike
+from ..device import DeviceLike, resolve_device
 from .appgraph import AppGraphSpec
 from ..kernels.sweep import state_names
 from .scenarios import CacheSpec, ScenarioSpec, get_scenario
@@ -36,6 +43,54 @@ DEFAULT_CHUNK = 64
 LAUNCH_BUDGET_BYTES = 256 << 20
 # Float32 state planes of the widest specialization (generic law, cache).
 _MAX_PLANES = len(state_names(paper_law=False, has_cache=True))
+
+# What ``devices=`` takes: None, a count of CUDA devices, or devices.
+DevicesLike = Union[None, int, Sequence[Union[str, torch.device]]]
+
+
+def resolve_devices(devices: DevicesLike = None,
+                    device: DeviceLike = None) -> Tuple[torch.device, ...]:
+    """Normalize the ``devices`` knob to a tuple of ``torch.device``.
+
+    ``None`` is ``(device,)`` when a ``device`` is given (so
+    ``device="cpu"`` runs one CPU shard), else every visible CUDA
+    device, raising without one as :func:`~repro_torch.device.
+    resolve_device` does; an int ``n`` takes the first ``n`` CUDA
+    devices; a sequence is taken as given, devices of one type.  A
+    ``device`` that ``devices`` contradicts raises.  A device may
+    repeat: each entry is a shard of its own (on a card, with a stream
+    of its own), so ``("cpu",) * 4`` or ``("cuda:0",) * 4`` lays out four
+    shards on one device -- the port's counterpart of JAX's
+    ``--xla_force_host_platform_device_count=4``.
+    """
+    if devices is None:
+        if device is not None:
+            return (resolve_device(device),)
+        resolve_device(None)
+        return tuple(torch.device("cuda", i)
+                     for i in range(torch.cuda.device_count()))
+    if isinstance(devices, int) and not isinstance(devices, bool):
+        local = torch.cuda.device_count() if torch.cuda.is_available() \
+            else 0
+        if not 1 <= devices <= local:
+            raise ValueError(f"devices={devices} but only {local} "
+                             "local devices exist")
+        devs = tuple(torch.device("cuda", i) for i in range(devices))
+    else:
+        devs = tuple(torch.device(d) for d in devices)
+        if not devs:
+            raise ValueError("devices must name at least one device")
+        if len({d.type for d in devs}) > 1:
+            raise ValueError(f"devices must be of one type; got "
+                             f"{[str(d) for d in devs]}")
+    if device is not None:
+        want = torch.device(device)
+        if any(d.type != want.type
+               or (want.index is not None and d.index != want.index)
+               for d in devs):
+            raise ValueError(f"device={str(want)!r} disagrees with devices="
+                             f"{[str(d) for d in devs]}")
+    return devs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,6 +227,8 @@ def sweep_demand(
     cache: Optional[CacheSpec] = None,
     app_graph: Optional[AppGraphSpec] = None,
     horizon: Optional[int] = None,
+    devices: DevicesLike = None,
+    node_shards: int = 1,
     device: DeviceLike = None,
 ) -> FleetStats:
     """Sweep a raw ``(N, T)`` demand matrix over every gain point.
@@ -183,13 +240,26 @@ def sweep_demand(
     is partitioned by law class, each class on its own specialization,
     and the stats are stitched back in gain order.  ``app_graph``
     co-simulates a stage DAG and streams out its ``makespan``.
-    """
-    from .fused_sweep import fused_sweep_demand
 
-    return fused_sweep_demand(
-        demand, gains, node_memory=node_memory, interval_s=interval_s,
-        occupancy=occupancy, chunk=chunk, cache=cache, app_graph=app_graph,
-        horizon=horizon, device=device)
+    ``devices`` (:func:`resolve_devices`) shards the gain axis: each
+    device runs its share of the gains on its own stream.
+    ``node_shards > 1`` splits the node axis too, a 2-D (gains x nodes)
+    layout: the device count must divide by ``node_shards`` and ``N``
+    too.  Chunking and sharding do not change the stats: gain shards
+    are bit-identical to one device, node shards fold their float64 sums
+    in shard order (the tier-1 brackets; counts, maxes and an AppGraph's
+    finish interval exact).  One device always runs the unsharded
+    program, whatever ``node_shards`` says.
+    """
+    from .mesh import mesh_sweep_demand
+
+    if node_shards < 1:
+        raise ValueError("node_shards must be >= 1")
+    return mesh_sweep_demand(
+        demand, gains, devices=resolve_devices(devices, device),
+        node_shards=node_shards, node_memory=node_memory,
+        interval_s=interval_s, occupancy=occupancy, chunk=chunk, cache=cache,
+        app_graph=app_graph, horizon=horizon)
 
 
 @dataclasses.dataclass
@@ -238,6 +308,8 @@ def run_sweep(
     node_memory: Optional[Union[float, np.ndarray]] = None,
     horizon: Optional[int] = None,
     objective=None,
+    devices: DevicesLike = None,
+    node_shards: int = 1,
     device: DeviceLike = None,
 ) -> SweepResult:
     """Compile ``scenario`` and run its closed loop over every gain.
@@ -245,7 +317,8 @@ def run_sweep(
     ``node_memory`` overrides the scenario's per-node budget (bytes);
     ``horizon`` truncates to the first ``horizon`` intervals;
     ``objective`` (a registry name or ``FleetStats -> scores``
-    callable) is stored on the result for ``scores()`` / ``best()``.
+    callable) is stored on the result for ``scores()`` / ``best()``;
+    ``devices`` and ``node_shards`` shard the sweep (:func:`sweep_demand`).
     """
     if objective is not None:
         from .tune import resolve_objective
@@ -263,7 +336,8 @@ def run_sweep(
     stats = sweep_demand(
         demand, gains, node_memory=m, interval_s=spec.interval_s,
         occupancy=spec.occupancy, chunk=chunk, cache=spec.cache,
-        app_graph=spec.app_graph, device=device)
+        app_graph=spec.app_graph, devices=devices, node_shards=node_shards,
+        device=device)
     elapsed = time.perf_counter() - t0
     return SweepResult(scenario=spec, gains=gains, stats=stats, seed=seed,
                        elapsed_s=elapsed, objective=objective)

@@ -54,7 +54,8 @@ from .fused_sweep import halving_sweep
 from .scenarios import ScenarioSpec, get_scenario
 from .score import (FleetStats, default_score, makespan_score,
                     runtime_score, stats_to_dict)
-from .sweep import GainSet, SweepResult, run_sweep
+from .sweep import (DevicesLike, GainSet, SweepResult, resolve_devices,
+                    run_sweep)
 
 Objective = Callable[[FleetStats], object]
 
@@ -200,6 +201,8 @@ def tune_gains(
     seed: int = 0,
     objective: Union[None, str, Objective] = None,
     chunk: Optional[int] = None,
+    devices: DevicesLike = None,
+    node_shards: int = 1,
     device: DeviceLike = None,
 ) -> TuneResult:
     """Search gains for ``scenario`` and return the winner.
@@ -209,19 +212,22 @@ def tune_gains(
     (exactly ``budget`` points) or ``"halving"`` (:func:`halving_tune`);
     ``gains`` brings your own candidates.  The baseline
     (``base_params``, default paper Table I) is scored on the full
-    horizon beside the candidates.
+    horizon beside the candidates.  ``devices`` and ``node_shards``
+    shard the sweep (:func:`~repro_torch.lab.sweep.sweep_demand`).
     """
     objective = resolve_objective(objective or default_score)
     base = base_params or PAPER_TABLE_I
     if method == "halving":
         return halving_tune(scenario, base_params=base, gains=gains,
                             budget=budget, seed=seed, objective=objective,
+                            devices=devices, node_shards=node_shards,
                             device=device)
     if gains is None:
         gains = _default_candidates(method, budget, base, seed)
     candidates = gains.concat(GainSet.from_params(base))
     result = run_sweep(scenario, candidates, seed=seed, chunk=chunk,
-                       objective=objective, device=device)
+                       objective=objective, devices=devices,
+                       node_shards=node_shards, device=device)
     scores = result.scores(objective)
     best = int(np.argmax(scores))
     return TuneResult(
@@ -246,6 +252,8 @@ def halving_tune(
     min_survivors: int = 4,
     seed: int = 0,
     objective: Union[None, str, Objective] = None,
+    devices: DevicesLike = None,
+    node_shards: int = 1,
     device: DeviceLike = None,
 ) -> TuneResult:
     """Successive-halving gain search, run in-scan on the device.
@@ -260,7 +268,10 @@ def halving_tune(
     A scenario with an ``app_graph`` runs the rounds on the host, as the
     reference's halving does for it: each round is a fresh sweep
     truncated to its horizon (the graph planes do not ride the in-scan
-    schedule's lane gathers).
+    schedule's lane gathers); ``devices`` and ``node_shards`` shard its
+    rounds' sweeps.  The in-scan program runs on one device: with a
+    layout of several it warns and takes the first (as the JAX
+    package's pallas engine does).
     """
     objective = resolve_objective(objective or default_score)
     spec = get_scenario(scenario)
@@ -270,13 +281,15 @@ def halving_tune(
     if spec.app_graph is not None:
         return _halving_host(spec, base, gains, rounds=rounds, keep=keep,
                              min_survivors=min_survivors, seed=seed,
-                             objective=objective, device=device)
+                             objective=objective, devices=devices,
+                             node_shards=node_shards, device=device)
     hs = halving_sweep(
         spec.build_demand(seed=seed), gains, GainSet.from_params(base),
         node_memory=spec.build_node_memory(seed=seed),
         interval_s=spec.interval_s, occupancy=spec.occupancy,
         cache=spec.cache, rounds=rounds, keep=keep,
-        min_survivors=min_survivors, objective=objective, device=device)
+        min_survivors=min_survivors, objective=objective, devices=devices,
+        node_shards=node_shards, device=device)
     survivors = gains.take(hs.survivor_idx).concat(
         GainSet.from_params(base))
     sweep = SweepResult(scenario=spec, gains=survivors, stats=hs.stats,
@@ -298,7 +311,8 @@ def halving_tune(
 
 def _halving_host(spec: ScenarioSpec, base: ControllerParams,
                   gains: GainSet, *, rounds, keep, min_survivors, seed,
-                  objective: Objective, device: DeviceLike) -> TuneResult:
+                  objective: Objective, devices: DevicesLike,
+                  node_shards: int, device: DeviceLike) -> TuneResult:
     """Successive halving with a fresh truncated sweep per round.
 
     The reference's host-side loop: candidates score on the first
@@ -320,6 +334,7 @@ def _halving_host(spec: ScenarioSpec, base: ControllerParams,
             survivors = survivors.concat(GainSet.from_params(base))
         result = run_sweep(spec, survivors, seed=seed, objective=objective,
                            horizon=None if frac == 1.0 else horizon,
+                           devices=devices, node_shards=node_shards,
                            device=device)
         scores = result.scores(objective)
         round_log.append({"horizon": horizon,
@@ -372,6 +387,8 @@ def tune_portfolio(
     seed: int = 0,
     objective: Union[None, str, Objective] = None,
     chunk: Optional[int] = None,
+    devices: DevicesLike = None,
+    node_shards: int = 1,
     device: DeviceLike = None,
 ) -> PortfolioResult:
     """One gain set scored across a scenario portfolio.
@@ -398,7 +415,8 @@ def tune_portfolio(
     for sc in scenarios:
         spec = get_scenario(sc)
         result = run_sweep(spec, candidates, seed=seed, chunk=chunk,
-                           objective=objective, device=device)
+                           objective=objective, devices=devices,
+                           node_shards=node_shards, device=device)
         sweeps[spec.name] = result
         matrix.append(result.scores(objective))
     matrix = np.stack(matrix)                       # (S, G)
@@ -510,6 +528,8 @@ def retune_online(
     chunk: Optional[int] = None,
     restarts: int = 0,
     restart_backoff_s: float = 0.05,
+    devices: DevicesLike = None,
+    node_shards: int = 1,
     device: DeviceLike = None,
     **scenario_overrides,
 ) -> Union[RetuneResult, "RetuneHandle"]:
@@ -536,7 +556,9 @@ def retune_online(
     and returns the :class:`RetuneResult`; ``block=False`` returns a
     :class:`RetuneHandle` immediately (``handle.result()`` joins).
     Extra keywords pass through to :meth:`ScenarioSpec.from_capture`
-    (e.g. ``cache=`` to pin a hand-fitted :class:`CacheSpec`).
+    (e.g. ``cache=`` to pin a hand-fitted :class:`CacheSpec`);
+    ``devices`` and ``node_shards`` pass to the tuner, and the round's
+    own stream is on the first device.
 
     **Supervision** (``restarts > 0``): a crashed round -- capture,
     sweep, or swap raising -- is restarted up to ``restarts`` times with
@@ -551,7 +573,11 @@ def retune_online(
     """
     if restarts < 0:
         raise ValueError("restarts must be >= 0")
-    dev = resolve_device(device)
+    devs = (resolve_devices(devices, device) if devices is not None
+            else (resolve_device(device),))
+    dev = devs[0]
+    tune_kw = (dict(device=dev) if devices is None
+               else dict(devices=devs, node_shards=node_shards))
     if capture is None and restarts == 0:
         # Unsupervised: capture eagerly so an empty recorder raises in
         # the caller, not the round thread.
@@ -568,7 +594,7 @@ def retune_online(
             fit_cache=fit_cache, **scenario_overrides)
         tune = tune_gains(spec, base_params=deployed, method=method,
                           budget=budget, seed=seed, objective=objective,
-                          chunk=chunk, device=dev)
+                          chunk=chunk, **tune_kw)
         swapped, epoch = False, None
         if swap and tune.improvement > min_improvement:
             epoch = plane.swap_params(tune.params)

@@ -77,8 +77,7 @@ def analyze_step(fn: Callable, *args, desc: dict, n_chips: int = 1,
         "hlo_bytes_per_chip": nbytes,
         "bytes_by_op": cost["bytes_by_op"],
         "kernels": cost["kernels"],
-        "collectives": {"total_bytes": cost["collective_bytes"],
-                        "per_kind_bytes": cost["per_kind_bytes"]},
+        "collectives": cost["collectives"],
         "roofline": terms,
         "model_flops_total": mf,
         "model_flops_per_chip": mf_per_chip,

@@ -24,8 +24,11 @@ none).
   (:func:`repro_torch.kernels.count_call`) with its :mod:`.kernels`
   work, on the card and on ``meta`` tensors alike, so a decode step
   counts its attention.
-* Collectives: the port has none until multi-GPU (ROADMAP A4), so
-  ``collective_bytes`` is 0.
+* Collectives: a sharded sweep reports each fold and exchange over its
+  shards (:func:`repro_torch.kernels.count_collective`) through the
+  same records; they are summed by :func:`.collectives.
+  parse_collectives` into ``collective_bytes``, not into ``bytes``.
+  An unsharded step has none.
 
 Run the step on ``device="meta"`` and counting costs no device time and
 no memory: every op computes only its output's shape.  On meta tensors
@@ -45,6 +48,7 @@ from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
 from ..kernels import WORK_COUNTS
+from .collectives import COLLECTIVE_OPS, parse_collectives
 
 # allocations: no bytes move until an op writes them
 _ALLOCS = {"empty", "empty_like", "empty_strided", "new_empty",
@@ -139,7 +143,8 @@ def step_cost(fn: Callable, *args, **kwargs) -> dict:
     ``bytes_by_op``) and ``kernels``: each hand-written kernel's counted
     calls (on meta tensors none of them launched), operations, bytes and
     summed bound in ms.  The kernels' work is in ``flops`` and ``bytes``
-    too."""
+    too.  ``collectives`` is :func:`.collectives.parse_collectives` of
+    the folds and exchanges the step's shards reported."""
     count = _Count()
     WORK_COUNTS.append(count.kernels)
     try:
@@ -148,7 +153,11 @@ def step_cost(fn: Callable, *args, **kwargs) -> dict:
     finally:
         WORK_COUNTS.remove(count.kernels)
     kernels: Dict[str, dict] = {}
+    records = []
     for name, work, data in count.kernels:
+        if name in COLLECTIVE_OPS:
+            records.append((name, work(*data)))
+            continue
         w = work(*data)
         k = kernels.setdefault(name, dict(calls=0, ops=0, bytes=0,
                                           bound_ms=0.0))
@@ -156,13 +165,15 @@ def step_cost(fn: Callable, *args, **kwargs) -> dict:
         k["ops"] += w.ops
         k["bytes"] += w.bytes
         k["bound_ms"] += w.bound_ms
+    collectives = parse_collectives(records)
     return {
         "flops": float(flops.get_total_flops()
                        + sum(k["ops"] for k in kernels.values())),
         "bytes": float(count.bytes
                        + sum(k["bytes"] for k in kernels.values())),
-        "collective_bytes": 0.0,
-        "per_kind_bytes": {},
+        "collective_bytes": collectives["total_bytes"],
+        "per_kind_bytes": collectives["per_kind_bytes"],
+        "collectives": collectives,
         "bytes_by_op": dict(count.bytes_by_op),
         "kernels": kernels,
     }

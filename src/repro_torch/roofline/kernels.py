@@ -13,7 +13,9 @@ route's peak, in milliseconds, with the term that binds it.
 * B1, the sweep (``csrc/sweep.cu``): :data:`OPS_PER_UPDATE` float32
   operations per (lane, node, interval) update, counted from the
   kernel's source, plus :data:`GRAPH_OPS_PER_UPDATE` for the AppGraph
-  carry.
+  carry; its one-interval graph entry (:func:`sweep_interval`) moves the
+  whole state in and out every launch, and of the histogram and the
+  work matrix only what the launch touches.
 * B2, flash attention: 4 * hd operations per kept (query, key) pair, at
   the bf16 tensor-core rate, or for float32 (run as 3xTF32: three TF32
   products for each) at a third of the TF32 rate.
@@ -104,6 +106,47 @@ def sweep(n_nodes: int, n_intervals: int, n_lanes: int, *, cache: bool,
                                         else 0)
     return Work(ops=n_nodes * n_intervals * n_lanes * per_update,
                 bytes=n_bytes, peak=PEAK_F32)
+
+
+# Node rows the one-interval graph entry reads (1 / m, the working set
+# and its inverse; not m).
+INTERVAL_NODE_ROWS = 3
+
+
+def sweep_interval(n_nodes: int, n_lanes: int, *, cache: bool,
+                   paper_law: bool = True, n_stages: int,
+                   hist_updates: Optional[int] = None,
+                   work_reads: Optional[int] = None,
+                   demand_itemsize: int = 4) -> Work:
+    """One launch of the one-interval graph entry on a shard of
+    ``n_nodes``: the state read and written once, one demand row, the
+    lane parameters and the alive mask, the node rows it reads, the stage
+    constants, the (L,) int32 fleet min read and lane min written.  Of
+    the histogram only the bins the launch adds to, each read and
+    written (``hist_updates``; at most one a live (lane, node) and one a
+    bin, the default), and of the work matrix only the entries its
+    promotions read (``work_reads``; by default one row).  The
+    operations are one interval of :func:`sweep`'s graph instance."""
+    from ..kernels.sweep import (N_PARAM_ROWS, N_STAGE_CONST_ROWS,
+                                 state_names)
+    from ..lab.score import HIST_BINS
+
+    planes = len(state_names(paper_law, cache, True))
+    if hist_updates is None:
+        hist_updates = n_lanes * min(n_nodes, HIST_BINS)
+    if work_reads is None:
+        work_reads = n_nodes
+    n_bytes = (2 * planes * n_lanes * n_nodes * 4
+               + n_nodes * demand_itemsize
+               + (N_PARAM_ROWS + 1) * n_lanes * 4
+               + INTERVAL_NODE_ROWS * n_nodes * 4
+               + N_STAGE_CONST_ROWS * (n_stages + 1) * 4
+               + 2 * n_lanes * 4
+               + 2 * hist_updates * 4
+               + work_reads * 4)
+    ops = sweep(n_nodes, 1, n_lanes, cache=cache, paper_law=paper_law,
+                n_stages=n_stages).ops
+    return Work(ops=ops, bytes=n_bytes, peak=PEAK_F32)
 
 
 def sweep_f64_bound_ms(work: Work, n_updates: int,

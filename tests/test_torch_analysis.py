@@ -303,18 +303,24 @@ def test_tree_passes_the_gate_with_every_entry_justified(monkeypatch):
 
 
 HOT_LOOPS = {
-    # file: (marked line, injected text placed after it, hot symbol)
+    # entry's file: (file of its marked loop, marked line, injected text
+    # placed after it, hot symbol)
     "lab/fused_sweep.py": (
-        "                  for lo in range(0, len(gains), chunk)]",
-        None, "fused_sweep_demand"),
+        "lab/mesh.py",
+        "        for lead, _, lane_chunk, nodes in staged:  # planecheck: "
+        "hot-loop\n", "            torch.zeros(1).item()\n",
+        "mesh_sweep_demand"),
     "fleet/sweep.py": (
-        "        for lo in range(0, n_real, chunk):     # planecheck: "
-        "hot-loop\n", "            demand_dev.sum().item()\n",
-        "fleet_sweep_demand"),
+        "fleet/sweep.py",
+        "        for lo in range(0, len(gains), chunk):     # planecheck: "
+        "hot-loop\n", "            torch.zeros(1).item()\n",
+        "_layout_sweep"),
     "core/plane.py": (
+        "core/plane.py",
         "            pending, self._pending = self._pending, {}\n",
         "            torch.zeros(1).item()\n", "ArrayController.flush"),
     "models/decode.py": (
+        "models/decode.py",
         "    cfg = model.cfg\n", "    tokens.sum().item()\n", "decode_step"),
 }
 
@@ -325,17 +331,11 @@ def test_injected_item_in_a_hot_loop_fails_the_gate(tmp_path, monkeypatch,
     shutil.copytree(os.path.join(REPO, "src", "repro_torch"),
                     tmp_path / "src" / "repro_torch",
                     ignore=shutil.ignore_patterns("*.cu", "__pycache__"))
-    path = tmp_path / "src" / "repro_torch" / rel
+    loop_file, needle, inject, symbol = HOT_LOOPS[rel]
+    path = tmp_path / "src" / "repro_torch" / loop_file
     src = path.read_text()
-    needle, inject, symbol = HOT_LOOPS[rel]
     assert src.count(needle) == 1 and "planecheck: hot-loop" in src
-    if inject is None:              # the comprehension: a per-item check
-        inject = needle.replace("chunk)]", "chunk)\n"
-                                "                  if lp.sum().item()]")
-        src = src.replace(needle, inject)
-    else:
-        src = src.replace(needle, needle + inject)
-    path.write_text(src)
+    path.write_text(src.replace(needle, needle + inject))
     monkeypatch.chdir(tmp_path)
     findings, new = run(["src/repro_torch"], Baseline.load(BASELINE))
     assert [(f.rule, f.symbol) for f in new] == [("PC-H001", symbol)]

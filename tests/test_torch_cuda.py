@@ -25,7 +25,9 @@ shapes: non-causal at hd 64 (whisper-large-v3's encoder, group 1) and
 hd 128 with Sq > Skv (llama-3.2-vision-11b's cross layers), a cross cache
 read whole, and a cross cache at length 0 (zeros).  One moe layer
 (``moe_apply``) on the card against the CPU, with and without drops: the
-same choices kept.
+same choices kept.  The sweep's one-interval graph entry over node
+shards of the card against its plain version on the CPU, and the
+sharded sweeps over four shards of one card against one device.
 """
 
 import time
@@ -219,6 +221,83 @@ def test_app_graph_sweeps_on_the_card_match_the_cpu(card):
         assert stats_mismatches(a.stats, b.stats,
                                 n_samples=spec.n_nodes * 300) == []
         np.testing.assert_array_equal(a.stats.makespan, b.stats.makespan)
+
+
+def _exchange(device, spec, gains, n_shards):
+    """The one-interval graph entry over ``n_shards`` node shards of
+    ``device`` (streams of their own on the card), the state's nodes in
+    order and the histograms summed, on the CPU."""
+    from repro_torch.lab import mesh
+    con = fs._engine_consts(plan_specialization(gains), spec.cache, 0.1,
+                            1.0, "f32", spec.app_graph)
+    names = ks.state_names(con.paper_law, con.has_cache, True)
+    demand = spec.build_demand(seed=0)
+    work, stage, _ = fs._graph_host(spec.app_graph, spec.n_nodes)
+    cols = spec.n_nodes // n_shards
+    ops = []
+    for j in range(n_shards):
+        c = slice(j * cols, (j + 1) * cols)
+        dtn, rows, lp = fs._stage(demand[c], gains, 125 * GiB, spec.cache,
+                                  "f32", device)
+        g = (torch.from_numpy(np.ascontiguousarray(work[:, c])).to(device),
+             torch.from_numpy(stage).to(device))
+        alive = fs._alive(len(gains), len(gains) - 1, device)
+        ops.append((fs._init_state(lp, rows, dtn[0], con, names, g),
+                    fs._zero_hist(lp), dtn, lp, rows, alive, g))
+    states = [o[0] for o in ops]
+    hists = [o[1] for o in ops]
+    mesh.graph_exchange([mesh.Shard(torch.device(device)) for _ in ops],
+                        states, hists, *[list(x) for x in zip(*ops)][2:],
+                        t0=0, con=con, names=names)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return torch.cat(states, -1).cpu(), sum(h.cpu() for h in hists), names
+
+
+@pytest.mark.parametrize("cache", [False, True])
+def test_graph_interval_entry_matches_plain_version(card, cache):
+    """The one-interval entry over 2 node shards of the card (512 nodes
+    each: several blocks a lane) equals its plain version on the CPU:
+    bit for bit without the cache, to 1e-6 with it (the stage rows and
+    finish intervals exact)."""
+    spec = get_scenario("limplock").replace(n_nodes=1024, n_intervals=600)
+    spec = spec.replace(app_graph=spec.app_graph.replace(
+        iterations=1, slow_nodes=(700,)),
+        **({"cache": get_scenario("spark-iterative-cache").cache}
+           if cache else {}))
+    gains = grid_gains(lam=(0.5, 1.0, 1.6), r0=(0.9, 0.95))
+    before = ks.INTERVAL_LAUNCHES
+    sk, hk, names = _exchange(card, spec, gains, 2)
+    assert ks.INTERVAL_LAUNCHES - before == 2 * (600 + 2)
+    sp, hp, _ = _exchange("cpu", spec, gains, 2)
+    for plane in ("sidx", "t_done"):
+        assert torch.equal(sk[names.index(plane)], sp[names.index(plane)])
+    if cache:
+        torch.testing.assert_close(sk, sp, rtol=1e-6, atol=0.0)
+    else:
+        assert torch.equal(sk, sp) and torch.equal(hk, hp)
+
+
+def test_sharded_sweeps_on_one_card_match_one_device(card):
+    """Four shards of one card: gain shards bit for bit, node shards
+    within the brackets and AppGraph's makespan exact."""
+    demand = fleet_demand_traces(256, 300, 0.1, seed=3)
+    gains = grid_gains(lam=(0.3, 0.6, 0.9, 1.2), r0=(0.9, 0.95))
+    four = ("cuda:0",) * 4
+    kw = dict(node_memory=125 * GiB)
+    from repro_torch.lab.sweep import sweep_demand
+    one = sweep_demand(demand, gains, devices=1, **kw)
+    got = sweep_demand(demand, gains, devices=four, **kw)
+    for f in one._fields:
+        np.testing.assert_array_equal(getattr(got, f), getattr(one, f))
+    got = sweep_demand(demand, gains, devices=four, node_shards=4, **kw)
+    assert stats_mismatches(got, one, n_samples=256 * 300) == []
+    spec = get_scenario("spark-dag").replace(n_intervals=300)
+    a = run_sweep(spec, gains, devices=1)
+    b = run_sweep(spec, gains, devices=four, node_shards=4)
+    np.testing.assert_array_equal(b.stats.makespan, a.stats.makespan)
+    assert stats_mismatches(b.stats, a.stats,
+                            n_samples=spec.n_nodes * 300) == []
 
 
 def _randn(card, shape, dtype, seed):

@@ -1,8 +1,9 @@
 """The port's FleetPlane against the JAX package's, on the CPU.
 
-Mirrors ``tests/test_fleet.py`` case for case (all but the 2-D device
-mesh, which comes with the multi-GPU work), each on the port, and holds
-the port to JAX with twins built from the same literals:
+Mirrors ``tests/test_fleet.py`` case for case (the 2-D device mesh and
+the single-device fallback are in ``tests/test_torch_mesh.py``), each
+on the port, and holds the port to JAX with twins built from the same
+literals:
 
 * ``arbitrate`` equals ``jax.jit(arbitrate)`` bit for bit under every
   policy at K in {2, 3, 8}, with and without a gain axis, and the numpy

@@ -17,6 +17,9 @@
 * ``analyze_step`` counts a decode step's attention: the kernel's
   launches and bytes on meta tensors, one per layer, where no dispatch
   mode sees a kernel.
+* ``parse_collectives`` gives JAX's keys and sums for the same
+  collectives, and a sharded sweep's folds and exchanges count as
+  worked out by hand on a 2 x 2 layout.
 """
 
 import jax
@@ -28,11 +31,17 @@ import torch.utils.checkpoint as checkpoint
 
 from repro.roofline import roofline_terms as jax_roofline_terms
 from repro.roofline.analysis import model_flops as jax_model_flops
+from repro.roofline.hlo import parse_collectives as jax_parse_collectives
 from repro.roofline.hlo_cost import hlo_cost
+from repro_torch.core.traces import fleet_demand_traces
+from repro_torch.lab import get_scenario
+from repro_torch.lab.sweep import run_sweep, sweep_demand
+from repro_torch.lab.tune import grid_gains
 from repro_torch.configs import get_config
 from repro_torch.models import Model, decode as D
 from repro_torch.roofline import (HBM_BW, ICI_BW, PEAK_FLOPS, analyze_step,
-                                  model_flops, roofline_terms, step_cost)
+                                  model_flops, parse_collectives,
+                                  roofline_terms, step_cost)
 from repro_torch.roofline import constants as C
 from repro_torch.roofline import kernels as K
 
@@ -241,6 +250,11 @@ BOUNDS = {
     "B1 cache-on": (lambda: K.sweep(4096, 1000, 64, cache=True), 0.3365),
     "B1 graph": (lambda: K.sweep(4096, 1800, 64, cache=True, n_stages=4),
                  0.7888),
+    # a 1024-node shard of spark-dag's 12 stages, the bins and work
+    # entries the timed launch touched
+    "B1 interval": (lambda: K.sweep_interval(1024, 64, cache=True,
+                                             n_stages=12, hist_updates=576,
+                                             work_reads=0), 0.0035),
     "B2 bf16": (lambda: K.flash(2, 4096, 32, 8, 64, bf16=True), 0.1390),
     "B2 f32": (lambda: K.flash(2, 4096, 32, 8, 64), 0.8332),
     "B2 llama": (lambda: K.flash(2, 256, 32, 8, 64), 0.0033),
@@ -291,6 +305,26 @@ def test_data_dependent_work_counts_what_the_data_needs():
     assert K.kept_pairs(3, 5, False, 0) == 15
 
 
+def test_one_interval_entry_counts_what_one_launch_touches():
+    """The one-interval graph entry moves its state in and out, but of
+    the (L, 4096) histogram only the bins it adds to (read and written)
+    and of the work matrix only what its promotions read; its operations
+    are one interval of the graph instance."""
+    from repro_torch.kernels.sweep import state_names
+    n, lanes, stages = 1024, 64, 7
+    planes = len(state_names(True, True, True))
+    fixed = (2 * planes * lanes * n + n + 11 * lanes + 3 * n
+             + 2 * (stages + 1) + 2 * lanes) * 4
+    got = K.sweep_interval(n, lanes, cache=True, n_stages=stages,
+                           hist_updates=300, work_reads=50)
+    assert got.bytes == fixed + (2 * 300 + 50) * 4
+    most = K.sweep_interval(n, lanes, cache=True, n_stages=stages)
+    assert most.bytes == fixed + (2 * lanes * n + n) * 4
+    assert got.ops == K.sweep(n, 1, lanes, cache=True, n_stages=stages).ops
+    assert got.bytes < K.sweep(n, 1, lanes, cache=True,
+                               n_stages=stages).bytes
+
+
 # ---- a step ------------------------------------------------------------------
 
 def test_analyze_step_counts_a_decode_steps_attention_on_meta():
@@ -320,3 +354,56 @@ def test_meta_tensors_outside_a_count_still_raise():
     meta = torch.empty((1, 1, 1), device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         kd.decode_attention(meta, meta[None], meta[None], meta[0])
+
+
+def test_parse_collectives_gives_jaxs_keys_and_sums():
+    """The same collectives as HLO lines (JAX) and as reported records
+    (the port)."""
+    ops = [("all-reduce", "s32", (8, 4096)), ("all-reduce", "f64", (5, 8)),
+           ("all-gather", "f32", (16, 64)), ("all-reduce", "s32", (8,))]
+    width = {"s32": 4, "f32": 4, "f64": 8}
+    hlo = "\n".join(
+        f"  %c{i} = {dt}[{','.join(map(str, sh))}] {kind}({dt}"
+        f"[{','.join(map(str, sh))}] %x{i})"
+        for i, (kind, dt, sh) in enumerate(ops))
+    records = [(kind, width[dt] * int(torch.tensor(sh).prod()))
+               for kind, dt, sh in ops]
+    assert parse_collectives(records) == jax_parse_collectives(hlo)
+    with pytest.raises(ValueError, match="unknown collective"):
+        parse_collectives([("broadcast", 4)])
+
+
+@pytest.mark.parametrize("graph", [False, True])
+def test_sharded_sweep_collectives_are_worked_out_by_hand(graph):
+    """A 2 x 2 layout (two gain shards of two node shards) on the CPU:
+    per gain shard and lane chunk of L lanes, every node shard's (L,
+    4096) int32 histogram, its (K, L) float64 node sums and its (L,)
+    maxes fold once; AppGraph adds each shard's (L,) int32 lane min an
+    interval and one more at the segment's end.  One device folds
+    nothing."""
+    gains = grid_gains(lam=(0.3, 0.6), r0=(0.9, 0.93))   # 2 lanes a shard
+    lanes, shards, n_steps = 8, 2, 20                  # padded to 8 lanes
+    if graph:
+        spec = get_scenario("limplock").replace(n_intervals=n_steps)
+
+        def run(**kw):
+            return run_sweep(spec, gains, **kw)
+        sums, maxes = 6, 2              # + the work done; no cache
+    else:
+        demand = fleet_demand_traces(16, n_steps, 0.1, seed=3)
+
+        def run(**kw):
+            return sweep_demand(demand, gains, node_memory=125 * 2**30,
+                                **kw)
+        sums, maxes = 5, 2
+    per_chunk = shards * lanes * (4096 * 4 + sums * 8 + maxes * 4)
+    if graph:
+        per_chunk += (n_steps + 1) * shards * lanes * 4
+    got = step_cost(run, devices=("cpu",) * 4, node_shards=2)
+    assert got["collective_bytes"] == 2 * per_chunk
+    assert got["per_kind_bytes"] == {"all-reduce": 2 * per_chunk}
+    n_folds = 4 + (n_steps + 1 if graph else 0)
+    assert got["collectives"]["n_ops"] == 2 * n_folds
+    assert got["collectives"]["largest"][0] == ("all-reduce",
+                                                shards * lanes * 4096 * 4)
+    assert step_cost(run, device="cpu")["collective_bytes"] == 0.0
