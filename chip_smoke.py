@@ -45,14 +45,16 @@ each, all at once) and drives the port's main paths on the card:
   nodes; ``simulate_fleet`` at 4096 x 1000 against the CPU and JAX's
   fleet gates;
 * AppGraph (phase 16): the sweep kernel's graph instance (the stage
-  DAG's queue/barrier carry) against its plain version, one block a
-  lane (limplock, spark-dag at their sizes) and several with a barrier
-  between them (both at 4096 nodes x 64 lanes); ``BENCH_appgraph.json``'s
+  DAG's queue/barrier carry) against its plain version, one warp a lane
+  (limplock, spark-dag at their sizes) and one thread-block cluster a
+  lane (both at 4096 nodes x 64 lanes, one launch each), with the route
+  the planner took; ``BENCH_appgraph.json``'s
   gates (spark-dag's >= 2x makespan gap, limplock's ~4x) with the card's
   makespans equal to the CPU's; ``halving_tune(spark-dag, makespan)``
   making the CPU's decision; ``runtime-churn`` card against CPU; and
   the graph instance's times beside the graph-free instance on the same
-  demand;
+  demand and the design it replaced, with its bound and its serial
+  chain's;
 * FleetPlane and the ChaosPlane harness (phase 17): ``arbitrate`` on the
   card bit for bit the CPU's under every policy, with its invariants;
   ``fleet_sweep_demand`` (plain PyTorch: the JAX package runs the fleet
@@ -505,22 +507,52 @@ def phase4():
 
 
 def sweep_resources(lib):
-    """Registers, static shared memory and resident blocks per SM of
-    every template instance of the sweep kernel, from the runtime."""
+    """Registers, shared memory and residency of every template instance
+    of the sweep kernel, from the runtime: the graph-free instances at
+    128 threads a block; the graph instances at the shapes the planner
+    picks for phase 16's fleets (one warp of one loop a thread for the
+    registry's lanes; the wide loops in the cluster of a 4096-node lane),
+    with the clusters the card holds at once, there and at 16 blocks."""
     rows = {}
-    for (law, occ, cache), bf16, graph in itertools.product(
+    stage_rows = fs._graph_host(get_scenario("spark-dag").app_graph,
+                                16)[1].shape[1]
+    for (law, occ, cache), bf16 in itertools.product(
             ((1, 1, 0), (1, 0, 0), (0, 1, 0), (0, 0, 0), (1, 1, 1),
-             (0, 1, 1)), (0, 1), (0, 1)):
-        out = ks.instance_resources(law, occ, cache, bf16, graph, lib=lib)
+             (0, 1, 1)), (0, 1)):
         tag = (f"{'paper' if law else 'generic'} "
                f"{'unit-occ' if occ else 'occ'} "
                f"{'cache-on' if cache else 'cache-off'} "
-               f"{'bf16' if bf16 else 'f32'}"
-               f"{' graph' if graph else ''}")
-        rows[tag] = dict(registers=out[0], smem_bytes=out[1],
-                         blocks_per_sm=out[2], warps_per_sm=out[2] * 4)
-        log(f"    {tag}: {out[0]} registers, {out[1]} B shared, "
-            f"{out[2]} blocks ({out[2] * 4} warps) per SM")
+               f"{'bf16' if bf16 else 'f32'}")
+        out = ks.instance_resources(law, occ, cache, bf16, lib=lib)
+        rows[tag] = dict(registers=out.registers, smem_bytes=out.smem_bytes,
+                         blocks_per_sm=out.blocks_per_sm,
+                         warps_per_sm=out.blocks_per_sm * 4)
+        log(f"    {tag}: {out.registers} registers, {out.smem_bytes} B "
+            f"shared, {out.blocks_per_sm} blocks "
+            f"({out.blocks_per_sm * 4} warps) per SM")
+        wide = ks.WIDE_LOOPS[bool(cache)]
+        shapes = [(1, 32, 1)] + [(wide, *reversed(ks._spread(N_NODES, wide,
+                                                              cap)))
+                                 for cap in ks.GRAPH_BLOCKS]
+        most = ks.instance_resources(law, occ, cache, bf16, wide,
+                                     ks.GRAPH_THREADS, ks.MAX_CLUSTER,
+                                     stage_rows, lib=lib).clusters
+        for loops, threads, cluster in shapes:
+            r = ks.instance_resources(law, occ, cache, bf16, loops, threads,
+                                      cluster, stage_rows, lib=lib)
+            rows[f"{tag} graph J={loops} {threads}x{cluster}"] = dict(
+                registers=r.registers, spill_bytes=r.spill_bytes,
+                smem_bytes=r.smem_bytes, threads=threads,
+                blocks_per_sm=r.blocks_per_sm, cluster=cluster,
+                clusters=r.clusters,
+                clusters_of_16=most if cluster > 1 else None)
+            log(f"    {tag} graph J={loops}: {r.registers} registers, "
+                f"{r.spill_bytes} B spilled, {r.smem_bytes} B shared + "
+                f"{8 * stage_rows} B of stage rows; {r.blocks_per_sm} "
+                f"blocks of {threads} threads per SM"
+                + (f", {r.clusters} clusters of {cluster} (a {N_NODES}-"
+                   f"node lane) resident at once; {most} of 16 blocks of "
+                   f"{ks.GRAPH_THREADS}" if cluster > 1 else ""))
     return rows
 
 
@@ -536,7 +568,7 @@ def sass_f64_ops(lib_path):
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib_path)], check=True,
                           capture_output=True, text=True).stdout
-    want = "sweep_kernelILb1ELb1ELb1ELb0ELb0EE"
+    want = "sweep_kernelILb1ELb1ELb1ELb0EE"
     body = next(f for f in sass.split("Function : ")[1:]
                 if want in f.split("\n", 1)[0])
     ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
@@ -1799,14 +1831,27 @@ def graph_inputs(spec, gains, n_dead=0, graph=True):
             dict(t0=0, con=con, names=names, graph=g), total)
 
 
+def graph_route(kw, n_nodes):
+    """The planner's route for a graph launch of ``kw``'s operands."""
+    return ks.graph_plan(kw["con"], n_nodes, CUDA,
+                         kw["graph"][1].shape[1])
+
+
+def route_text(route, n_launches):
+    """J, threads, cluster and launches of a route, for a log line."""
+    return (f"{route.name} route: J={route.loops}, {route.threads} threads "
+            f"x {route.blocks} block(s) a lane, cluster {route.cluster}, "
+            f"{n_launches} launch(es)")
+
+
 def graph_kernel(args, kw):
     """The kernel over every lane of ``args``, in as many launches as
-    co-residency asks (one where one block holds a lane)."""
+    co-residency asks (one unless the route is cooperative)."""
     state0, hist0, dtn, lp, rows, alive = args
     n_lanes = lp.shape[1]
     limit = n_lanes
     if kw["con"].has_graph:
-        limit = ks.graph_lane_limit(kw["con"], dtn.shape[1], CUDA) or n_lanes
+        limit = graph_route(kw, dtn.shape[1]).lanes or n_lanes
     outs = [ks.sweep_segment(state0[:, lo:lo + limit].contiguous(),
                              hist0[lo:lo + limit].contiguous(), dtn,
                              lp[:, lo:lo + limit].contiguous(), rows,
@@ -1823,12 +1868,12 @@ def phase16a():
     state planes and histograms, and the makespans they finalize to."""
     log("phase 16a: the sweep kernel's AppGraph instance vs plain on the "
         "card, 64 lanes (5 dead): limplock and spark-dag at their sizes "
-        "(one block a lane) and at 4096 nodes (a barrier between blocks)")
+        "(one warp a lane) and at 4096 nodes (one cluster a lane)")
     worst, out = 0.0, {}
     for tag, spec, gains in graph_fleets():
         args, kw, total = graph_inputs(spec, gains, n_dead=5)
         con, names = kw["con"], kw["names"]
-        limit = ks.graph_lane_limit(con, spec.n_nodes, CUDA)
+        route = graph_route(kw, spec.n_nodes)
         before = ks.LAUNCHES
         sk, hk = graph_kernel(args, kw)
         torch.cuda.synchronize()
@@ -1851,8 +1896,8 @@ def phase16a():
         agree = bool((t_done == t_done[:, :1]).all())
         exact = torch.equal(sk, sp) and n_bins == 0
         log(f"  {tag} ({'cache-on' if spec.cache else 'cache-off'}, "
-            f"{n_launch} launch(es), lanes a launch "
-            f"{limit or 'unlimited'}): bit-identical={exact} max_abs="
+            f"{route_text(route, n_launch)}, lanes a launch "
+            f"{route.lanes or 'unlimited'}): bit-identical={exact} max_abs="
             f"{max_abs:.3e} max_rel={max_rel:.3e} hist_bins_differing="
             f"{n_bins} makespan_equal={same_makespan} finished {finished} "
             f"of {live} lanes (makespan {float(fin[0].min()):.2f}-"
@@ -1873,8 +1918,8 @@ def phase16a():
         worst = max(worst, max_abs)
         out[tag] = dict(bit_identical=exact, max_abs_err=max_abs,
                         max_rel_err=max_rel, hist_bins_differing=n_bins,
-                        launches=n_launch, lanes_per_launch=limit,
-                        lanes_finished=finished)
+                        launches=n_launch, lanes_per_launch=route.lanes,
+                        route=route._asdict(), lanes_finished=finished)
     return worst, out
 
 
@@ -1991,21 +2036,36 @@ def phase16d():
     check(card.best() == cpu.best(), "runtime-churn: winners differ")
 
 
+# Phase 16e's times of the design the graph instance's routes replaced
+# (one 128-thread block a lane up to 256 nodes, 128 with the cache, else
+# cooperative launches whose blocks met at a per-lane barrier in device
+# memory, the lanes split over two launches at 4096 nodes), measured by
+# this phase in an earlier run on an NVIDIA H100 80GB HBM3 at 700.00 W:
+# for the log line only, never reported as this run's
+EARLIER_16E_MS = {"limplock 8x1200": 0.6536, "spark-dag 16x1800": 1.3677,
+                  f"limplock {N_NODES}x1200": 7.1722,
+                  f"spark-dag {N_NODES}x1800": 15.9520}
+
+
 def phase16e():
     """The graph instance's times beside the graph-free instance on the
-    same demand (the carry's cost, and the barrier's across blocks), its
-    plain version and its operation bound."""
+    same demand (the carry's cost), its plain version (at 4096 nodes
+    only) and its operation bound; the log line adds the earlier
+    design's recorded time and the serial chain's computed one."""
     log("phase 16e: times of the graph instance (CUDA events after a ~1 "
         "ms device-side lead, median of 7), 64 lanes")
     out = {}
     for tag, spec, gains in graph_fleets():
         args, kw, _ = graph_inputs(spec, gains)
         free_args, free_kw, _ = graph_inputs(spec, gains, graph=False)
+        before = ks.LAUNCHES
         ms = cuda_ms(lambda: graph_kernel(args, kw), reps=7, lead=True)
+        n_launch = (ks.LAUNCHES - before) // 9
         free = cuda_ms(lambda: graph_kernel(free_args, free_kw), reps=7,
                        lead=True)
         state0, hist0, dtn, lp, rows, alive = args
         cache = "cache-on" if spec.cache else "cache-off"
+        route = graph_route(kw, spec.n_nodes)
         work = rk.sweep(spec.n_nodes, spec.n_intervals, lp.shape[1],
                         cache=bool(spec.cache),
                         paper_law=kw["con"].paper_law,
@@ -2013,8 +2073,7 @@ def phase16e():
                         demand_itemsize=dtn.element_size())
         r = dict(ms=ms, graph_free_ms=free, carry_ms=ms - free,
                  bound_ms=work.bound_ms, bound_by=work.bound_by,
-                 launches=len(range(0, lp.shape[1], ks.graph_lane_limit(
-                     kw["con"], spec.n_nodes, CUDA) or lp.shape[1])),
+                 launches=n_launch, route=route._asdict(),
                  us_per_interval=ms * 1e3 / spec.n_intervals)
         if tag == f"spark-dag {N_NODES}x1800":
             # one run: a Python loop of small launches, host-bound
@@ -2022,12 +2081,16 @@ def phase16e():
                                                                    **kw),
                                     reps=1, warm=0)
         out[tag] = r
-        log(f"  {tag} ({cache}): {ms:.4f} ms in {r['launches']} launch(es)"
-            f" ({r['us_per_interval']:.3f} us an interval); graph-free "
-            f"instance on the same demand {free:.4f} ms (the carry "
-            f"{ms - free:+.4f} ms); bound {r['bound_ms']:.4f} ms by "
-            f"{r['bound_by']}"
+        log(f"  {tag} ({cache}): {ms:.4f} ms, {route_text(route, n_launch)}"
+            f" ({r['us_per_interval']:.3f} us an interval); the earlier "
+            f"design {EARLIER_16E_MS[tag]:.4f} ms (recorded, not this run);"
+            f" graph-free instance on the same demand {free:.4f} ms (the "
+            f"carry {ms - free:+.4f} ms); bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}, serial chain {work.critical_path_ms:.4f} ms "
+            f"(computed)"
             + (f"; plain {r['plain_ms']:.1f} ms" if "plain_ms" in r else ""))
+        check(n_launch == 1 or route.cooperative,
+              f"{tag}: {n_launch} launches on the {route.name} route")
     return out
 
 
@@ -4371,8 +4434,9 @@ def main() -> None:
             if "registers" in line or "spill" in line \
                     or "entry function" in line:
                 log("    ptxas: " + line.strip())
-    log("  sweep.cu instances (cudaFuncGetAttributes, occupancy at 128 "
-        "threads a block):")
+    log("  sweep.cu instances (cudaFuncGetAttributes, "
+        "cudaOccupancyMaxActiveBlocksPerMultiprocessor, "
+        "cudaOccupancyMaxActiveClusters):")
     resources = sweep_resources(libs["sweep.cu"].lib)
 
     demand = fleet_demand_traces(N_NODES, N_STEPS, 0.1, seed=0)

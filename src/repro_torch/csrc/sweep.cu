@@ -20,7 +20,7 @@
 //   state   (S, L, N)  planes in repro_torch.kernels.sweep.state_names
 //   hist    (L, 4096)  int32 counts, added to in place (the wrapper
 //                      hands in a copy of the caller's histogram)
-// and with HAS_GRAPH:
+// and for the AppGraph instances (graph_kernel):
 //   work    (S+1, N)   float32 GiB of each stage row on each node
 //   stage   (2, S+1)   float32 rows: held demand (bytes), barrier flag
 //   ws      (L, 4)     int32, zeroed: the per-lane barrier's workspace
@@ -66,7 +66,7 @@
 //   * the v_prev seed and the warm resident seed are computed by the
 //     caller's `_init_state`, shared with the plain version.
 //
-// AppGraph (HAS_GRAPH): the queue/barrier carry of the reference's XLA
+// AppGraph (graph_kernel): the queue/barrier carry of the reference's XLA
 // scan (repro/lab/sweep.py, `app_graph`), which JAX runs beside the
 // Pallas kernel and the port runs in it.  Five more planes: the stage
 // row `sidx` (a float holding a small integer), the work left, the
@@ -78,16 +78,40 @@
 // sees it, the queue drains comp_itv * (interval_s / dt_eff), and a
 // barrier row promotes when the lane-wide min of the progress code
 // 2 * sidx + fin says every node finished it.  So every interval needs
-// one reduction over the lane's nodes:
-//   * one block holds the lane (N <= 256, or 128 with the cache): a
-//     warp reduction and one __syncthreads;
-//   * several blocks hold it: each block's min meets the others' at a
-//     per-lane barrier in device memory (arrival counter, generation,
-//     two min slots by parity, in a workspace the wrapper zeroes).  The
-//     barrier needs every block of the launch resident at once, so the
-//     entry launches such a grid cooperatively, which fails rather
-//     than deadlocks when the blocks do not fit, and the wrapper caps
-//     the lanes a launch holds.
+// one reduction over the lane's nodes, and the intervals are serial:
+// a small fleet is bound by the latency of that chain, not by
+// operations or bytes, and a large one by the card's registers, which
+// decide how many lanes run at once.  The graph instances are their own
+// kernel (graph_kernel), shaped per launch by the wrapper's planner
+// (kernels/sweep.py::graph_route): J loops a thread (a template
+// parameter: 1, or wide_loops), the threads of a block (up to 512) and
+// the blocks of a lane arrive as launch dimensions.  Each warp reduces
+// its min with __reduce_min_sync and, where the lane has more than one
+// warp, folds it into its block's slot in shared memory (atomicMin; three
+// slots by episode, so one barrier an interval separates a write from
+// the reads of the interval before and the refill of the one before
+// that).  Then by shape:
+//   * one warp holds the lane: the warp's min is the lane's;
+//   * one block: __syncthreads, and every thread reads the slot;
+//   * one thread-block cluster (<= 16 blocks, co-scheduled on one GPC,
+//     launched with cudaLaunchKernelEx): the hardware cluster barrier
+//     (barrier.cluster.arrive.release ... wait.acquire, the free rows'
+//     promotions in between), and each warp reads every block's slot
+//     over distributed shared memory (ld.shared::cluster).  Only a
+//     cluster has to be resident, so any number of lanes may wait for
+//     the card;
+//   * wider lanes: the block's min meets the other blocks' at a per-lane
+//     barrier in device memory (arrival counter, generation, two min
+//     slots by parity, in a workspace the wrapper zeroes), which needs
+//     every block of the launch resident: a cooperative launch, refused
+//     (an error, not a hang) when they do not fit.
+// Each interval's reads that do not depend on the min are issued before
+// it: the demand kAhead rows ahead (a ring of registers, as the
+// graph-free loop), the stage rows (copied into shared memory at entry)
+// and the promotion's work entry; its histogram counts go after it, to
+// drain while the next interval steps (before it, they queue in front of
+// the slot reads).  Integer mins commute, so every route computes the
+// same bits.
 // The reference's second reduction, min(sidx) >= S for t_done, is read
 // off the next interval's min instead: a node past the last row has
 // code 2 * S and any other node less, so that min is 2 * S exactly when
@@ -96,9 +120,7 @@
 // node run node N - 1 and enter the min with node N - 1's own code.
 // Without the cache dt_eff is the pressure curve as XLA compiles it
 // (folded slopes, one rounding per segment: hpl_slowdown_fused); with
-// it, the CacheLoop's dt_app.  Bound: the carry adds ~20 operations per
-// update and the lane's reductions, which serialise the intervals: a
-// small fleet is bound by their latency, not by operations or bytes.
+// it, the CacheLoop's dt_app.  The carry adds ~20 operations an update.
 //
 // The one-interval graph entry (dynims_sweep_graph_interval): when a
 // lane's nodes are split over shards (devices, or streams of one card),
@@ -374,6 +396,141 @@ __device__ __forceinline__ void count(int* bins, int bin, bool counted) {
   atomicAdd(&bins[counted ? bin : kBins], 1);
 }
 
+template <bool PAPER_LAW, bool UNIT_OCC, bool HAS_CACHE, bool BF16>
+__global__ void __launch_bounds__(kThreads) sweep_kernel(
+    const void* __restrict__ demand, const float* __restrict__ lp,
+    const float* __restrict__ np_rows, const float* __restrict__ alive,
+    const float* __restrict__ state_in, float* __restrict__ state_out,
+    int* __restrict__ hist, int T, int L, int N, int t0, SweepConsts c,
+    const float* __restrict__ work, const float* __restrict__ stage,
+    int* __restrict__ ws, int S, float comp_itv) {
+  // work, stage, ws, S and comp_itv are graph_kernel's operands, unused
+  // here: both kernels take one parameter list (SweepFn).
+  constexpr int J = nodes_per_thread(HAS_CACHE);
+  __shared__ int bins[kBins + 1];
+  const int l = blockIdx.y;
+  const size_t LN = static_cast<size_t>(L) * N;
+  // Loop j of a thread runs node blockIdx.x * J * kThreads + j * kThreads
+  // + threadIdx.x, so each of its loads and stores is coalesced.  Loops
+  // past the last node run node N - 1 (every warp stays whole for the
+  // histogram), count into the spare bin and store nothing.
+  int n[J];
+  bool active[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int node = (blockIdx.x * J + j) * kThreads + threadIdx.x;
+    active[j] = node < N;
+    n[j] = active[j] ? node : N - 1;
+  }
+
+  if (!(alive[l] > 0.5f)) {  // the whole block: its lane is dead
+    constexpr int kS = Planes<PAPER_LAW, HAS_CACHE>::kS;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const size_t ln = static_cast<size_t>(l) * N + n[j];
+      if (!active[j]) continue;
+      for (int s = 0; s < kS; ++s) state_out[s * LN + ln] = state_in[s * LN + ln];
+    }
+    return;
+  }
+  for (int b = threadIdx.x; b <= kBins; b += kThreads) bins[b] = 0;
+
+  Lane p;
+  p.r0 = lp[R0 * L + l];
+  p.lam = lp[LAM * L + l];
+  p.lam_grant = lp[LAM_GRANT * L + l];
+  p.u_min = lp[U_MIN * L + l];
+  p.u_max = lp[U_MAX * L + l];
+  p.db = lp[DB * L + l];
+  p.ff = lp[FF * L + l];
+  p.inv_r0 = lp[INV_R0 * L + l];
+  p.thr_over = lp[THR_OVER * L + l];
+  p.thr_settle = lp[THR_SETTLE * L + l];
+  Loop loop[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    Loop& s = loop[j];
+    load_loop<PAPER_LAW, HAS_CACHE>(s, state_in, LN,
+                                    static_cast<size_t>(l) * N + n[j]);
+    s.inv_m = np_rows[ROW_INV_M * N + n[j]];
+    s.w = np_rows[ROW_W * N + n[j]];
+    s.inv_w = np_rows[ROW_INV_W * N + n[j]];
+    s.wf0 = HAS_CACHE ? (c.warm_frac * fminf(p.u_max, s.w)) * s.inv_w : 0.0f;
+  }
+  __syncthreads();  // the bins are zero
+
+  // Rows k + kAhead load while row k is used: a ring of registers, so no
+  // step waits on the (L2) round trip.  The unrolled main loop runs while
+  // every row it loads exists, with no guard or clamp; the rest of the
+  // rows go one by one.
+  float ring[kAhead][J];
+#pragma unroll
+  for (int i = 0; i < kAhead; ++i) {
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      ring[i][j] = load_demand<BF16>(demand, min(i, T - 1) * N + n[j]);
+    }
+  }
+  int k0 = 0;
+  int row = kAhead * N;  // offset of row k0 + kAhead
+  for (; k0 + 2 * kAhead <= T; k0 += kAhead) {
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i) {
+      const float tf = static_cast<float>(t0 + k0 + i);
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const float d = ring[i][j];
+        ring[i][j] = load_demand<BF16>(demand, row + n[j]);
+        count(bins,
+              step<PAPER_LAW, UNIT_OCC, HAS_CACHE>(loop[j], p, c, d, tf),
+              active[j]);
+      }
+      row += N;
+    }
+  }
+#pragma unroll 1
+  for (int k = k0; k < T; ++k) {
+    const float tf = static_cast<float>(t0 + k);
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const float d = load_demand<BF16>(demand, k * N + n[j]);
+      count(bins,
+            step<PAPER_LAW, UNIT_OCC, HAS_CACHE>(loop[j], p, c, d, tf),
+            active[j]);
+    }
+  }
+  __syncthreads();  // every update is counted
+  int* out = hist + static_cast<size_t>(l) * kBins;
+  for (int b = threadIdx.x; b < kBins; b += kThreads) {
+    const int counted = bins[b];
+    if (counted) atomicAdd(&out[b], counted);
+  }
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    if (active[j]) {
+      store_loop<PAPER_LAW, HAS_CACHE>(loop[j], state_out, LN,
+                                       static_cast<size_t>(l) * N + n[j]);
+    }
+  }
+}
+
+// ---- The AppGraph instances (see the header) -----------------------------
+
+constexpr int kGraphThreads = 512;  // threads of a graph block, at most
+constexpr int kMaxCluster = 16;     // blocks of a cluster (non-portable)
+
+// Loops a thread of the wide graph instance runs: the more, the more
+// independent chains hide an interval's latency and the fewer threads
+// meet at the barrier; registers allow four without the cache, two
+// with it.  Lanes of at most 32 nodes take one.
+__host__ __device__ constexpr int wide_loops(bool has_cache) {
+  return has_cache ? 2 : 4;
+}
+
+// How the lane's min is taken: in the warp, in the block, in the
+// cluster, or at the grid barrier in device memory.
+enum MeetRoute { kMeetWarp = 0, kMeetBlock, kMeetCluster, kMeetGrid };
+
 __device__ __forceinline__ int ld_acquire(const int* p) {
   int v;
   asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p)
@@ -402,118 +559,126 @@ __device__ int grid_lane_min(int* bar, int v, int e) {
   return kBig - atomicAdd(slot, 0);
 }
 
-// The min of v over the lane's nodes, episode e: every thread passes
-// its loops' min and gets the lane's.  Buffers alternate by parity, so
-// one __syncthreads an episode separates a write from the reads of the
-// episode before.
-__device__ __forceinline__ int lane_min(int v, int e, int (*red)[kWarps],
-                                        int* fleet, int* bar) {
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned cluster_blocks() {
+  unsigned n;
+  asm("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+  return n;
+}
+
+// The shared::cluster address of *p in the cluster's block `rank`.
+__device__ __forceinline__ unsigned cluster_addr(const void* p, int rank) {
+  const unsigned local = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  unsigned out;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(local),
+      "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ int ld_cluster(unsigned addr) {
+  int v;
+  asm volatile("ld.shared::cluster.s32 %0, [%1];" : "=r"(v) : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// Where a lane's mins meet: the route, the block's min of each episode
+// in one of three shared slots (episode e in slot e % 3), the grid
+// route's result (fleet) and barrier (bar), and on the cluster route the
+// shared::cluster address of slot 0 in the block this thread's lane of
+// the warp reads (lane < n_blocks).
+struct Meet {
+  int route;
+  int n_blocks;
+  int* slot;
+  int* fleet;
+  int* bar;
+  unsigned src;
+};
+
+// The min of v over the lane's nodes, episode e, by every thread of the
+// lane.  Each warp folds its min into the block's slot (a shared
+// atomicMin).  On the block route the slot is read after __syncthreads;
+// on the cluster route every block's slot is read over distributed
+// shared memory once the cluster's hardware barrier has passed.  Then
+// thread 0 refills the slot of episode e - 1, which every thread read
+// before arriving at this barrier and none writes before the next.  On
+// the grid route thread 0 of each block meets the others at the barrier
+// in device memory.  between() runs while the blocks meet.
+template <typename F>
+__device__ __forceinline__ int lane_min(int v, int e, const Meet& m,
+                                        F&& between) {
   v = __reduce_min_sync(0xffffffffu, v);
-  const int par = e & 1;
-  if ((threadIdx.x & 31) == 0) red[par][threadIdx.x >> 5] = v;
+  if (m.route == kMeetWarp) {
+    between();
+    return v;
+  }
+  const int s = e % 3;
+  if ((threadIdx.x & 31) == 0) atomicMin(&m.slot[s], v);
+  if (m.route == kMeetCluster) {
+    cluster_arrive();
+    between();
+    cluster_wait();
+    if (threadIdx.x == 0) m.slot[(s + 2) % 3] = INT_MAX;
+    const int lane = threadIdx.x & 31;
+    const int x = lane < m.n_blocks ? ld_cluster(m.src + s * 4u) : INT_MAX;
+    return __reduce_min_sync(0xffffffffu, x);
+  }
+  between();
   __syncthreads();
-  int m = red[par][0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) m = min(m, red[par][w]);
-  if (gridDim.x == 1) return m;
-  if (threadIdx.x == 0) fleet[par] = grid_lane_min(bar, m, e);
+  if (m.route == kMeetBlock) {
+    const int x = m.slot[s];
+    if (threadIdx.x == 0) m.slot[(s + 2) % 3] = INT_MAX;
+    return x;
+  }
+  if (threadIdx.x == 0) {
+    m.fleet[e & 1] = grid_lane_min(m.bar, m.slot[s], e);
+    m.slot[(s + 2) % 3] = INT_MAX;
+  }
   __syncthreads();
-  return fleet[par];
+  return m.fleet[e & 1];
 }
 
-// The segment with the AppGraph carry: one interval at a time, each
-// ending in the lane's min of the progress code (see the header).  The
-// next interval's demand row loads while this one waits on the min.
+// The segment with the AppGraph carry, one (lane, node) loop per j of a
+// thread, J of them: one interval at a time, each ending in the lane's
+// min of the progress code.  Grid (blocks a lane, L), blockDim.x threads
+// (a multiple of 32, at most kGraphThreads); the route follows from the
+// launch: one block of one warp; one block; one cluster holding every
+// block of the lane; or several blocks in clusters of one, which meet at
+// the grid barrier on `ws`.  Dynamic shared memory holds the (2, S+1)
+// stage rows.
 template <bool PAPER_LAW, bool UNIT_OCC, bool HAS_CACHE, bool BF16, int J>
-__device__ __forceinline__ void graph_segment(
-    Loop (&loop)[J], const int (&n)[J], const bool (&active)[J],
-    const Lane& p, const SweepConsts& c, int* bins, const void* demand,
-    const float* __restrict__ work, const float* __restrict__ stage,
-    int* bar, int T, int N, int t0, int S, float comp_itv) {
-  __shared__ int red[2][kWarps];
-  __shared__ int fleet_sh[2];
-  const float* stage_demand = stage;
-  const float* stage_barrier = stage + (S + 1);
-  float d_now[J];
-#pragma unroll
-  for (int j = 0; j < J; ++j) d_now[j] = load_demand<BF16>(demand, n[j]);
-#pragma unroll 1
-  for (int k = 0; k < T; ++k) {
-    const float tf = static_cast<float>(t0 + k);
-    const int k_next = min(k + 1, T - 1);
-    float d_next[J];
-    bool fin[J];
-    int lvl = 2 * S;
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      d_next[j] = load_demand<BF16>(demand, k_next * N + n[j]);
-      Loop& s = loop[j];
-      const float d = d_now[j] + __ldg(stage_demand + s.sidx);
-      count(bins, step<PAPER_LAW, UNIT_OCC, HAS_CACHE>(s, p, c, d, tf),
-            active[j]);
-      const float dt_eff =
-          HAS_CACHE ? s.dt : c.interval_s * hpl_slowdown_fused(s.r);
-      const bool on_row = s.sidx < S;
-      const float adv = on_row ? comp_itv * (c.interval_s / dt_eff) : 0.0f;
-      kahan(s.wd, s.wd_c, fminf(adv, s.wleft));
-      s.wleft = fmaxf(s.wleft - adv, 0.0f);
-      fin[j] = on_row && s.wleft <= 0.0f;
-      lvl = min(lvl, 2 * s.sidx + (fin[j] ? 1 : 0));
-    }
-    const int fleet = lane_min(lvl, k, red, fleet_sh, bar);
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      Loop& s = loop[j];
-      // every node sat on the sentinel row: the DAG finished last interval
-      if (fleet == 2 * S && s.t_done < 0.0f) s.t_done = tf;
-      const bool barrier_row = __ldg(stage_barrier + s.sidx) != 0.0f;
-      if (fin[j] && (!barrier_row || fleet >= 2 * s.sidx + 1)) {
-        s.sidx += 1;
-        s.wleft = work[s.sidx * N + n[j]];
-      }
-      d_now[j] = d_next[j];
-    }
-  }
-  int rows_done = S;
-#pragma unroll
-  for (int j = 0; j < J; ++j) rows_done = min(rows_done, loop[j].sidx);
-  const int fleet = lane_min(rows_done, T, red, fleet_sh, bar);
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    if (fleet >= S && loop[j].t_done < 0.0f) {
-      loop[j].t_done = static_cast<float>(t0 + T);
-    }
-  }
-}
-
-template <bool PAPER_LAW, bool UNIT_OCC, bool HAS_CACHE, bool BF16,
-          bool HAS_GRAPH>
-__global__ void __launch_bounds__(kThreads) sweep_kernel(
+__global__ void __launch_bounds__(kGraphThreads, 1) graph_kernel(
     const void* __restrict__ demand, const float* __restrict__ lp,
     const float* __restrict__ np_rows, const float* __restrict__ alive,
     const float* __restrict__ state_in, float* __restrict__ state_out,
     int* __restrict__ hist, int T, int L, int N, int t0, SweepConsts c,
     const float* __restrict__ work, const float* __restrict__ stage,
     int* __restrict__ ws, int S, float comp_itv) {
-  constexpr int J = nodes_per_thread(HAS_CACHE);
   __shared__ int bins[kBins + 1];
+  __shared__ int slot[3];
+  __shared__ int fleet_sh[2];
+  extern __shared__ float stage_sh[];
+  const int threads = blockDim.x;
   const int l = blockIdx.y;
   const size_t LN = static_cast<size_t>(L) * N;
-  // Loop j of a thread runs node blockIdx.x * J * kThreads + j * kThreads
-  // + threadIdx.x, so each of its loads and stores is coalesced.  Loops
-  // past the last node run node N - 1 (every warp stays whole for the
-  // histogram), count into the spare bin and store nothing.
   int n[J];
   bool active[J];
 #pragma unroll
   for (int j = 0; j < J; ++j) {
-    const int node = (blockIdx.x * J + j) * kThreads + threadIdx.x;
+    const int node = (blockIdx.x * J + j) * threads + threadIdx.x;
     active[j] = node < N;
     n[j] = active[j] ? node : N - 1;
   }
-
-  if (!(alive[l] > 0.5f)) {  // the whole block: its lane is dead
-    constexpr int kS = Planes<PAPER_LAW, HAS_CACHE, HAS_GRAPH>::kS;
+  if (!(alive[l] > 0.5f)) {  // the whole lane is dead: every block of it
+    constexpr int kS = Planes<PAPER_LAW, HAS_CACHE, true>::kS;
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       const size_t ln = static_cast<size_t>(l) * N + n[j];
@@ -522,7 +687,29 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(
     }
     return;
   }
-  for (int b = threadIdx.x; b <= kBins; b += kThreads) bins[b] = 0;
+  for (int b = threadIdx.x; b <= kBins; b += threads) bins[b] = 0;
+  for (int i = threadIdx.x; i < 2 * (S + 1); i += threads) {
+    stage_sh[i] = stage[i];
+  }
+  if (threadIdx.x < 3) slot[threadIdx.x] = INT_MAX;
+  const float* stage_demand = stage_sh;
+  const float* stage_barrier = stage_sh + (S + 1);
+
+  Meet m;
+  m.slot = slot;
+  m.fleet = fleet_sh;
+  m.bar = ws + 4 * l;
+  m.n_blocks = static_cast<int>(gridDim.x);
+  m.src = 0u;
+  if (m.n_blocks == 1) {
+    m.route = threads == 32 ? kMeetWarp : kMeetBlock;
+  } else if (m.n_blocks > static_cast<int>(cluster_blocks())) {
+    m.route = kMeetGrid;
+  } else {
+    m.route = kMeetCluster;
+    const int lane = threadIdx.x & 31;
+    if (lane < m.n_blocks) m.src = cluster_addr(slot, lane);
+  }
 
   Lane p;
   p.r0 = lp[R0 * L + l];
@@ -539,74 +726,110 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(
 #pragma unroll
   for (int j = 0; j < J; ++j) {
     Loop& s = loop[j];
-    load_loop<PAPER_LAW, HAS_CACHE, HAS_GRAPH>(
-        s, state_in, LN, static_cast<size_t>(l) * N + n[j]);
+    load_loop<PAPER_LAW, HAS_CACHE, true>(s, state_in, LN,
+                                          static_cast<size_t>(l) * N + n[j]);
     s.inv_m = np_rows[ROW_INV_M * N + n[j]];
     s.w = np_rows[ROW_W * N + n[j]];
     s.inv_w = np_rows[ROW_INV_W * N + n[j]];
     s.wf0 = HAS_CACHE ? (c.warm_frac * fminf(p.u_max, s.w)) * s.inv_w : 0.0f;
   }
-  __syncthreads();  // the bins are zero
+  // demand rows k .. k + kAhead - 1 in flight, as the graph-free loop
+  float ring[kAhead][J];
+#pragma unroll
+  for (int i = 0; i < kAhead; ++i) {
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      ring[i][j] = load_demand<BF16>(demand, min(i, T - 1) * N + n[j]);
+    }
+  }
+  __syncthreads();  // the bins are zero, the slots full, the stage rows in
 
-  if constexpr (HAS_GRAPH) {
-    graph_segment<PAPER_LAW, UNIT_OCC, HAS_CACHE, BF16>(
-        loop, n, active, p, c, bins, demand, work, stage, ws + 4 * l, T, N,
-        t0, S, comp_itv);
-  } else {
-    // Rows k + kAhead load while row k is used: a ring of registers, so no
-    // step waits on the (L2) round trip.  The unrolled main loop runs while
-    // every row it loads exists, with no guard or clamp; the rest of the
-    // rows go one by one.
-    float ring[kAhead][J];
+#pragma unroll 1
+  for (int k0 = 0; k0 < T; k0 += kAhead) {
 #pragma unroll
     for (int i = 0; i < kAhead; ++i) {
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        ring[i][j] = load_demand<BF16>(demand, min(i, T - 1) * N + n[j]);
-      }
-    }
-    int k0 = 0;
-    int row = kAhead * N;  // offset of row k0 + kAhead
-    for (; k0 + 2 * kAhead <= T; k0 += kAhead) {
-#pragma unroll
-      for (int i = 0; i < kAhead; ++i) {
-        const float tf = static_cast<float>(t0 + k0 + i);
+      const int k = k0 + i;
+      if (k < T) {  // the same k in every thread of the lane
+        const float tf = static_cast<float>(t0 + k);
+        const int ahead = min(k + kAhead, T - 1) * N;
+        int bin[J];
+        bool fin[J], wait_row[J];
+        float w_next[J];
+        int lvl = 2 * S;
 #pragma unroll
         for (int j = 0; j < J; ++j) {
-          const float d = ring[i][j];
-          ring[i][j] = load_demand<BF16>(demand, row + n[j]);
-          count(bins,
-                step<PAPER_LAW, UNIT_OCC, HAS_CACHE>(loop[j], p, c, d, tf),
-                active[j]);
+          Loop& s = loop[j];
+          const float d = ring[i][j] + stage_demand[s.sidx];
+          ring[i][j] = load_demand<BF16>(demand, ahead + n[j]);
+          bin[j] = step<PAPER_LAW, UNIT_OCC, HAS_CACHE>(s, p, c, d, tf);
+          const float dt_eff =
+              HAS_CACHE ? s.dt : c.interval_s * hpl_slowdown_fused(s.r);
+          const bool on_row = s.sidx < S;
+          const float adv = on_row ? comp_itv * (c.interval_s / dt_eff) : 0.0f;
+          kahan(s.wd, s.wd_c, fminf(adv, s.wleft));
+          s.wleft = fmaxf(s.wleft - adv, 0.0f);
+          fin[j] = on_row && s.wleft <= 0.0f;
+          lvl = min(lvl, 2 * s.sidx + (fin[j] ? 1 : 0));
+          // the promotion's reads, ahead of the min it may wait for
+          w_next[j] = fin[j] ? work[(s.sidx + 1) * N + n[j]] : 0.0f;
+          wait_row[j] = stage_barrier[s.sidx] != 0.0f;
         }
-        row += N;
-      }
-    }
-#pragma unroll 1
-    for (int k = k0; k < T; ++k) {
-      const float tf = static_cast<float>(t0 + k);
+        // a free row promotes once its own work is drained, while the
+        // lane's blocks meet; a barrier row when the min says every node
+        // finished it
+        const int fleet = lane_min(lvl, k, m, [&] {
 #pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const float d = load_demand<BF16>(demand, k * N + n[j]);
-        count(bins,
-              step<PAPER_LAW, UNIT_OCC, HAS_CACHE>(loop[j], p, c, d, tf),
-              active[j]);
+          for (int j = 0; j < J; ++j) {
+            Loop& s = loop[j];
+            if (fin[j] && !wait_row[j]) {
+              s.sidx += 1;
+              s.wleft = w_next[j];
+              fin[j] = false;
+            }
+          }
+        });
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          Loop& s = loop[j];
+          // every node sat on the sentinel row: the DAG finished
+          if (fleet == 2 * S && s.t_done < 0.0f) s.t_done = tf;
+          if (fin[j] && fleet >= 2 * s.sidx + 1) {
+            s.sidx += 1;
+            s.wleft = w_next[j];
+          }
+        }
+        // the interval's counts drain while the next interval steps
+#pragma unroll
+        for (int j = 0; j < J; ++j) count(bins, bin[j], active[j]);
       }
     }
   }
+  int rows_done = S;
+#pragma unroll
+  for (int j = 0; j < J; ++j) rows_done = min(rows_done, loop[j].sidx);
+  const int fleet = lane_min(rows_done, T, m, [] {});
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    if (fleet >= S && loop[j].t_done < 0.0f) {
+      loop[j].t_done = static_cast<float>(t0 + T);
+    }
+  }
+  // no block of a cluster leaves while another may read its slots
+  if (m.route == kMeetCluster) cluster_arrive();
   __syncthreads();  // every update is counted
   int* out = hist + static_cast<size_t>(l) * kBins;
-  for (int b = threadIdx.x; b < kBins; b += kThreads) {
+  for (int b = threadIdx.x; b < kBins; b += threads) {
     const int counted = bins[b];
     if (counted) atomicAdd(&out[b], counted);
   }
 #pragma unroll
   for (int j = 0; j < J; ++j) {
     if (active[j]) {
-      store_loop<PAPER_LAW, HAS_CACHE, HAS_GRAPH>(
+      store_loop<PAPER_LAW, HAS_CACHE, true>(
           loop[j], state_out, LN, static_cast<size_t>(l) * N + n[j]);
     }
   }
+  if (m.route == kMeetCluster) cluster_wait();
 }
 
 // Mode bits of the one-interval graph entry (kernels/sweep.py GRAPH_*).
@@ -773,73 +996,169 @@ using SweepFn = void (*)(const void*, const float*, const float*,
                          int, int, SweepConsts, const float*, const float*,
                          int*, int, float);
 
-template <bool PAPER_LAW, bool UNIT_OCC, bool HAS_CACHE, bool HAS_GRAPH>
+template <bool PAPER_LAW, bool UNIT_OCC, bool HAS_CACHE>
 SweepFn pick_instance(bool bf16) {
-  return bf16 ? sweep_kernel<PAPER_LAW, UNIT_OCC, HAS_CACHE, true, HAS_GRAPH>
-              : sweep_kernel<PAPER_LAW, UNIT_OCC, HAS_CACHE, false, HAS_GRAPH>;
+  return bf16 ? sweep_kernel<PAPER_LAW, UNIT_OCC, HAS_CACHE, true>
+              : sweep_kernel<PAPER_LAW, UNIT_OCC, HAS_CACHE, false>;
 }
 
-template <bool HAS_GRAPH>
-SweepFn pick_law(int paper_law, int unit_occupancy, int has_cache, bool b) {
+// The graph instance of J loops a thread: 1 or wide_loops(HAS_CACHE);
+// null for any other J.
+template <bool PAPER_LAW, bool UNIT_OCC, bool HAS_CACHE>
+SweepFn pick_graph_instance(bool bf16, int j) {
+  constexpr int kWide = wide_loops(HAS_CACHE);
+  if (j == 1) {
+    return bf16 ? graph_kernel<PAPER_LAW, UNIT_OCC, HAS_CACHE, true, 1>
+                : graph_kernel<PAPER_LAW, UNIT_OCC, HAS_CACHE, false, 1>;
+  }
+  if (j == kWide) {
+    return bf16 ? graph_kernel<PAPER_LAW, UNIT_OCC, HAS_CACHE, true, kWide>
+                : graph_kernel<PAPER_LAW, UNIT_OCC, HAS_CACHE, false, kWide>;
+  }
+  return nullptr;
+}
+
+// The template instance for one specialization: the graph-free kernel
+// when j is 0, else the graph instance of j loops a thread.  A cache
+// segment always runs with unit occupancy (the resident set replaces the
+// occupancy model).
+SweepFn pick(int paper_law, int unit_occupancy, int has_cache, int bf16,
+             int j) {
+  const bool b = bf16 != 0;
+  if (j > 0) {
+    if (has_cache) {
+      return paper_law ? pick_graph_instance<true, true, true>(b, j)
+                       : pick_graph_instance<false, true, true>(b, j);
+    }
+    if (paper_law) {
+      return unit_occupancy ? pick_graph_instance<true, true, false>(b, j)
+                            : pick_graph_instance<true, false, false>(b, j);
+    }
+    return unit_occupancy ? pick_graph_instance<false, true, false>(b, j)
+                          : pick_graph_instance<false, false, false>(b, j);
+  }
   if (has_cache) {
-    return paper_law ? pick_instance<true, true, true, HAS_GRAPH>(b)
-                     : pick_instance<false, true, true, HAS_GRAPH>(b);
+    return paper_law ? pick_instance<true, true, true>(b)
+                     : pick_instance<false, true, true>(b);
   }
   if (paper_law) {
-    return unit_occupancy ? pick_instance<true, true, false, HAS_GRAPH>(b)
-                          : pick_instance<true, false, false, HAS_GRAPH>(b);
+    return unit_occupancy ? pick_instance<true, true, false>(b)
+                          : pick_instance<true, false, false>(b);
   }
-  return unit_occupancy ? pick_instance<false, true, false, HAS_GRAPH>(b)
-                        : pick_instance<false, false, false, HAS_GRAPH>(b);
+  return unit_occupancy ? pick_instance<false, true, false>(b)
+                        : pick_instance<false, false, false>(b);
 }
 
-// The template instance for one specialization.  A cache segment always
-// runs with unit occupancy (the resident set replaces the occupancy
-// model).
-SweepFn pick(int paper_law, int unit_occupancy, int has_cache, int bf16,
-             int has_graph) {
-  const bool b = bf16 != 0;
-  return has_graph ? pick_law<true>(paper_law, unit_occupancy, has_cache, b)
-                   : pick_law<false>(paper_law, unit_occupancy, has_cache, b);
+// Dynamic shared memory of a graph launch over S + 1 stage rows; past the
+// default 48 KB a block may take only after the kernel is allowed it.
+cudaError_t graph_smem(SweepFn fn, int rows, size_t* bytes) {
+  *bytes = 2 * static_cast<size_t>(rows) * sizeof(float);
+  if (*bytes <= 16 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(reinterpret_cast<const void*>(fn),
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*bytes));
 }
+
+// A launch configuration of `cluster` blocks a cluster (none when 1).
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+
+  ClusterLaunch(SweepFn fn, dim3 grid, int threads, size_t smem, int cluster,
+                cudaStream_t stream, cudaError_t* err) : cfg(), attr() {
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    *err = cudaSuccess;
+    if (cluster > 1) {
+      attr.id = cudaLaunchAttributeClusterDimension;
+      attr.val.clusterDim.x = cluster;
+      attr.val.clusterDim.y = 1;
+      attr.val.clusterDim.z = 1;
+      cfg.attrs = &attr;
+      cfg.numAttrs = 1;
+      if (cluster > 8) {
+        *err = cudaFuncSetAttribute(
+            reinterpret_cast<const void*>(fn),
+            cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      }
+    }
+  }
+};
 
 }  // namespace
 
-// Launches one segment on `stream`; returns the launch's CUDA error (0
-// on success).  `hist` must already hold the counts to add to.  With
-// `has_graph`, `work` (S+1, N), `stage` (2, S+1) and the zeroed (L, 4)
-// int32 workspace `ws` are the AppGraph's; a lane wider than one block
-// makes the launch cooperative, which the runtime refuses (an error,
-// not a hang) when its blocks cannot all be resident.
+// Launches one graph-free segment on `stream`; returns the launch's CUDA
+// error (0 on success).  `hist` must already hold the counts to add to.
 extern "C" int dynims_sweep_segment(int paper_law, int unit_occupancy,
-                                    int has_cache, int bf16, int has_graph,
+                                    int has_cache, int bf16,
                                     const void* demand, const float* lp,
                                     const float* np_rows, const float* alive,
                                     const float* state_in, float* state_out,
-                                    int* hist, const float* work,
-                                    const float* stage, int* ws, int T, int L,
-                                    int N, int t0, int S, float comp_itv,
+                                    int* hist, int T, int L, int N, int t0,
                                     const SweepConsts* consts, void* stream) {
   if (T <= 0 || L <= 0 || N <= 0) return 0;
   const int block_nodes = kThreads * nodes_per_thread(has_cache != 0);
   const dim3 grid((N + block_nodes - 1) / block_nodes, L);
-  const SweepFn fn = pick(paper_law, unit_occupancy, has_cache, bf16,
-                          has_graph);
+  const SweepFn fn = pick(paper_law, unit_occupancy, has_cache, bf16, 0);
+  fn<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      demand, lp, np_rows, alive, state_in, state_out, hist, T, L, N, t0,
+      *consts, nullptr, nullptr, nullptr, 0, 0.0f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches one segment with the AppGraph carry on `stream`, shaped as
+// the wrapper's planner chose (kernels/sweep.py::graph_route): `j` loops
+// a thread, `threads` a block (a multiple of 32, at most kGraphThreads),
+// ceil(N / (j * threads)) blocks a lane, and either `cluster` equal to
+// those blocks (one block or one cluster a lane) or `cooperative` with
+// clusters of one, the lanes' blocks meeting at the zeroed (L, 4) int32
+// barrier workspace `ws`.  `work` is (S+1, N) and `stage` (2, S+1).
+// Returns the launch's CUDA error (0 on success): a shape this entry
+// does not take is cudaErrorInvalidValue, and a cluster or cooperative
+// grid the card cannot hold resident is refused by the runtime (an
+// error, not a hang).
+extern "C" int dynims_graph_segment(
+    int paper_law, int unit_occupancy, int has_cache, int bf16, int j,
+    int threads, int cluster, int cooperative, const void* demand,
+    const float* lp, const float* np_rows, const float* alive,
+    const float* state_in, float* state_out, int* hist, const float* work,
+    const float* stage, int* ws, int T, int L, int N, int t0, int S,
+    float comp_itv, const SweepConsts* consts, void* stream) {
+  if (T <= 0 || L <= 0 || N <= 0) return 0;
+  const SweepFn fn = pick(paper_law, unit_occupancy, has_cache, bf16, j);
+  if (fn == nullptr || threads < 32 || threads > kGraphThreads ||
+      threads % 32 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int blocks = (N + j * threads - 1) / (j * threads);
+  const bool shape_ok = cooperative
+                            ? cluster == 1 && blocks > 1
+                            : cluster == blocks && cluster <= kMaxCluster;
+  if (!shape_ok) return static_cast<int>(cudaErrorInvalidValue);
+  size_t smem = 0;
+  cudaError_t err = graph_smem(fn, S + 1, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(blocks, L);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   SweepConsts c = *consts;
-  if (has_graph && grid.x > 1) {
+  if (cooperative) {
     void* args[] = {&demand, &lp,   &np_rows, &alive, &state_in, &state_out,
                     &hist,   &T,    &L,       &N,     &t0,       &c,
                     &work,   &stage, &ws,     &S,     &comp_itv};
-    const cudaError_t err = cudaLaunchCooperativeKernel(
-        reinterpret_cast<const void*>(fn), grid, dim3(kThreads), args, 0, s);
-    const cudaError_t last = cudaGetLastError();
-    return static_cast<int>(err != cudaSuccess ? err : last);
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fn),
+                                      grid, dim3(threads), args, smem, s);
+  } else {
+    ClusterLaunch launch(fn, grid, threads, smem, cluster, s, &err);
+    if (err == cudaSuccess) {
+      err = cudaLaunchKernelEx(&launch.cfg, fn, demand, lp, np_rows, alive,
+                               state_in, state_out, hist, T, L, N, t0, c,
+                               work, stage, ws, S, comp_itv);
+    }
   }
-  fn<<<grid, kThreads, 0, s>>>(demand, lp, np_rows, alive, state_in,
-                               state_out, hist, T, L, N, t0, c, work, stage,
-                               ws, S, comp_itv);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 // Launches one interval of the graph carry on `stream` (see the header's
@@ -864,19 +1183,36 @@ extern "C" int dynims_sweep_graph_interval(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Registers per thread, static shared memory per block and resident
-// blocks per SM of one template instance, into out[0..2]; returns the
-// CUDA error (0 on success).
+// Of one template instance (j as in pick: 0 for the graph-free kernel),
+// into out[0..4]: registers a thread, static shared bytes a block,
+// resident blocks an SM at `threads` a block and the dynamic shared
+// memory of `rows` stage rows, the most clusters of `cluster` blocks the
+// card holds at once (0 when cluster < 2), and local (spilled) bytes a
+// thread.  Returns the CUDA error (0 on success).
 extern "C" int dynims_sweep_resources(int paper_law, int unit_occupancy,
-                                      int has_cache, int bf16, int has_graph,
+                                      int has_cache, int bf16, int j,
+                                      int threads, int cluster, int rows,
                                       int* out) {
-  const SweepFn fn = pick(paper_law, unit_occupancy, has_cache, bf16,
-                          has_graph);
+  const SweepFn fn = pick(paper_law, unit_occupancy, has_cache, bf16, j);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = attr.numRegs;
   out[1] = static_cast<int>(attr.sharedSizeBytes);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], fn, kThreads, 0);
-  return static_cast<int>(err);
+  out[3] = 0;
+  out[4] = static_cast<int>(attr.localSizeBytes);
+  size_t smem = 0;
+  if (j > 0) {
+    err = graph_smem(fn, rows, &smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], fn, threads,
+                                                      smem);
+  if (err != cudaSuccess || cluster < 2) return static_cast<int>(err);
+  ClusterLaunch launch(fn, dim3(cluster, 1), threads, smem, cluster,
+                       nullptr, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      &out[3], reinterpret_cast<const void*>(fn), &launch.cfg));
 }

@@ -35,9 +35,13 @@ every node of the lane: all nodes agree on it).  Each interval the
 active row's held demand joins the observed demand before the law sees
 it, the queue drains ``comp_itv * (interval_s / dt_eff)``, and a barrier
 row promotes once the lane-wide min of ``2 * sidx + fin`` says every
-node finished it.  On the card the lane-wide min is a block reduction
-when one block holds the lane, and a per-lane barrier between blocks
-(a cooperative launch) when it does not.  When the lane's nodes are
+node finished it.  On the card the graph instances are a kernel of
+their own, and :func:`graph_route` shapes each launch from the lane's
+width: one warp (the min a warp reduction), one block, one thread-block
+cluster (Hopper's hardware cluster barrier and distributed shared
+memory) or, past the largest cluster, a per-lane barrier between blocks
+in device memory (a cooperative launch, the lanes a launch capped by
+co-residency).  When the lane's nodes are
 split over shards the min leaves the launch: :func:`graph_interval`
 runs one interval a launch with the loop body rotated (promote with the
 previous interval's fleet min, then step up to the progress code and
@@ -47,8 +51,9 @@ between launches (:mod:`repro_torch.lab.mesh`).  Without the cache
 XLA compiles it (:func:`hpl_slowdown_fused`); with it, the CacheLoop's
 ``dt_app``.
 
-**On the card.**  A thread owns the (lane, node) loops of two nodes (one
-with the cache) and keeps their state in registers for the whole
+**On the card.**  A thread of the graph-free kernel owns the (lane,
+node) loops of two nodes (one with the cache; the graph instances as
+:func:`graph_route` says) and keeps their state in registers for the whole
 segment: state is read from ``(S, L, N)`` once and written once.  Each
 step reads ``demand[t, n]`` (coalesced along n, loaded a few intervals
 ahead; every lane rereads the same row, which stays in L2) and adds one
@@ -79,7 +84,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -588,66 +593,223 @@ def _consts(con) -> _SweepConsts:
         c(con.access_b), c(con.cold_mix), c(con.warm_frac), pow_mode)
 
 
-# Threads per block of csrc/sweep.cu (kThreads), and the loops a thread
-# runs: two nodes without the cache, one with it.
+# Threads of a block of csrc/sweep.cu's graph-free kernel (kThreads); a
+# thread runs two nodes' loops without the cache, one with it.
 KERNEL_THREADS = 128
+# The graph instances (graph_kernel): threads of a block at most
+# (kGraphThreads), the loops a thread runs where a lane holds more than
+# 32 nodes (wide_loops), the largest cluster a launch may take
+# (kMaxCluster), and the largest that every Hopper card schedules.
+GRAPH_THREADS = 512
+WIDE_LOOPS = {False: 4, True: 2}
+MAX_CLUSTER = 16
+PORTABLE_CLUSTER = 8
+# The block sizes a lane of several warps may take, in the planner's
+# order of preference.
+GRAPH_BLOCKS = (GRAPH_THREADS // 2, GRAPH_THREADS)
+
+
+class GraphLimits(NamedTuple):
+    """What a card allows the wide graph instance (:func:`graph_limits`):
+    the largest cluster it schedules, its SMs, and the resident blocks
+    an SM of ``threads`` a block (``blocks_per_sm(threads)``) and the
+    clusters of ``blocks`` such blocks it holds at once
+    (``clusters(threads, blocks)``)."""
+
+    max_cluster: int
+    n_sms: int
+    blocks_per_sm: Callable[[int], int]
+    clusters: Callable[[int, int], int]
+
+
+class GraphRoute(NamedTuple):
+    """The shape of one AppGraph launch (:func:`graph_route`)."""
+
+    loops: int             # (lane, node) loops a thread: J
+    threads: int           # threads a block
+    blocks: int            # blocks a lane
+    cluster: int           # blocks a cluster: ``blocks``, or 1 (cooperative)
+    cooperative: bool      # the lane's blocks meet in device memory
+    lanes: Optional[int]   # most lanes a launch; None for no limit
+
+    @property
+    def name(self) -> str:
+        """How the lane's min is taken: warp, block, cluster or
+        cooperative (``csrc/sweep.cu``'s four routes)."""
+        if self.cooperative:
+            return "cooperative"
+        if self.blocks > 1:
+            return "cluster"
+        return "warp" if self.threads == 32 else "block"
+
+
+def _spread(n_nodes: int, loops: int, cap: int) -> Tuple[int, int]:
+    """(blocks, threads): ``n_nodes`` over the fewest blocks of at most
+    ``cap`` threads of ``loops`` loops, spread evenly (a multiple of 32
+    threads each)."""
+    blocks = -(-n_nodes // (cap * loops))
+    return blocks, 32 * -(-n_nodes // (32 * loops * blocks))
+
+
+def graph_route(n_nodes: int, has_cache: bool,
+                limits: GraphLimits) -> GraphRoute:
+    """The launch shape of a lane of ``n_nodes``, from its shape and the
+    card's limits alone.
+
+    A lane of at most 32 nodes is one warp of one loop a thread; a wider
+    one runs :data:`WIDE_LOOPS` loops a thread (independent chains that
+    hide an interval's latency, and fewer threads at the barrier), its
+    nodes spread evenly over the fewest blocks of each size in
+    :data:`GRAPH_BLOCKS`.  A lane's blocks are one block, or one
+    thread-block cluster of up to ``limits.max_cluster``, which only has
+    to be resident as a whole: the lanes that do not fit wait for the
+    card, in waves.  The block size the card holds the most lanes of at
+    once wins, the smaller on a tie (more SMs to a lane); a shape the
+    card cannot hold is not taken.  Past the largest cluster
+    the lane's blocks meet at a barrier in device memory, which needs
+    every block of the launch resident: at most ``blocks_per_sm * n_sms``
+    blocks a launch, and raises when not even one lane fits.
+    """
+    if n_nodes < 1:
+        raise ValueError(f"a lane needs a node; got {n_nodes}")
+    loops = 1 if n_nodes <= 32 else WIDE_LOOPS[has_cache]
+    if n_nodes <= 32 * loops:
+        return GraphRoute(loops, 32, 1, 1, False, None)
+    best, most = None, 0
+    for cap in GRAPH_BLOCKS:
+        blocks, threads = _spread(n_nodes, loops, cap)
+        if blocks > limits.max_cluster:
+            continue
+        resident = (limits.blocks_per_sm(threads) * limits.n_sms
+                    if blocks == 1 else limits.clusters(threads, blocks))
+        if resident > most:
+            best = GraphRoute(loops, threads, blocks, blocks, False, None)
+            most = resident
+    if best is not None:
+        return best
+    blocks, threads = _spread(n_nodes, loops, GRAPH_THREADS)
+    if blocks <= limits.max_cluster:
+        raise ValueError(f"the card holds no cluster of an AppGraph lane "
+                         f"of {n_nodes} nodes")
+    lanes = limits.blocks_per_sm(threads) * limits.n_sms // blocks
+    if lanes < 1:
+        raise ValueError(f"an AppGraph lane of {n_nodes} nodes needs "
+                         f"{blocks} co-resident blocks; the card holds "
+                         f"{limits.blocks_per_sm(threads)} x "
+                         f"{limits.n_sms}")
+    return GraphRoute(loops, threads, blocks, 1, True, lanes)
 
 
 def block_nodes(has_cache: bool) -> int:
-    """Nodes one block of the kernel holds (one lane's slice)."""
-    return KERNEL_THREADS * (1 if has_cache else 2)
+    """Nodes one block of the graph instance holds at most."""
+    return GRAPH_THREADS * WIDE_LOOPS[has_cache]
 
 
 def coresident_lanes(n_nodes: int, has_cache: bool, blocks_per_sm: int,
-                     n_sms: int) -> Optional[int]:
-    """Most lanes one AppGraph launch may hold, or None for no limit.
+                     n_sms: int, max_cluster: int = PORTABLE_CLUSTER
+                     ) -> Optional[int]:
+    """Most lanes one AppGraph launch may hold, or None for no limit:
+    :func:`graph_route`'s ``lanes`` on a card of ``n_sms`` SMs that
+    holds ``blocks_per_sm`` blocks of any size an SM."""
+    limits = GraphLimits(max_cluster, n_sms, lambda threads: blocks_per_sm,
+                         lambda threads, blocks: 1)
+    return graph_route(n_nodes, has_cache, limits).lanes
 
-    A lane that one block holds needs no barrier between blocks, so any
-    number of its lanes may wait for the card.  A lane spread over
-    several blocks meets at a barrier every interval, so every block of
-    the launch must be resident at once: at most ``blocks_per_sm *
-    n_sms`` blocks in all.  Raises when not even one lane fits.
-    """
-    per_lane = -(-n_nodes // block_nodes(has_cache))
-    if per_lane == 1:
-        return None
-    lanes = blocks_per_sm * n_sms // per_lane
-    if lanes < 1:
-        raise ValueError(f"an AppGraph lane of {n_nodes} nodes needs "
-                         f"{per_lane} co-resident blocks; the card holds "
-                         f"{blocks_per_sm} x {n_sms}")
-    return lanes
+
+class Resources(NamedTuple):
+    """One template instance at one launch shape, from the CUDA runtime."""
+
+    registers: int         # a thread
+    smem_bytes: int        # static shared memory a block
+    blocks_per_sm: int     # resident blocks an SM
+    clusters: int          # most clusters resident at once (0: no cluster)
+    spill_bytes: int       # local memory a thread
 
 
 def instance_resources(paper_law: bool, unit_occupancy: bool,
-                       has_cache: bool, bf16: bool, has_graph: bool,
-                       lib=None) -> Tuple[int, int, int]:
-    """(registers, static shared bytes, blocks per SM at KERNEL_THREADS)
-    of one template instance, from the CUDA runtime."""
+                       has_cache: bool, bf16: bool, loops: int = 0,
+                       threads: int = KERNEL_THREADS, cluster: int = 1,
+                       rows: int = 0, lib=None) -> Resources:
+    """:class:`Resources` of the graph-free kernel (``loops`` 0) or of
+    the graph instance of ``loops`` a thread, at ``threads`` a block,
+    clusters of ``cluster`` blocks and ``rows`` stage rows in its
+    dynamic shared memory."""
     if lib is None:
         from ._build import load_library
         lib = load_library().lib
     fn = lib.dynims_sweep_resources
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 5)()
     rc = fn(int(paper_law), int(unit_occupancy), int(has_cache), int(bf16),
-            int(has_graph), ctypes.addressof(out))
+            loops, threads, cluster, rows, ctypes.addressof(out))
     if rc != 0:
-        raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {rc}")
-    return out[0], out[1], out[2]
+        raise RuntimeError(f"the sweep instance's resources: CUDA error "
+                           f"{rc}")
+    return Resources(*out)
 
 
-def graph_lane_limit(con, n_nodes: int,
-                     device: torch.device) -> Optional[int]:
-    """:func:`coresident_lanes` for the graph instance on ``device``."""
-    if -(-n_nodes // block_nodes(con.has_cache)) == 1:
-        return None
-    blocks_per_sm = instance_resources(
-        con.paper_law, con.unit_occupancy, con.has_cache,
-        con.precision == "bf16", True)[2]
-    n_sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return coresident_lanes(n_nodes, con.has_cache, blocks_per_sm, n_sms)
+@functools.lru_cache(maxsize=None)
+def _card_resources(paper_law: bool, unit_occupancy: bool, has_cache: bool,
+                    bf16: bool, rows: int, index: int, threads: int,
+                    cluster: int) -> Resources:
+    with torch.cuda.device(index):
+        return instance_resources(paper_law, unit_occupancy, has_cache,
+                                  bf16, WIDE_LOOPS[has_cache], threads,
+                                  cluster, rows)
+
+
+def graph_limits(con, device: torch.device, rows: int) -> GraphLimits:
+    """:class:`GraphLimits` of ``device`` for ``con``'s wide graph
+    instance with ``rows`` stage rows, from the CUDA runtime
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``,
+    ``cudaOccupancyMaxActiveClusters``, each shape asked once): clusters
+    of :data:`MAX_CLUSTER` blocks where the card schedules one, else
+    :data:`PORTABLE_CLUSTER`."""
+    index = torch.device(device).index
+    key = (con.paper_law, con.unit_occupancy, con.has_cache,
+           con.precision == "bf16", rows,
+           torch.cuda.current_device() if index is None else index)
+
+    def res(threads, cluster):
+        return _card_resources(*key, threads, cluster)
+
+    largest = res(GRAPH_THREADS, MAX_CLUSTER).clusters
+    return GraphLimits(
+        MAX_CLUSTER if largest >= 1 else PORTABLE_CLUSTER,
+        torch.cuda.get_device_properties(key[-1]).multi_processor_count,
+        lambda threads: res(threads, 1).blocks_per_sm,
+        lambda threads, blocks: res(threads, blocks).clusters)
+
+
+def graph_plan(con, n_nodes: int, device: torch.device,
+               rows: int = 1) -> GraphRoute:
+    """:func:`graph_route` on ``device`` (``rows``: the stage rows, S +
+    1)."""
+    return graph_route(n_nodes, con.has_cache,
+                       graph_limits(con, device, rows))
+
+
+def graph_lane_limit(con, n_nodes: int, device: torch.device,
+                     rows: int = 1) -> Optional[int]:
+    """Most lanes one graph launch may hold on ``device``, or None for no
+    limit: only the cooperative route caps them."""
+    return graph_plan(con, n_nodes, device, rows).lanes
+
+
+@functools.lru_cache(maxsize=None)
+def _graph_fn():
+    from ._build import load_library
+    fn = load_library().lib.dynims_graph_segment
+    # (paper_law, unit_occupancy, has_cache, bf16, j, threads, cluster,
+    #  cooperative, demand, lp, np_rows, alive, state_in, state_out, hist,
+    #  work, stage, ws, T, L, N, t0, S, comp_itv, consts, stream)
+    fn.argtypes = ([ctypes.c_int] * 8 + [ctypes.c_void_p] * 10
+                   + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.POINTER(_SweepConsts),
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _launch(state, hist, demand_seg, lp, np_rows, alive, *, t0: int, con,
@@ -665,24 +827,29 @@ def _launch(state, hist, demand_seg, lp, np_rows, alive, *, t0: int, con,
     state_out = torch.empty(state.shape, dtype=torch.float32,
                             device=state.device)
     hist_out = hist.clone(memory_format=torch.contiguous_format)
-    consts = _consts(con)
-    graph_ptrs, n_rows, comp_itv = [0, 0, 0], 0, 0.0
-    if graph is not None:
+    flags = (int(con.paper_law), int(con.unit_occupancy), int(con.has_cache),
+             int(con.precision == "bf16"))
+    stream = torch.cuda.current_stream().cuda_stream
+    if graph is None:
+        rc = load_library().lib.dynims_sweep_segment(
+            *flags, *(x.data_ptr() for x in operands), state_out.data_ptr(),
+            hist_out.data_ptr(), t_seg, n_lanes, n_nodes, int(t0),
+            ctypes.byref(_consts(con)), stream)
+    else:
         work, stage = (x.contiguous() for x in graph)
-        # the per-lane barrier's arrivals, generation and two min slots,
-        # zeroed for the launch (used when several blocks hold a lane)
+        n_rows = stage.shape[1] - 1
+        route = graph_plan(con, n_nodes, state.device, n_rows + 1)
+        # the cooperative route's per-lane barrier: arrivals, generation
+        # and two min slots, zeroed for the launch
         ws = torch.zeros((n_lanes, 4), dtype=torch.int32,
-                         device=state.device)
-        graph_ptrs = [work.data_ptr(), stage.data_ptr(), ws.data_ptr()]
-        n_rows, comp_itv = stage.shape[1] - 1, con.comp_itv
-    lib = load_library().lib
-    rc = lib.dynims_sweep_segment(
-        int(con.paper_law), int(con.unit_occupancy), int(con.has_cache),
-        int(con.precision == "bf16"), int(con.has_graph),
-        *(x.data_ptr() for x in operands), state_out.data_ptr(),
-        hist_out.data_ptr(), *graph_ptrs, t_seg, n_lanes, n_nodes, int(t0),
-        n_rows, comp_itv, ctypes.byref(consts),
-        torch.cuda.current_stream().cuda_stream)
+                         device=state.device) if route.cooperative else None
+        rc = _graph_fn()(
+            *flags, route.loops, route.threads, route.cluster,
+            int(route.cooperative), *(x.data_ptr() for x in operands),
+            state_out.data_ptr(), hist_out.data_ptr(), work.data_ptr(),
+            stage.data_ptr(), 0 if ws is None else ws.data_ptr(), t_seg,
+            n_lanes, n_nodes, int(t0), n_rows, con.comp_itv,
+            ctypes.byref(_consts(con)), stream)
     if rc != 0:
         raise RuntimeError(f"sweep kernel launch failed: CUDA error {rc}")
     global LAUNCHES
@@ -700,9 +867,10 @@ def sweep_segment(state, hist, demand_seg, lp, np_rows, alive, *, t0: int,
     lane pack, ``np_rows`` the (4, N) node pack and ``alive`` the
     (1, L) mask; ``t0`` is the segment's first interval.  With
     ``con.has_graph``, ``graph`` is the AppGraph's (work (S+1, N), stage
-    constants (2, S+1)) pair, float32 on the same device.  CPU tensors
-    run :func:`sweep_segment_plain`; CUDA tensors launch the kernel.
-    Any other device raises.
+    constants (2, S+1)) pair, float32 on the same device, launched at
+    the shape :func:`graph_plan` picks.  CPU tensors run
+    :func:`sweep_segment_plain`; CUDA tensors launch the kernel.  Any
+    other device raises.
     """
     if state.device.type == "cpu":
         return sweep_segment_plain(state, hist, demand_seg, lp, np_rows,

@@ -26,9 +26,11 @@ programs:
 A scenario's AppGraph (``app_graph=``) adds the queue/barrier carry to
 the state block and the stage DAG's work matrix and per-row constants
 to the launch (:func:`_stage_graph`); its lanes finalize to a live
-``makespan``.  On the card a lane wider than one block needs all of its
-launch's blocks resident at once, so the lane chunk is capped by
-:func:`~repro_torch.kernels.sweep.graph_lane_limit`.
+``makespan``.  On the card a lane up to the largest thread-block
+cluster (16 blocks: 32768 nodes, 16384 with the cache) runs every lane
+chunk in one launch; only a wider lane needs all of its launch's blocks
+resident at once, which caps the lane chunk
+(:func:`~repro_torch.kernels.sweep.graph_lane_limit`).
 
 Numerics: state and accumulators stay float32; ``precision="bf16"``
 stores only the demand stream in bfloat16 (rounded to nearest even
@@ -409,9 +411,9 @@ def fused_sweep_demand(
     chunks of at most ``DEFAULT_CHUNK`` (``chunk`` overrides it), each
     padded up to :data:`LANE_TILE` lanes with dead lanes.  ``app_graph``
     co-simulates the stage DAG (a live ``makespan``); on the card a
-    lane wider than one block caps the chunk at the lanes whose blocks
-    can all be resident at once.  ``precision="bf16"`` stores only the
-    demand stream in bfloat16.
+    lane wider than the largest cluster caps the chunk at the lanes
+    whose blocks can all be resident at once.  ``precision="bf16"``
+    stores only the demand stream in bfloat16.
     """
     from .mesh import mesh_sweep_demand
 

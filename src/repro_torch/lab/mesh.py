@@ -316,7 +316,8 @@ def mesh_sweep_demand(demand: np.ndarray, gains, *, devices, node_shards: int,
         lane_chunk = -(-lane_chunk // LANE_TILE) * LANE_TILE
         if (con.has_graph and node_shards == 1
                 and row[0].device.type == "cuda"):
-            limit = graph_lane_limit(con, n_nodes, row[0].device)
+            limit = graph_lane_limit(con, n_nodes, row[0].device,
+                                     host_graph[1].shape[1])
             lane_chunk = lane_chunk if limit is None \
                 else min(lane_chunk, limit)
         padded = _pad_gains(lanes, lane_chunk)

@@ -15,6 +15,12 @@ PEAK_BF16 = 989e12        # bf16 (and fp16) FLOP/s on the tensor cores
 PEAK_F64 = 34e12          # float64 FLOP/s outside the tensor cores
 PEAK_FLOPS = PEAK_BF16    # JAX's PEAK_FLOPS is its bf16 rate too
 ICI_BW = 450e9            # bytes/s each way: NVLink 4, 900 GB/s both ways
+# One dependent float32 operation, issue to use: 4 cycles (FADD, FMUL and
+# FFMA on Volta and its successors: Jia et al., "Dissecting the NVIDIA
+# Volta GPU Architecture via Microbenchmarking", 2018) at the H100 SXM's
+# 1980 MHz maximum SM clock (NVIDIA's H100 architecture white paper).  A
+# serial chain of n operations takes at least n times this.
+F32_DEP_LATENCY_S = 4 / 1.98e9
 
 # a step's peak by the type its matmuls run in
 PEAK_BY_DTYPE = {

@@ -15,7 +15,12 @@ route's peak, in milliseconds, with the term that binds it.
   kernel's source, plus :data:`GRAPH_OPS_PER_UPDATE` for the AppGraph
   carry; its one-interval graph entry (:func:`sweep_interval`) moves the
   whole state in and out every launch, and of the histogram and the
-  work matrix only what the launch touches.
+  work matrix only what the launch touches.  The AppGraph carry's
+  intervals are serial (each waits on the lane's min), so beside those
+  two terms its :attr:`Work.critical_path_ms` is the intervals times
+  :data:`GRAPH_CHAIN_OPS` dependent operations at
+  :data:`~.constants.F32_DEP_LATENCY_S` each: a bound no number of lanes
+  or nodes lowers.
 * B2, flash attention: 4 * hd operations per kept (query, key) pair, at
   the bf16 tensor-core rate, or for float32 (run as 3xTF32: three TF32
   products for each) at a third of the TF32 rate.
@@ -31,7 +36,8 @@ import dataclasses
 from typing import Optional, Sequence, Tuple
 
 from .analysis import roofline_terms
-from .constants import HBM_BW, PEAK_BF16, PEAK_F32, PEAK_F64, PEAK_TF32
+from .constants import (F32_DEP_LATENCY_S, HBM_BW, PEAK_BF16, PEAK_F32,
+                        PEAK_F64, PEAK_TF32)
 
 # Operations per (lane, node, interval) update of the paper-law step in
 # csrc/sweep.cu, counted from its source: every add, multiply, divide,
@@ -46,6 +52,21 @@ OPS_PER_UPDATE = {"cache-off": 33, "cache-on": 86}
 # Kahan sum, the progress code, the finish and promotion tests.  The
 # lane's reductions are not counted, so the bound stays a lower bound.
 GRAPH_OPS_PER_UPDATE = {"cache-off": 36, "cache-on": 26}
+# The dependent operations of one interval of the graph instance's
+# serial chain, counted from csrc/sweep.cu's graph_kernel (the law's
+# own recurrence in u runs beside it, shorter): the row's held demand
+# read and added, the observed v; without the cache r, the fused
+# pressure curve (max, min, the segment's subtract and multiply-add, the
+# select: 5) and dt_eff; with it the error, the update (two multiplies,
+# the FMA, the clamp's two), the resident set and hit fraction (min,
+# multiply, min), the float64 power (clamp, two conversions, log2,
+# multiply, exp2: 6), the hit (2), the cold-start mix (4), the miss (2)
+# and dt_app's three; then the drain's divide, multiply and select, the
+# work left's subtract and max, the finish test, the progress code and
+# its min (2), the warp's min, and the promotion's compare, test and
+# step (3).  Barriers, shared and distributed shared memory are not
+# counted, so the bound stays a lower bound.
+GRAPH_CHAIN_OPS = {"cache-off": 22, "cache-on": 40}
 # The two float64 transcendentals of the cache-on count (see
 # sweep_f64_bound_ms).
 F64_CALLS_PER_UPDATE = 2
@@ -68,6 +89,14 @@ class Work:
     ops: float           # operations (FLOPs for the attention kernels)
     bytes: float         # each input read once, each output written once
     peak: float          # the route's operations per second
+    serial_ops: float = 0.0   # the longest chain of dependent operations
+
+    @property
+    def critical_path_ms(self) -> float:
+        """The serial chain's least time, beside :attr:`bound_ms` (which
+        it does not enter): each dependent operation waits on the one
+        before, whatever the card's width."""
+        return self.serial_ops * F32_DEP_LATENCY_S * 1e3
 
     @property
     def bound_ms(self) -> float:
@@ -87,7 +116,7 @@ def sweep(n_nodes: int, n_intervals: int, n_lanes: int, *, cache: bool,
     stream, the lane parameters and node rows, the alive mask and the
     histogram read once, the state read and written; with ``n_stages``
     the AppGraph instance, its work matrix and stage constants read
-    too."""
+    too, and the intervals' serial chain (:attr:`Work.critical_path_ms`)."""
     from ..kernels.sweep import (N_NODE_ROWS, N_PARAM_ROWS,
                                  N_STAGE_CONST_ROWS, state_names)
     from ..lab.score import HIST_BINS
@@ -105,7 +134,9 @@ def sweep(n_nodes: int, n_intervals: int, n_lanes: int, *, cache: bool,
     per_update = OPS_PER_UPDATE[tag] + (GRAPH_OPS_PER_UPDATE[tag] if graph
                                         else 0)
     return Work(ops=n_nodes * n_intervals * n_lanes * per_update,
-                bytes=n_bytes, peak=PEAK_F32)
+                bytes=n_bytes, peak=PEAK_F32,
+                serial_ops=n_intervals * GRAPH_CHAIN_OPS[tag] if graph
+                else 0.0)
 
 
 # Node rows the one-interval graph entry reads (1 / m, the working set

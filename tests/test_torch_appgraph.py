@@ -373,13 +373,87 @@ def test_tuners_on_makespan_make_jaxs_decisions(method):
 
 def test_coresident_lane_planner():
     # one block holds the lane: no barrier between blocks, no limit
-    assert ks.coresident_lanes(256, False, 1, 1) is None
-    assert ks.coresident_lanes(128, True, 1, 1) is None
-    # 4096 nodes: 16 blocks a lane without the cache, 32 with it
-    assert ks.coresident_lanes(4096, False, 13, 132) == 13 * 132 // 16
-    assert ks.coresident_lanes(4096, True, 8, 132) == 8 * 132 // 32
-    assert ks.coresident_lanes(257, False, 1, 2) == 1
+    assert ks.coresident_lanes(2048, False, 1, 1) is None
+    assert ks.coresident_lanes(1024, True, 1, 1) is None
+    # 4096 nodes: one cluster a lane, which only has to be resident as a
+    # whole: no limit
+    assert ks.coresident_lanes(4096, False, 13, 132) is None
+    assert ks.coresident_lanes(4096, True, 8, 132) is None
+    # past the largest cluster the lane's 17 blocks meet in device memory
+    assert ks.coresident_lanes(32769, False, 2, 132, 16) == 2 * 132 // 17
     with pytest.raises(ValueError, match="co-resident"):
-        ks.coresident_lanes(257, False, 1, 1)
-    assert ks.block_nodes(False) == 2 * ks.KERNEL_THREADS
-    assert ks.block_nodes(True) == ks.KERNEL_THREADS
+        ks.coresident_lanes(32769, False, 1, 16, 16)
+    assert ks.coresident_lanes(16385, False, 1, 9) == 1
+    assert ks.block_nodes(False) == ks.WIDE_LOOPS[False] * ks.GRAPH_THREADS
+    assert ks.block_nodes(True) == ks.WIDE_LOOPS[True] * ks.GRAPH_THREADS
+
+
+def _model_card(max_cluster=16):
+    """A card of 132 SMs of 64K registers and threads of 128 registers,
+    whose clusters pack without loss."""
+    def per_sm(threads):
+        return 65536 // (128 * threads)
+    return ks.GraphLimits(max_cluster, 132, per_sm,
+                          lambda threads, blocks: per_sm(threads) * 132
+                          // blocks)
+
+
+# (nodes, cache, route, loops a thread, threads, blocks a lane) at each
+# edge of the planner's routes on _model_card: the largest one-warp
+# lane of one loop and one node more, the largest one-warp lane of the
+# wide loops and one more, the largest one-block lane and one more, a
+# tie between block sizes (the smaller wins), 4096 nodes, the largest
+# cluster of the smaller blocks and one node more (the larger blocks),
+# the largest cluster and one node more (the cooperative route)
+ROUTE_EDGES = [
+    (32, False, "warp", 1, 32, 1), (33, False, "warp", 4, 32, 1),
+    (128, False, "warp", 4, 32, 1), (129, False, "block", 4, 64, 1),
+    (1024, False, "block", 4, 256, 1), (1025, False, "cluster", 4, 160, 2),
+    (2048, False, "cluster", 4, 256, 2), (4096, False, "cluster", 4, 256, 4),
+    (16384, False, "cluster", 4, 256, 16),
+    (16385, False, "cluster", 4, 480, 9),
+    (32768, False, "cluster", 4, 512, 16),
+    (32769, False, "cooperative", 4, 512, 17),
+    (32, True, "warp", 1, 32, 1), (33, True, "warp", 2, 32, 1),
+    (64, True, "warp", 2, 32, 1), (65, True, "block", 2, 64, 1),
+    (512, True, "block", 2, 256, 1), (513, True, "cluster", 2, 160, 2),
+    (4096, True, "cluster", 2, 256, 8),
+    (8192, True, "cluster", 2, 256, 16), (8193, True, "cluster", 2, 480, 9),
+    (16384, True, "cluster", 2, 512, 16),
+    (16385, True, "cooperative", 2, 512, 17),
+]
+
+
+@pytest.mark.parametrize("edge", ROUTE_EDGES, ids=str)
+def test_graph_route_at_each_routes_edge(edge):
+    n_nodes, cache, name, loops, threads, blocks = edge
+    route = ks.graph_route(n_nodes, cache, _model_card())
+    assert (route.name, route.loops, route.threads, route.blocks) == \
+        (name, loops, threads, blocks)
+    # the kernel's own count of blocks: ceil(N / (loops * threads))
+    per_block = route.loops * route.threads
+    assert -(-n_nodes // per_block) == route.blocks
+    assert route.threads % 32 == 0 and route.threads <= ks.GRAPH_THREADS
+    assert route.cluster == (1 if route.cooperative else route.blocks)
+    assert (route.lanes is None) == (not route.cooperative)
+    if route.cooperative:
+        assert route.lanes == 132 // route.blocks
+    # a card that schedules portable clusters only takes the cooperative
+    # route past 8 blocks of the larger size
+    portable = ks.graph_route(n_nodes, cache, _model_card(8))
+    assert portable.cooperative == (-(-n_nodes // ks.block_nodes(cache))
+                                    > 8)
+
+
+def test_graph_route_takes_the_block_size_the_card_holds_most_of():
+    """At 4096 nodes the card holds 66 clusters of two 512-thread blocks
+    but 62 of four 256-thread ones: the larger blocks, so 64 lanes run at
+    once; a shape it cannot hold at all is not taken."""
+    base = _model_card()
+    holds = {(512, 2): 66, (256, 4): 62}
+    card = base._replace(clusters=lambda t, b: holds.get((t, b), 0))
+    assert ks.graph_route(4096, False, card)[:3] == (4, 512, 2)
+    card = base._replace(clusters=lambda t, b: 0 if t == 512 else 30)
+    assert ks.graph_route(4096, False, card)[:3] == (4, 256, 4)
+    with pytest.raises(ValueError, match="holds no cluster"):
+        ks.graph_route(4096, False, base._replace(clusters=lambda t, b: 0))

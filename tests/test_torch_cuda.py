@@ -151,12 +151,27 @@ def _graph_segment(card, spec, law, n_dead=2):
             dict(t0=0, con=con, names=names, graph=graph), total)
 
 
-# (scenario, nodes, intervals): one block a lane (limplock 8, spark-dag
-# 16), several (300 nodes: 2 blocks, 3 with the cache), the cache-on
-# 4096-node fleet (32 blocks a lane), a horizon the DAG finishes in
+# (scenario, nodes, intervals) at every edge of the graph instance's
+# routes (kernels/sweep.py::graph_route): one warp of one loop a thread
+# (8, 16, 32 nodes) and of the wide loops (33, 64 with the cache, 128),
+# one block (65, 129, 300, 512, 1024), one cluster (513, 1025, 2048,
+# 4096; of the smaller blocks at their largest, 8192 and 16384, and one
+# node more, of the larger; the largest, 16384 and 32768 where the card
+# schedules 16 blocks) and the cooperative route one node past it
+# (16385, 32769); limplock 8 at a horizon the DAG finishes in
 GRAPH_CARD_CASES = [("limplock", 8, 1200), ("spark-dag", 16, 600),
+                    ("limplock", 32, 600), ("limplock", 33, 600),
+                    ("limplock", 128, 600), ("limplock", 129, 600),
+                    ("spark-dag", 64, 400), ("spark-dag", 65, 400),
                     ("limplock", 300, 1000), ("spark-dag", 300, 400),
-                    ("spark-dag", 4096, 200)]
+                    ("spark-dag", 512, 200), ("spark-dag", 513, 200),
+                    ("limplock", 1024, 200), ("limplock", 1025, 200),
+                    ("limplock", 2048, 200), ("spark-dag", 4096, 200),
+                    ("limplock", 4096, 200),
+                    ("spark-dag", 8192, 100), ("spark-dag", 8193, 100),
+                    ("limplock", 16384, 100), ("limplock", 16385, 100),
+                    ("spark-dag", 16384, 60), ("spark-dag", 16385, 60),
+                    ("limplock", 32768, 60), ("limplock", 32769, 60)]
 
 
 @pytest.mark.parametrize("case", GRAPH_CARD_CASES, ids=str)
@@ -165,17 +180,31 @@ def test_graph_instance_matches_plain_version(card, case, law):
     name, n_nodes, n_steps = case
     spec = get_scenario(name).replace(n_nodes=n_nodes, n_intervals=n_steps)
     args, kw, total = _graph_segment(card, spec, law)
-    limit = ks.graph_lane_limit(kw["con"], n_nodes, card)
-    assert (limit is None) == (n_nodes <= ks.block_nodes(spec.cache
-                                                         is not None))
+    rows = kw["graph"][1].shape[1]
+    route = ks.graph_plan(kw["con"], n_nodes, card, rows)
+    print(f"{name} {n_nodes}: {route}")
+    assert (route.lanes is None) == (not route.cooperative)
+    assert ks.graph_lane_limit(kw["con"], n_nodes, card, rows) == route.lanes
+    # one launch, or as many as the cooperative route's co-residency asks
+    state0, hist0, dtn, lp, node_rows, alive = args
+    limit = route.lanes or lp.shape[1]
     before = ks.LAUNCHES
-    sk, hk = ks.sweep_segment(*args, **kw)
-    assert ks.LAUNCHES == before + 1
+    outs = [ks.sweep_segment(state0[:, lo:lo + limit].contiguous(),
+                             hist0[lo:lo + limit].contiguous(), dtn,
+                             lp[:, lo:lo + limit].contiguous(), node_rows,
+                             alive[:, lo:lo + limit].contiguous(), **kw)
+            for lo in range(0, lp.shape[1], limit)]
+    assert ks.LAUNCHES == before + -(-lp.shape[1] // limit)
+    sk = torch.cat([o[0] for o in outs], 1)
+    hk = torch.cat([o[1] for o in outs], 0)
     sp, hp = ks.sweep_segment_plain(*args, **kw)
     torch.cuda.synchronize()
     live = len(hk) - 2
     assert torch.equal(sk[:, live:], args[0][:, live:])     # dead lanes
-    names, lp = kw["names"], args[3]
+    assert int(hk[live:].abs().sum()) == 0
+    names = kw["names"]
+    t_done = sk[names.index("t_done")][:live]
+    assert bool((t_done == t_done[:, :1]).all())
     mk = fs._finalize_lanes(sk, hk, lp, kw["con"], names, n_steps, total)
     mp = fs._finalize_lanes(sp, hp, lp, kw["con"], names, n_steps, total)
     assert torch.equal(mk.makespan, mp.makespan)
@@ -188,13 +217,20 @@ def test_graph_instance_matches_plain_version(card, case, law):
 
 
 def test_graph_lane_chunk_that_cannot_be_resident_raises(card):
-    """The multi-block route launches cooperatively: a lane chunk past
-    co-residency is refused, never left to hang, and the largest one
-    that fits runs."""
-    spec = get_scenario("limplock").replace(n_nodes=4096, n_intervals=20)
+    """Past the largest cluster the lane's blocks meet in device memory,
+    a cooperative launch: a lane chunk past co-residency is refused,
+    never left to hang, and the largest one that fits runs."""
+    base = get_scenario("limplock")
+    kw0 = _graph_segment(card, base, "paper")[1]
+    stage_rows = kw0["graph"][1].shape[1]       # S + 1, whatever the nodes
+    n_nodes = ks.block_nodes(False) * ks.graph_limits(
+        kw0["con"], card, stage_rows).max_cluster + 1
+    spec = base.replace(n_nodes=n_nodes, n_intervals=20)
     args, kw, _ = _graph_segment(card, spec, "paper", n_dead=0)
     state0, hist0, dtn, lp, rows, alive = args
-    limit = ks.graph_lane_limit(kw["con"], 4096, card)
+    route = ks.graph_plan(kw["con"], n_nodes, card, stage_rows)
+    assert route.cooperative
+    limit = route.lanes
 
     def lanes(n):
         reps = -(-n // lp.shape[1])
@@ -209,6 +245,28 @@ def test_graph_lane_chunk_that_cannot_be_resident_raises(card):
     state, _ = ks.sweep_segment(*lanes(limit), **kw)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(state).all())
+
+
+def test_a_cluster_launch_holds_every_lane(card):
+    """A lane one cluster holds needs only its own blocks resident: 4096
+    nodes at 256 lanes, far more than the card holds at once, run in one
+    launch and match the plain version."""
+    spec = get_scenario("limplock").replace(n_nodes=4096, n_intervals=30)
+    args, kw, _ = _graph_segment(card, spec, "paper", n_dead=0)
+    state0, hist0, dtn, lp, rows, alive = args
+    reps = 256 // lp.shape[1]
+    wide = (torch.cat([state0] * reps, 1).contiguous(),
+            torch.cat([hist0] * reps, 0).contiguous(), dtn,
+            torch.cat([lp] * reps, 1).contiguous(), rows,
+            torch.cat([alive] * reps, 1).contiguous())
+    assert ks.graph_plan(kw["con"], 4096, card,
+                         kw["graph"][1].shape[1]).name == "cluster"
+    before = ks.LAUNCHES
+    sk, hk = ks.sweep_segment(*wide, **kw)
+    assert ks.LAUNCHES == before + 1
+    sp, hp = ks.sweep_segment_plain(*wide, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(sk, sp) and torch.equal(hk, hp)
 
 
 def test_app_graph_sweeps_on_the_card_match_the_cpu(card):

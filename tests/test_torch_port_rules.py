@@ -424,6 +424,11 @@ def test_kernel_layout_and_build_flags():
     assert ks.state_names(False, True, True)[18:] == (
         "sidx", "wleft", "wd", "wd_c", "t_done")
     assert f"constexpr int kThreads = {ks.KERNEL_THREADS};" in src
+    assert f"constexpr int kGraphThreads = {ks.GRAPH_THREADS};" in src
+    assert f"constexpr int kMaxCluster = {ks.MAX_CLUSTER};" in src
+    assert (f"return has_cache ? {ks.WIDE_LOOPS[True]} : "
+            f"{ks.WIDE_LOOPS[False]};") in src
+    assert "extern \"C\" int dynims_graph_segment(" in src
 
 
 def test_convert_checks_gainset_fields():

@@ -289,6 +289,29 @@ def test_kernel_bounds_are_the_perf_table_bounds(row):
     assert abs(work().bound_ms - want) <= 1e-4
 
 
+def test_graph_critical_path_grows_with_intervals_alone():
+    """The AppGraph carry's intervals wait on each other: the serial
+    term is intervals x the chain's dependent operations x one float32
+    latency, whatever the lanes and nodes; the graph-free sweep has
+    none."""
+    base = K.sweep(16, 1800, 64, cache=True, n_stages=12)
+    assert base.critical_path_ms == pytest.approx(
+        1800 * K.GRAPH_CHAIN_OPS["cache-on"] * C.F32_DEP_LATENCY_S * 1e3)
+    for nodes, lanes in ((4096, 64), (16, 1), (8, 4096)):
+        other = K.sweep(nodes, 1800, lanes, cache=True, n_stages=12)
+        assert other.critical_path_ms == base.critical_path_ms
+        assert (other.ops > base.ops) == (nodes * lanes > 16 * 64)
+    longer = K.sweep(16, 3600, 64, cache=True, n_stages=12)
+    assert longer.critical_path_ms == pytest.approx(
+        2 * base.critical_path_ms)
+    off = K.sweep(8, 1200, 64, cache=False, n_stages=4)
+    assert off.critical_path_ms == pytest.approx(
+        1200 * K.GRAPH_CHAIN_OPS["cache-off"] * C.F32_DEP_LATENCY_S * 1e3)
+    assert K.sweep(8, 1200, 64, cache=False).critical_path_ms == 0.0
+    # the serial term stands beside the two roofline terms, not in them
+    assert base.bound_ms == K.bound(base.bytes, base.ops, base.peak)[0]
+
+
 def test_bound_names_its_binding_term():
     assert K.bound(3.35e12, 1.0, C.PEAK_F32) == (1e3, "bytes")
     assert K.bound(1.0, 67e12, C.PEAK_F32) == (1e3, "operations")

@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
 """Compare the sweep kernel's SASS between two versions of its source.
 
-    python tools/sweep_sass_diff.py OLD_SWEEP_CU [NEW_SWEEP_CU]
+    python tools/sweep_sass_diff.py [--graph-free] OLD_SWEEP_CU [NEW_SWEEP_CU]
 
 Builds both sources with the sweep library's own flags
 (``repro_torch.kernels._build.NVCC_FLAGS``) and compares, instance by
-instance, the instructions of every template instance the old source
-has with the new source's instance of the same arguments (a template
-parameter the old source lacks counts as ``false``).  The new source
-defaults to the checkout's ``src/repro_torch/csrc/sweep.cu``.  Prints
-one line per instance and exits nonzero when any differs or is
-missing.  Needs ``nvcc`` and ``cuobjdump`` (the machine with the card).
+instance, the instructions of every template instance of
+``sweep_kernel`` the old source has with the new source's instance of
+the same arguments (a trailing template parameter one source lacks
+counts as ``false``).  With ``--graph-free`` only the old source's
+graph-free instances are compared (its fifth parameter, ``HAS_GRAPH``,
+false or absent): in newer sources the graph instances are a kernel of
+their own, ``graph_kernel``.  The new source defaults to the checkout's
+``src/repro_torch/csrc/sweep.cu``.  Prints one line per instance and
+exits nonzero when any differs or is missing.  Needs ``nvcc`` and
+``cuobjdump`` (the machine with the card).
 """
 
 import pathlib
@@ -49,6 +53,8 @@ def sass_by_instance(source: pathlib.Path, out_dir: pathlib.Path) -> dict:
 
 
 def main(argv) -> int:
+    graph_free = "--graph-free" in argv
+    argv = [a for a in argv if a != "--graph-free"]
     if not 1 <= len(argv) <= 2:
         print(__doc__)
         return 2
@@ -58,7 +64,10 @@ def main(argv) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         old = sass_by_instance(old_src, pathlib.Path(tmp))
         new = sass_by_instance(new_src, pathlib.Path(tmp))
-    width = max(len(k) for k in new) if new else 0
+    if graph_free:
+        old = {k: v for k, v in old.items() if not k[4:5] == (1,)}
+    width = max(len(k) for k in (*old, *new)) if new else 0
+    new = {k + (0,) * (width - len(k)): v for k, v in new.items()}
     bad = 0
     for key, instrs in sorted(old.items()):
         twin = new.get(key + (0,) * (width - len(key)))
