@@ -126,12 +126,18 @@ each, all at once) and drives the port's main paths on the card:
   where the machine has them): ``sweep_demand`` at 4096 x 1000 x 64,
   cache off and on, over 4 gain shards (bit for bit one device's) and
   2 x 2 and 1 x 4 node shards (within the test brackets); the AppGraph
-  at 16e's spark-dag 4096 x 1800 x 64 over 4 node shards, the sweep
-  kernel's one-interval graph entry launched per interval with the
-  barrier's min exchanged between launches (the makespans bit for bit,
-  no host sync under the sanitizers); that entry against its plain
-  version, and one launch timed beside its bound; the fleet sweep over
-  node shards.
+  at 16e's spark-dag 4096 x 1800 x 64 over 4 node shards of the card,
+  each running the whole segment in one launch a lane chunk and meeting
+  the others every interval at a barrier in device memory (24b: the
+  stats and the state bit for bit one device's, no host sync under the
+  sanitizers, timed against devices=1 and against the one-interval
+  route that shards on different cards take, and held against its plain
+  version); that one-interval entry, launched per interval with the
+  barrier's min exchanged between launches, against its plain version
+  and one launch timed beside its bound (24c); the fleet sweep over
+  node shards (24d); a barrier missing a party traps at its deadline,
+  a CUDA error and not a hang, in a process of its own (24e,
+  ``chip_smoke.py --lone-party SECONDS``).
 
 Every bound comes from ``repro_torch.roofline`` (the H100's data-sheet
 peaks and each kernel's work from its shapes).  Phases 19c, 20d, 21d
@@ -553,6 +559,20 @@ def sweep_resources(lib):
                 + (f", {r.clusters} clusters of {cluster} (a {N_NODES}-"
                    f"node lane) resident at once; {most} of 16 blocks of "
                    f"{ks.GRAPH_THREADS}" if cluster > 1 else ""))
+        # the instances with the node shards' meet, at 24b's shard shape
+        for loops, threads, cluster in ((1, 32, 1), (wide, *reversed(
+                ks._spread(N_NODES // 4, wide, ks.GRAPH_BLOCKS[0])))):
+            r = ks.instance_resources(law, occ, cache, bf16, loops, threads,
+                                      cluster, stage_rows, sharded=True,
+                                      lib=lib)
+            rows[f"{tag} sharded graph J={loops} {threads}x{cluster}"] = \
+                dict(registers=r.registers, spill_bytes=r.spill_bytes,
+                     blocks_per_sm=r.blocks_per_sm, clusters=r.clusters)
+            log(f"    {tag} sharded graph J={loops}: {r.registers} "
+                f"registers, {r.spill_bytes} B spilled; {r.blocks_per_sm} "
+                f"blocks of {threads} threads per SM"
+                + (f", {r.clusters} clusters of {cluster}" if cluster > 1
+                   else ""))
     return rows
 
 
@@ -819,9 +839,21 @@ def phase6():
     return errs
 
 
+# Every kernel's keys in the kernels line
+KERNEL_LINE_KEYS = {"name", "route", "source", "replaces", "launches",
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms"}
+# Requests each full-width serving phase drives: one wave of the 8
+# slots, which the shrink after 10 steps still preempts (the registry's
+# workloads queue 16, two waves: C29's time)
+SERVE_REQUESTS = 8
+
+
 def serve_full_width(phase, w, smi):
-    """Serve workload ``w`` through the burst; returns the engine, the
-    decode kernel's launches while serving, and the serving numbers."""
+    """Serve workload ``w`` with :data:`SERVE_REQUESTS` requests through
+    the burst; returns the engine, the decode kernel's launches while
+    serving, and the serving numbers."""
+    w = dict(w, requests=SERVE_REQUESTS)
     cfg = get_config(w["arch"])
     log(f"phase {phase}: serve {w['arch']} at full width ({cfg.n_layers} "
         f"layers, d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
@@ -4091,6 +4123,12 @@ LAYOUTS_24 = (("4 gain shards", dict(devices=ONE_CARD_FOUR)),
 # interval
 EXACT_24 = ("max_utilization", "frac_intervals_over_r0", "max_over_r0",
             "pressure_violation_rate", "settle_intervals")
+# 24b: the repeats of each timed route (its host clock spreads 2x), and
+# the intervals of the segment route against its plain version
+REPEATS_24B = 5
+HORIZON_24B = 100
+# 24e: the deadline of a barrier that cannot complete, seconds
+LONE_PARTY_S = 1.0
 # 24c: (nodes, intervals, lanes) of the entry against its plain version
 ENTRY_24C = (1024, 600, 16)
 # 24c: the intervals of the case at 24b's own operands
@@ -4217,59 +4255,334 @@ def run_exchange(spec, gains, device, n_shards, n_dead):
             names)
 
 
+def run_exchange_ops(shards, ops, con, names):
+    """mesh.graph_exchange over ``ops`` (exchange_operands', updated in
+    place)."""
+    mesh.graph_exchange(shards, *([o[k] for o in ops] for k in (
+        "state", "hist", "demand", "lp", "rows", "alive", "graph")),
+        t0=0, con=con, names=names)
+
+
+def shards_ms(fn, shards, reps: int = 5, warm: int = 1) -> float:
+    """Median CUDA-event ms of ``fn``'s work on ``shards``' streams: each
+    waits for the start event on the current stream, which waits for all
+    of them before the end event, after a device-side lead (cuda_ms)."""
+    cur = torch.cuda.current_stream()
+    times = []
+    for i in range(warm + reps):
+        torch.cuda._sleep(LEAD_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record(cur)
+        for s in shards:
+            s.wait(a)
+        fn()
+        for s in shards:
+            cur.wait_event(s.record())
+        b.record(cur)
+        b.synchronize()
+        if i >= warm:
+            times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def run_segment(shards, ops, con, names, lane_chunk, plain=False):
+    """mesh.graph_segment over ``ops`` (exchange_operands', updated in
+    place) in lane chunks of ``lane_chunk``, each chunk with its own rows
+    of one zeroed barrier, ordered after the current stream's work and
+    before its later work; ``plain``: the plain version on the same card
+    tensors (the exchange over graph_interval_plain)."""
+    n_lanes = ops[0]["lp"].shape[1]
+    cur = torch.cuda.current_stream()
+    xbar = mesh._shard_barriers(shards, n_lanes)
+    for lo in range(0, n_lanes, lane_chunk):
+        hi = min(lo + lane_chunk, n_lanes)
+        whole = lo == 0 and hi == n_lanes      # in place, no copies
+
+        def lanes(x, axis):
+            return x if whole else x.narrow(axis, lo, hi - lo).contiguous()
+        args = ([lanes(o["state"], 1) for o in ops],
+                [lanes(o["hist"], 0) for o in ops],
+                [o["demand"] for o in ops],
+                [lanes(o["lp"], 1) for o in ops],
+                [o["rows"] for o in ops],
+                [lanes(o["alive"], 1) for o in ops],
+                [o["graph"] for o in ops])
+        ready = torch.cuda.Event()
+        ready.record(cur)
+        for s in shards:
+            s.wait(ready)
+        if plain:
+            kernel, mesh.graph_interval = (mesh.graph_interval,
+                                           ks.graph_interval_plain)
+            try:
+                mesh.graph_exchange(shards, *args, t0=0, con=con,
+                                    names=names)
+            finally:
+                mesh.graph_interval = kernel
+        else:
+            mesh.graph_segment(shards, *args, t0=0, con=con, names=names,
+                               xbar=xbar[lo:hi])
+        for s in shards:
+            cur.wait_event(s.record())
+        if not whole:
+            for o, st, h in zip(ops, args[0], args[1]):
+                o["state"][:, lo:hi] = st
+                o["hist"][lo:hi] = h
+
+
 def phase24b(big_ms):
-    """The graph instance over 4 node shards at phase 16e's spark-dag
-    4096 x 1800 x 64 (the one-interval entry and its exchange) against
-    one device, guarded against host syncs."""
+    """The graph instance over 4 node shards of one card at phase 16e's
+    spark-dag 4096 x 1800 x 64: the segment route (a launch a shard a
+    lane chunk, the shards meeting at a barrier in device memory) against
+    one device bit for bit, guarded against host syncs, and over 2 x 2 of
+    the same card (both rows' launches resident at once); the
+    one-interval route on the same operands counted and held against it;
+    timed against devices=1 and that route; and held against its plain
+    version at a cut horizon."""
     spec = spark_dag_fleet(N_NODES)
-    log(f"phase 24b: spark-dag {N_NODES} x {spec.n_intervals} x 64 "
-        f"(cache-on) over 1 x 4 node shards of one card, the barrier's min "
-        f"exchanged every interval, against devices=1")
+    t_all = spec.n_intervals
+    log(f"phase 24b: spark-dag {N_NODES} x {t_all} x 64 (cache-on) over "
+        f"1 x 4 node shards of one card, a segment a launch each meeting "
+        f"at a barrier in device memory, against devices=1")
     gains = gains_64("paper")
     demand = spec.build_demand(seed=0)
     kw = dict(node_memory=GRAPH_M, interval_s=spec.interval_s,
               cache=spec.cache, app_graph=spec.app_graph)
-    one, ms1 = synced_ms(lambda: sweep_demand(demand, gains, devices=1,
-                                              **kw))
-    ks.INTERVAL_LAUNCHES = 0               # the node-sharded path starts here
-    four, ms4 = synced_ms(lambda: sweep_demand(
-        demand, gains, devices=ONE_CARD_FOUR, node_shards=4, **kw))
-    launches = ks.INTERVAL_LAUNCHES
-    log(f"main path: the one-interval graph entry launched {launches} "
-        f"times (phase 24b)")
-    check(launches == 4 * (spec.n_intervals + 2),
-          f"24b: {launches} launches, not 4 x (T + 2)")
+    sharded = dict(devices=ONE_CARD_FOUR, node_shards=4, **kw)
+    one = sweep_demand(demand, gains, devices=1, **kw)
+    ks.SHARD_LAUNCHES = 0                  # the node-sharded path starts here
+    ks.INTERVAL_LAUNCHES = 0
+    four = sweep_demand(demand, gains, **sharded)
+    launches, interval_launches = ks.SHARD_LAUNCHES, ks.INTERVAL_LAUNCHES
+    ops, con, names, _ = exchange_operands(spec, gains, CUDA, 4)
+    rows = ops[0]["graph"][1].shape[1]
+    route = ks.graph_plan(con, N_NODES // 4, CUDA, rows, shards=4)
+    chunks = -(-64 // min(64, route.lanes))
+    log(f"main path: the shards' segment entry launched {launches} times, "
+        f"the one-interval entry {interval_launches} (phase 24b; {route}, "
+        f"{chunks} lane chunks)")
+    check(launches == 4 * chunks and interval_launches == 0,
+          f"24b: {launches} segment launches (not 4 x {chunks}) and "
+          f"{interval_launches} one-interval launches")
     same = np.array_equal(four.makespan, one.makespan)
-    bad = stats_mismatches(four, one, n_samples=N_NODES * spec.n_intervals)
     bits = bits_differing(four, one, FleetStats._fields)
-    finished = int((one.makespan < spec.n_intervals * spec.interval_s).sum())
+    finished = int((one.makespan < t_all * spec.interval_s).sum())
     log(f"  makespan bit for bit: {same} ({finished} of 64 lanes finished, "
         f"{float(one.makespan.min()):.2f}-{float(one.makespan.max()):.2f} "
-        f"s); brackets: {bad or 'held'}; fields differing bit for bit: "
+        f"s); fields differing from devices=1 bit for bit: "
         f"{bits or 'none'}")
-    check(same, "24b: the node-sharded makespans differ from one device's")
-    check(not bad, f"24b: {bad}")
+    check(same and not bits, f"24b: the node-sharded stats differ from one "
+          f"device's: {bits}")
     before = os.environ.get("PLANECHECK_SANITIZERS")
     os.environ["PLANECHECK_SANITIZERS"] = "1"
     try:
-        guarded = sweep_demand(demand, gains, devices=ONE_CARD_FOUR,
-                               node_shards=4, **kw)
+        guarded = sweep_demand(demand, gains, **sharded)
     finally:
         if before is None:
             del os.environ["PLANECHECK_SANITIZERS"]
         else:
             os.environ["PLANECHECK_SANITIZERS"] = before
-    check(not bits_differing(guarded, four, FleetStats._fields),
-          "24b: the guarded sharded sweep differs")
+    check(not bits_differing(guarded, one, FleetStats._fields),
+          "24b: the guarded sharded sweep differs from devices=1")
     log(f"  under PLANECHECK_SANITIZERS=1 (sync debug mode 'error' over the "
-        f"dispatch): no host sync, the same stats")
-    log(f"  route: {ms4:.1f} ms end to end over 4 x {spec.n_intervals + 2} "
-        f"launches ({ms4 * 1e3 / spec.n_intervals:.1f} us an interval); "
-        f"devices=1 {ms1:.1f} ms end to end; the unsharded graph kernel "
-        f"{big_ms:.4f} ms (phase 16e)")
-    return dict(launches=launches, route_ms=ms4, devices1_ms=ms1,
-                unsharded_kernel_ms=big_ms, makespan_equal=same,
-                fields_differing=bits, lanes_finished=finished)
+        f"dispatch): no host sync, the same stats bit for bit")
+    # 2 x 2 of the same card: both gain shards' node shards share it, so
+    # each row's lane chunk is capped by the room over all four launches
+    route22 = ks.graph_plan(con, N_NODES // 2, CUDA, rows, shards=2,
+                            on_card=4)
+    chunks22 = -(-32 // min(32, route22.lanes))
+    ks.SHARD_LAUNCHES = 0                  # the 2 x 2 path starts here
+    ks.INTERVAL_LAUNCHES = 0
+    two_two = sweep_demand(demand, gains, devices=ONE_CARD_FOUR,
+                           node_shards=2, **kw)
+    launches22 = ks.SHARD_LAUNCHES
+    bits22 = bits_differing(two_two, one, FleetStats._fields)
+    log(f"main path: 2 x 2 of one card launched the shards' segment entry "
+        f"{launches22} times, the one-interval entry "
+        f"{ks.INTERVAL_LAUNCHES} ({route22}, {chunks22} lane chunks a gain "
+        f"shard); fields differing from devices=1 bit for bit: "
+        f"{bits22 or 'none'}")
+    check(launches22 == 4 * chunks22 and ks.INTERVAL_LAUNCHES == 0,
+          f"24b 2 x 2: {launches22} segment launches (not 4 x {chunks22})")
+    check(not bits22, f"24b 2 x 2: the stats differ from one device's: "
+          f"{bits22}")
+    # the state: the segment route on the same operands against the
+    # unsharded graph instance (devices=1's kernel), nodes in order
+    shards = [mesh.Shard(CUDA) for _ in ops]
+    seg_ops = [dict(o) for o in ops]
+    for o in seg_ops:
+        o["state"], o["hist"] = o["state"].clone(), o["hist"].clone()
+    run_segment(shards, seg_ops, con, names, route.lanes)
+    whole = exchange_operands(spec, gains, CUDA, 1)[0][0]
+    limit = ks.graph_plan(con, N_NODES, CUDA, rows).lanes or 64
+    outs = [ks.sweep_segment(
+        whole["state"][:, lo:lo + limit].contiguous(),
+        whole["hist"][lo:lo + limit].contiguous(), whole["demand"],
+        whole["lp"][:, lo:lo + limit].contiguous(), whole["rows"],
+        whole["alive"][:, lo:lo + limit].contiguous(), t0=0, con=con,
+        names=names, graph=whole["graph"]) for lo in range(0, 64, limit)]
+    torch.cuda.synchronize()
+    state_equal = torch.equal(
+        torch.cat([o["state"] for o in seg_ops], -1),
+        torch.cat([o[0] for o in outs], 1)) and torch.equal(
+        sum(o["hist"] for o in seg_ops), torch.cat([o[1] for o in outs], 0))
+    log(f"  the state (nodes in order) and summed histograms of the segment "
+        f"route on the same operands equal the unsharded graph instance's "
+        f"bit for bit: {state_equal}")
+    check(state_equal, "24b: the segment route's state differs from the "
+          "unsharded graph instance's")
+    # the one-interval route (graph_exchange, which only shards on
+    # different cards take) on the same operands, untimed: its launches
+    # counted from 0 just before it, its state against the segment route's
+    ex_ops = [dict(o, state=o["state"].clone(), hist=o["hist"].clone())
+              for o in ops]
+    ks.INTERVAL_LAUNCHES = 0
+    run_exchange_ops(shards, ex_ops, con, names)
+    torch.cuda.synchronize()
+    ex_launches = ks.INTERVAL_LAUNCHES
+    ex_equal = torch.equal(
+        torch.cat([o["state"] for o in ex_ops], -1),
+        torch.cat([o["state"] for o in seg_ops], -1)) and torch.equal(
+        sum(o["hist"] for o in ex_ops), sum(o["hist"] for o in seg_ops))
+    log(f"  the interval route (graph_exchange) on the same operands "
+        f"launched its entry {ex_launches} times (4 x {t_all + 2}); its "
+        f"state and summed histograms equal the segment route's bit for "
+        f"bit: {ex_equal}")
+    check(ex_launches == 4 * (t_all + 2),
+          f"24b: graph_exchange launched {ex_launches} one-interval kernels, "
+          f"not 4 x {t_all + 2}")
+    check(ex_equal, "24b: the interval route's state differs from the "
+          "segment route's")
+    # times: devices=1 and the segment route end to end, the interval
+    # route and the segment route on the same operands, in turns
+    times = {"devices=1": [], "segment route": [], "interval route (ops)": [],
+             "segment route (ops)": []}
+    for rep in range(REPEATS_24B):
+        times["devices=1"].append(synced_ms(lambda: sweep_demand(
+            demand, gains, devices=1, **kw))[1])
+        times["segment route"].append(synced_ms(lambda: sweep_demand(
+            demand, gains, **sharded))[1])
+        ex_ops = [dict(o, state=o["state"].clone(), hist=o["hist"].clone())
+                  for o in ops]
+        times["interval route (ops)"].append(synced_ms(
+            lambda: run_exchange_ops(shards, ex_ops, con, names))[1])
+        s_ops = [dict(o, state=o["state"].clone(), hist=o["hist"].clone())
+                 for o in ops]
+        times["segment route (ops)"].append(synced_ms(
+            lambda: run_segment(shards, s_ops, con, names, route.lanes))[1])
+    log(f"  host-clock ms over {REPEATS_24B} repeats each, in turns "
+        f"(end to end: numpy in, stats out; ops: 4 x {N_NODES // 4} nodes x "
+        f"64 lanes x {t_all} intervals staged, synced): " + "; ".join(
+            f"{k} {statistics.median(v):.1f} (" + ", ".join(
+                f"{x:.1f}" for x in v) + ")" for k, v in times.items())
+        + f"; the unsharded graph kernel {big_ms:.4f} ms (phase 16e)")
+    # the kernels line: one lane chunk's launches at a cut horizon, the
+    # kernel against its plain version on the same card tensors
+    cut = [dict(o, state=o["state"][:, :route.lanes].clone(),
+                hist=o["hist"][:route.lanes].clone(),
+                lp=o["lp"][:, :route.lanes].contiguous(),
+                alive=o["alive"][:, :route.lanes].contiguous(),
+                demand=o["demand"][:HORIZON_24B]) for o in ops]
+    got = [dict(o, state=o["state"].clone(), hist=o["hist"].clone())
+           for o in cut]
+    run_segment(shards, got, con, names, route.lanes)
+    want = [dict(o, state=o["state"].clone(), hist=o["hist"].clone())
+            for o in cut]
+    plain_ms = synced_ms(lambda: run_segment(shards, want, con, names,
+                                             route.lanes, plain=True))[1]
+    sk = torch.cat([o["state"] for o in got], -1)
+    sp = torch.cat([o["state"] for o in want], -1)
+    hk, hp = sum(o["hist"] for o in got), sum(o["hist"] for o in want)
+    max_abs, max_rel = compare_planes(names, sk, sp)
+    n_bins = int((hk != hp).sum())
+    rows_equal = all(torch.equal(sk[names.index(p)], sp[names.index(p)])
+                     for p in ("sidx", "t_done"))
+    log(f"  against its plain version on the card ({route.lanes} lanes, 4 x "
+        f"{N_NODES // 4} nodes, {HORIZON_24B} intervals): max_abs="
+        f"{max_abs:.3e} max_rel={max_rel:.3e} hist_bins_differing={n_bins} "
+        f"rows_and_t_done_equal={rows_equal}")
+    check(rows_equal and max_rel <= 1e-6 and n_bins <= route.lanes,
+          f"24b: the segment route against plain: {max_rel:.3e} relative, "
+          f"{n_bins} bins, rows equal {rows_equal}")
+    # timed runs go on from the state they leave: the same work each
+    before = ks.SHARD_LAUNCHES
+    ms = shards_ms(lambda: run_segment(shards, got, con, names, route.lanes),
+                   shards)
+    ms_full = shards_ms(lambda: run_segment(shards, seg_ops, con, names,
+                                            route.lanes), shards, reps=3)
+    ks.SHARD_LAUNCHES = before             # timing launches are not the path
+    one_shard = rk.sweep_shard_segment(N_NODES // 4, HORIZON_24B,
+                                       route.lanes, cache=True,
+                                       n_stages=rows - 1)
+    bound_ms, bound_by = rk.bound(4 * one_shard.bytes, 4 * one_shard.ops,
+                                  one_shard.peak)
+    chain_ms = one_shard.critical_path_ms
+    log(f"  one lane chunk's 4 launches ({route.lanes} lanes x 4 x "
+        f"{N_NODES // 4} nodes x {HORIZON_24B} intervals): {ms:.4f} ms (CUDA "
+        f"events over the shards' streams after a ~1 ms lead, median of 5); "
+        f"plain {plain_ms:.1f} ms (host clock, synced, one run); bound "
+        f"{bound_ms:.4f} ms by {bound_by}, serial chain {chain_ms:.4f} ms; "
+        f"the whole 64 lanes x {t_all} intervals in {chunks} chunks "
+        f"{ms_full:.4f} ms (median of 3, with the chunks' copies)")
+    return dict(launches=launches, route=route._asdict(), chunks=chunks,
+                launches_2x2=launches22, route_2x2=route22._asdict(),
+                chunks_2x2=chunks22, fields_differing_2x2=bits22,
+                makespan_equal=same, fields_differing=bits,
+                state_equal=state_equal, lanes_finished=finished,
+                interval_route_launches=ex_launches,
+                interval_route_state_equal=ex_equal,
+                times_ms=times, unsharded_kernel_ms=big_ms, ms=ms,
+                ms_full_horizon=ms_full, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                serial_chain_ms=chain_ms, max_abs_err=max_abs,
+                max_rel_err=max_rel, hist_bins_differing=n_bins)
+
+
+def lone_party(deadline_s: float) -> dict:
+    """A node shard's segment launch whose barrier counts two parties,
+    launched alone: it traps at the deadline.  Run in a process of its
+    own (the error leaves the CUDA context unusable)."""
+    spec = get_scenario("limplock").replace(n_nodes=256, n_intervals=100)
+    gains = grid_gains(lam=(0.5, 1.0), r0=(0.9,))
+    ops, con, names, _ = exchange_operands(spec, gains, CUDA, 2)
+    o = ops[0]
+    route = ks.graph_plan(con, 128, CUDA, o["graph"][1].shape[1], shards=2)
+    xbar = torch.zeros((len(gains), 4), dtype=torch.int32, device=CUDA)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        ks._launch_shard(o["state"], torch.empty_like(o["state"]), o["hist"],
+                         o["demand"], o["lp"], o["rows"], o["alive"], t0=0,
+                         con=con, graph=o["graph"], route=route, shards=2,
+                         xbar=xbar, stream=torch.cuda.current_stream(),
+                         deadline_s=deadline_s)
+        torch.cuda.synchronize()
+        error = None
+    except RuntimeError as e:
+        error = str(e).splitlines()[0]
+    return {"error": error, "seconds": time.perf_counter() - t0}
+
+
+def phase24e():
+    """A barrier that cannot complete ends in a CUDA error, not a hang."""
+    log(f"phase 24e: a node shard's segment launch whose barrier waits for "
+        f"a second shard that never comes, in a process of its own, with a "
+        f"deadline of {LONE_PARTY_S} s")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--lone-party", str(LONE_PARTY_S)],
+                          capture_output=True, text=True, timeout=180)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"24e: the process failed: "
+          f"{proc.stderr[-2000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"  {got['error']!r} after {got['seconds']:.2f} s (the process "
+        f"{wall:.1f} s with its start)")
+    check(got["error"] is not None and "CUDA error" in got["error"]
+          and LONE_PARTY_S <= got["seconds"] < LONE_PARTY_S + 10,
+          f"24e: {got}")
+    return dict(got, process_s=wall, deadline_s=LONE_PARTY_S)
 
 
 def phase24c(smi):
@@ -4407,15 +4720,20 @@ def phase24(demand, big_ms, smi):
     b = phase24b(big_ms)
     c = phase24c(smi)
     d = phase24d()
+    e = phase24e()
     seconds = time.perf_counter() - t0
     log(f"phase 24 seconds (host clock): {seconds:.1f}")
-    return dict(sweep=a, graph=b, entry=c, fleet=d, seconds=seconds)
+    return dict(sweep=a, graph=b, entry=c, fleet=d, deadline=e,
+                seconds=seconds)
 
 
 def main() -> None:
     if sys.argv[1:2] == ["--decode-times"]:
         print(json.dumps(fresh_decode_times(json.loads(sys.argv[2]))))
         return
+    if sys.argv[1:2] == ["--lone-party"]:
+        print(json.dumps(lone_party(float(sys.argv[2]))), flush=True)
+        os._exit(0)                    # the CUDA context is unusable now
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -4728,7 +5046,7 @@ def main() -> None:
                                "24a)"] = \
         mesh24["sweep"]["launches"]
     kernel["launches"] = sum(kernel["launches_by_path"].values())
-    entry = mesh24["entry"]
+    entry, b24 = mesh24["entry"], mesh24["graph"]
     interval = {
         "name": "graph_interval (sweep_segment's graph instance, one "
                 "interval a launch)", "route": "cuda",
@@ -4736,21 +5054,58 @@ def main() -> None:
         "replaces": "src/repro/lab/sweep.py:403 (the barrier's pmin across "
                     "node shards; XLA beside "
                     "src/repro/lab/pallas_sweep.py:407)",
-        "launches": mesh24["graph"]["launches"],
-        "launches_by_path": {"spark-dag 4096 x 1800 x 64 over 1 x 4 node "
-                             "shards (phase 24b)":
-                             mesh24["graph"]["launches"]},
+        "launches": b24["interval_route_launches"],
+        "launches_by_path": {"graph_exchange called directly at spark-dag "
+                             "4096 x 1800 x 64 over 4 node shards, counted "
+                             "from 0 just before it (phase 24b): shards on "
+                             "different cards take this route, and on one "
+                             "card no sweep does":
+                             b24["interval_route_launches"]},
         "max_abs_err": entry["max_abs_err"],
         **{k: entry[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
         "shape": f"one launch: a shard of {N_NODES // 4} nodes x 64 lanes, "
                  f"spark-dag cache-on, stepping and promoting",
-        "route_ms": mesh24["graph"]["route_ms"],
-        "unsharded_kernel_ms": mesh24["graph"]["unsharded_kernel_ms"],
+        "route_ms": statistics.median(
+            b24["times_ms"]["interval route (ops)"]),
+        "unsharded_kernel_ms": b24["unsharded_kernel_ms"],
         "parity": {k: v for k, v in entry.items()
                    if isinstance(v, dict)}}
+    segment = {
+        "name": "graph_segment_shards (sweep_segment's graph instance over "
+                "node shards of one card, a segment a launch each, meeting "
+                "at a barrier in device memory)", "route": "cuda",
+        "source": "src/repro_torch/csrc/sweep.cu",
+        "replaces": "src/repro/lab/sweep.py:403 and :410 (the barrier's "
+                    "pmin across node shards; XLA beside "
+                    "src/repro/lab/pallas_sweep.py:407)",
+        "launches": b24["launches"] + b24["launches_2x2"],
+        "launches_by_path": {"sweep_demand, spark-dag 4096 x 1800 x 64 over "
+                             "1 x 4 node shards of one card (phase 24b)":
+                             b24["launches"],
+                             "the same over 2 x 2 of one card (phase 24b)":
+                             b24["launches_2x2"]},
+        "max_abs_err": b24["max_abs_err"],
+        **{k: b24[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "shape": f"one lane chunk: {b24['route']['lanes']} lanes x 4 shards "
+                 f"of {N_NODES // 4} nodes x {HORIZON_24B} intervals, "
+                 f"spark-dag cache-on",
+        **{k: b24[k] for k in ("ms_full_horizon", "serial_chain_ms",
+                               "max_rel_err", "hist_bins_differing",
+                               "chunks")},
+        "launch_shape": b24["route"],
+        "route_ms": {k: statistics.median(v)
+                     for k, v in b24["times_ms"].items()},
+        "deadline": mesh24["deadline"]}
     log("multi-device sweeps on the card: "
         + json.dumps(mesh24, default=str))
+    line = [kernel, interval, segment, decode, flash, scan]
+    for entry in line:
+        missing = sorted(KERNEL_LINE_KEYS - set(entry))
+        check(not missing and entry["route"] in ("cuda", "triton"),
+              f"the kernels line's {entry['name']}: keys missing {missing}, "
+              f"route {entry['route']!r}")
     ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter()]
     log("seconds by phase (host clock): " + ", ".join(
         f"{name} {end - start:.1f}"
@@ -4758,8 +5113,7 @@ def main() -> None:
     log(f"script total (host clock, from its start): "
         f"{time.perf_counter() - T_START:.1f} s")
     print(smi)
-    print(json.dumps({"kernels": [kernel, interval, decode, flash, scan]},
-                     default=float))
+    print(json.dumps({"kernels": line}, default=float))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

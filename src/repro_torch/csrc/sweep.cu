@@ -24,6 +24,8 @@
 //   work    (S+1, N)   float32 GiB of each stage row on each node
 //   stage   (2, S+1)   float32 rows: held demand (bytes), barrier flag
 //   ws      (L, 4)     int32, zeroed: the per-lane barrier's workspace
+//   xbar    (L, 4)     int32, zeroed: the node shards' per-lane barrier,
+//                      one for every shard's launch of these lanes
 //
 // Bound: the kernel moves little -- the demand rows (shared by every
 // lane, so read from L2 after the first lane), the state once in and
@@ -122,9 +124,31 @@
 // (folded slopes, one rounding per segment: hpl_slowdown_fused); with
 // it, the CacheLoop's dt_app.  The carry adds ~20 operations an update.
 //
+// Node shards on one card (graph_kernel with shards > 1, replacing for
+// them the per-interval pmin across node shards the reference runs as
+// XLA beside the kernel: repro/lab/sweep.py:403 fleet_lvl and :410
+// done_all): each shard runs the whole segment in one launch on its own
+// stream, state in registers as above, and once its lane min is known
+// (any route) meets the other shards' launches at a per-lane barrier in
+// device memory, the same protocol as the grid route's (`barrier_min`)
+// with the shards as its parties.  The meet is the template flag SHARDED:
+// a launch that holds its whole lane takes the instance without it, so
+// its code has no branch of the shards' (48 graph instances in all).
+// What bounds it is the serial chain of
+// intervals plus one meet in device memory an interval (an atomic round
+// trip through L2 and the spin's acquire loads); the design keeps the
+// state out of device memory for the whole segment and leaves only an
+// integer min between the shards, one thread of the lane's leader block
+// a shard, so a segment is one launch a shard instead of T + 2.  Every
+// party must be resident at once: the planner caps the lanes of a launch
+// by the card's room for all the shards' blocks, and a party that waits
+// past the wrapper's deadline (%globaltimer) traps, so a meet that cannot
+// complete is a CUDA error, never a hang.  Integer mins commute, so any
+// arrival order gives one device's bits.
+//
 // The one-interval graph entry (dynims_sweep_graph_interval): when a
-// lane's nodes are split over shards (devices, or streams of one card),
-// the lane min has to leave the launch.  Each launch then runs one
+// lane's nodes are split over shards on different cards, the lane min
+// has to leave the launch.  Each launch then runs one
 // interval with the loop body rotated: it first finishes the previous
 // interval with the fleet min the caller folded over the shards (the
 // t_done test and the promotion, mode bit kPromote, reading `fleet_in`),
@@ -404,8 +428,9 @@ __global__ void __launch_bounds__(kThreads) sweep_kernel(
     int* __restrict__ hist, int T, int L, int N, int t0, SweepConsts c,
     const float* __restrict__ work, const float* __restrict__ stage,
     int* __restrict__ ws, int S, float comp_itv) {
-  // work, stage, ws, S and comp_itv are graph_kernel's operands, unused
-  // here: both kernels take one parameter list (SweepFn).
+  // work, stage, ws, S and comp_itv are unused here: the parameter list
+  // graph_kernel took before its shard barrier, kept so this kernel's
+  // code stays as it was.
   constexpr int J = nodes_per_thread(HAS_CACHE);
   __shared__ int bins[kBins + 1];
   const int l = blockIdx.y;
@@ -538,6 +563,12 @@ __device__ __forceinline__ int ld_acquire(const int* p) {
   return v;
 }
 
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
 // The min of v over every block of the lane, by thread 0 of each: the
 // lane's barrier episode e.  bar[0] counts arrivals, bar[1] the episodes
 // completed, bar[2 + e % 2] holds kBig - min (zero: no value yet).  The
@@ -554,6 +585,34 @@ __device__ int grid_lane_min(int* bar, int v, int e) {
     atomicAdd(bar + 1, 1);
   } else {
     while (ld_acquire(bar + 1) <= e) {
+    }
+  }
+  return kBig - atomicAdd(slot, 0);
+}
+
+// The same protocol over `parties` arrivals from the launches of a
+// lane's node shards (see the header): one thread of each shard's
+// launch, or on the grid route every block of every shard.  bar[0] counts arrivals, bar[1] the
+// episodes completed, bar[2 + e % 2] holds kBig - min (zero: no value
+// yet).  The last party to arrive clears the other parity's slot (every
+// party read it in episode e - 1 before arriving here) and releases the
+// others.  A party that waits past `deadline_ns` traps: a meet that
+// cannot complete is a CUDA error at the next sync, never a hang.
+__device__ int barrier_min(int* bar, int v, int e, int parties,
+                           long long deadline_ns) {
+  int* slot = bar + 2 + (e & 1);
+  atomicMax(slot, kBig - v);
+  __threadfence();
+  if (atomicAdd(bar, 1) == parties - 1) {
+    atomicExch(bar, 0);
+    atomicExch(bar + 2 + ((e + 1) & 1), 0);
+    __threadfence();
+    atomicAdd(bar + 1, 1);
+  } else {
+    // the clock is read every 64th spin, off the release's path
+    const long long start = global_ns();
+    for (unsigned spins = 1; ld_acquire(bar + 1) <= e; ++spins) {
+      if ((spins & 63u) == 0 && global_ns() - start > deadline_ns) __trap();
     }
   }
   return kBig - atomicAdd(slot, 0);
@@ -590,17 +649,25 @@ __device__ __forceinline__ int ld_cluster(unsigned addr) {
 }
 
 // Where a lane's mins meet: the route, the block's min of each episode
-// in one of three shared slots (episode e in slot e % 3), the grid
-// route's result (fleet) and barrier (bar), and on the cluster route the
-// shared::cluster address of slot 0 in the block this thread's lane of
-// the warp reads (lane < n_blocks).
+// in one of three shared slots (episode e in slot e % 3), two result
+// slots by parity (the grid route's, and the shard meet's on the block
+// and cluster routes), the barrier in device memory and its parties (the
+// grid route: ws, or xbar with every shard's blocks), on the cluster
+// route the shared::cluster address of slot 0 in the block this thread's
+// lane of the warp reads (lane < n_blocks) and of the leader block's
+// result slots, and the shard barrier (xbar, `shards` parties; 1: none).
 struct Meet {
   int route;
   int n_blocks;
   int* slot;
   int* fleet;
   int* bar;
+  int parties;
   unsigned src;
+  unsigned lead;
+  int* xbar;
+  int shards;
+  long long deadline_ns;
 };
 
 // The min of v over the lane's nodes, episode e, by every thread of the
@@ -611,13 +678,26 @@ struct Meet {
 // thread 0 refills the slot of episode e - 1, which every thread read
 // before arriving at this barrier and none writes before the next.  On
 // the grid route thread 0 of each block meets the others at the barrier
-// in device memory.  between() runs while the blocks meet.
-template <typename F>
+// in device memory.  between() runs while the blocks meet.  With node
+// shards the shard's lane min then meets the other shards': one thread
+// of the lane's leader block enters the shard barrier and hands the
+// result on (a shuffle in the warp, shared memory in the block, and on
+// the cluster route a second cluster barrier, after which every block
+// reads the leader's slot over distributed shared memory); on the grid
+// route every block of every shard is a party of the one barrier.
+template <bool SHARDED, typename F>
 __device__ __forceinline__ int lane_min(int v, int e, const Meet& m,
                                         F&& between) {
   v = __reduce_min_sync(0xffffffffu, v);
   if (m.route == kMeetWarp) {
     between();
+    if (SHARDED) {
+      int x = 0;
+      if (threadIdx.x == 0) {
+        x = barrier_min(m.xbar, v, e, m.shards, m.deadline_ns);
+      }
+      v = __shfl_sync(0xffffffffu, x, 0);
+    }
     return v;
   }
   const int s = e % 3;
@@ -629,17 +709,40 @@ __device__ __forceinline__ int lane_min(int v, int e, const Meet& m,
     if (threadIdx.x == 0) m.slot[(s + 2) % 3] = INT_MAX;
     const int lane = threadIdx.x & 31;
     const int x = lane < m.n_blocks ? ld_cluster(m.src + s * 4u) : INT_MAX;
-    return __reduce_min_sync(0xffffffffu, x);
+    v = __reduce_min_sync(0xffffffffu, x);
+    if (SHARDED) {
+      // the leader's result slot e % 2 is written again at episode e + 2,
+      // after every block has passed episode e + 1's first barrier
+      if (threadIdx.x == 0 && blockIdx.x == 0) {
+        m.fleet[e & 1] = barrier_min(m.xbar, v, e, m.shards, m.deadline_ns);
+      }
+      __syncwarp();
+      cluster_arrive();
+      cluster_wait();
+      v = ld_cluster(m.lead + (e & 1) * 4u);
+    }
+    return v;
   }
   between();
   __syncthreads();
   if (m.route == kMeetBlock) {
-    const int x = m.slot[s];
-    if (threadIdx.x == 0) m.slot[(s + 2) % 3] = INT_MAX;
+    int x = m.slot[s];
+    if (threadIdx.x == 0) {
+      m.slot[(s + 2) % 3] = INT_MAX;
+      if (SHARDED) {
+        m.fleet[e & 1] = barrier_min(m.xbar, x, e, m.shards, m.deadline_ns);
+      }
+    }
+    if (SHARDED) {
+      __syncthreads();
+      x = m.fleet[e & 1];
+    }
     return x;
   }
   if (threadIdx.x == 0) {
-    m.fleet[e & 1] = grid_lane_min(m.bar, m.slot[s], e);
+    m.fleet[e & 1] = SHARDED ? barrier_min(m.bar, m.slot[s], e, m.parties,
+                                           m.deadline_ns)
+                             : grid_lane_min(m.bar, m.slot[s], e);
     m.slot[(s + 2) % 3] = INT_MAX;
   }
   __syncthreads();
@@ -652,16 +755,20 @@ __device__ __forceinline__ int lane_min(int v, int e, const Meet& m,
 // (a multiple of 32, at most kGraphThreads); the route follows from the
 // launch: one block of one warp; one block; one cluster holding every
 // block of the lane; or several blocks in clusters of one, which meet at
-// the grid barrier on `ws`.  Dynamic shared memory holds the (2, S+1)
-// stage rows.
-template <bool PAPER_LAW, bool UNIT_OCC, bool HAS_CACHE, bool BF16, int J>
+// the grid barrier on `ws`.  With `shards` > 1 the lane's nodes are
+// split over that many launches, which meet every episode at the lane's
+// barrier in `xbar` ((L, 4) int32, zeroed, shared by every shard's
+// launch).  Dynamic shared memory holds the (2, S+1) stage rows.
+template <bool PAPER_LAW, bool UNIT_OCC, bool HAS_CACHE, bool BF16, int J,
+          bool SHARDED>
 __global__ void __launch_bounds__(kGraphThreads, 1) graph_kernel(
     const void* __restrict__ demand, const float* __restrict__ lp,
     const float* __restrict__ np_rows, const float* __restrict__ alive,
     const float* __restrict__ state_in, float* __restrict__ state_out,
     int* __restrict__ hist, int T, int L, int N, int t0, SweepConsts c,
     const float* __restrict__ work, const float* __restrict__ stage,
-    int* __restrict__ ws, int S, float comp_itv) {
+    int* __restrict__ ws, int S, float comp_itv, int shards,
+    int* __restrict__ xbar, long long deadline_ns) {
   __shared__ int bins[kBins + 1];
   __shared__ int slot[3];
   __shared__ int fleet_sh[2];
@@ -698,17 +805,27 @@ __global__ void __launch_bounds__(kGraphThreads, 1) graph_kernel(
   Meet m;
   m.slot = slot;
   m.fleet = fleet_sh;
-  m.bar = ws + 4 * l;
   m.n_blocks = static_cast<int>(gridDim.x);
+  m.bar = ws + 4 * l;
+  m.parties = m.n_blocks;
   m.src = 0u;
+  m.lead = 0u;
+  m.shards = shards;
+  m.xbar = SHARDED ? xbar + 4 * l : nullptr;
+  m.deadline_ns = deadline_ns;
   if (m.n_blocks == 1) {
     m.route = threads == 32 ? kMeetWarp : kMeetBlock;
   } else if (m.n_blocks > static_cast<int>(cluster_blocks())) {
     m.route = kMeetGrid;
+    if (SHARDED) {  // every block of every shard meets at one barrier
+      m.bar = m.xbar;
+      m.parties = m.n_blocks * shards;
+    }
   } else {
     m.route = kMeetCluster;
     const int lane = threadIdx.x & 31;
     if (lane < m.n_blocks) m.src = cluster_addr(slot, lane);
+    if (SHARDED) m.lead = cluster_addr(fleet_sh, 0);
   }
 
   Lane p;
@@ -777,7 +894,7 @@ __global__ void __launch_bounds__(kGraphThreads, 1) graph_kernel(
         // a free row promotes once its own work is drained, while the
         // lane's blocks meet; a barrier row when the min says every node
         // finished it
-        const int fleet = lane_min(lvl, k, m, [&] {
+        const int fleet = lane_min<SHARDED>(lvl, k, m, [&] {
 #pragma unroll
           for (int j = 0; j < J; ++j) {
             Loop& s = loop[j];
@@ -807,7 +924,7 @@ __global__ void __launch_bounds__(kGraphThreads, 1) graph_kernel(
   int rows_done = S;
 #pragma unroll
   for (int j = 0; j < J; ++j) rows_done = min(rows_done, loop[j].sidx);
-  const int fleet = lane_min(rows_done, T, m, [] {});
+  const int fleet = lane_min<SHARDED>(rows_done, T, m, [] {});
 #pragma unroll
   for (int j = 0; j < J; ++j) {
     if (fleet >= S && loop[j].t_done < 0.0f) {
@@ -995,6 +1112,10 @@ using SweepFn = void (*)(const void*, const float*, const float*,
                          const float*, const float*, float*, int*, int, int,
                          int, int, SweepConsts, const float*, const float*,
                          int*, int, float);
+using GraphFn = void (*)(const void*, const float*, const float*,
+                         const float*, const float*, float*, int*, int, int,
+                         int, int, SweepConsts, const float*, const float*,
+                         int*, int, float, int, int*, long long);
 
 template <bool PAPER_LAW, bool UNIT_OCC, bool HAS_CACHE>
 SweepFn pick_instance(bool bf16) {
@@ -1002,41 +1123,36 @@ SweepFn pick_instance(bool bf16) {
               : sweep_kernel<PAPER_LAW, UNIT_OCC, HAS_CACHE, false>;
 }
 
-// The graph instance of J loops a thread: 1 or wide_loops(HAS_CACHE);
-// null for any other J.
+template <bool PAPER_LAW, bool UNIT_OCC, bool HAS_CACHE, int J>
+GraphFn pick_graph_loops(bool bf16, bool sharded) {
+  if (sharded) {
+    return bf16 ? graph_kernel<PAPER_LAW, UNIT_OCC, HAS_CACHE, true, J, true>
+                : graph_kernel<PAPER_LAW, UNIT_OCC, HAS_CACHE, false, J, true>;
+  }
+  return bf16 ? graph_kernel<PAPER_LAW, UNIT_OCC, HAS_CACHE, true, J, false>
+              : graph_kernel<PAPER_LAW, UNIT_OCC, HAS_CACHE, false, J, false>;
+}
+
+// The graph instance of J loops a thread: 1 or wide_loops(HAS_CACHE),
+// with the node shards' meet or without; null for any other J.
 template <bool PAPER_LAW, bool UNIT_OCC, bool HAS_CACHE>
-SweepFn pick_graph_instance(bool bf16, int j) {
+GraphFn pick_graph_instance(bool bf16, int j, bool sharded) {
   constexpr int kWide = wide_loops(HAS_CACHE);
   if (j == 1) {
-    return bf16 ? graph_kernel<PAPER_LAW, UNIT_OCC, HAS_CACHE, true, 1>
-                : graph_kernel<PAPER_LAW, UNIT_OCC, HAS_CACHE, false, 1>;
+    return pick_graph_loops<PAPER_LAW, UNIT_OCC, HAS_CACHE, 1>(bf16, sharded);
   }
   if (j == kWide) {
-    return bf16 ? graph_kernel<PAPER_LAW, UNIT_OCC, HAS_CACHE, true, kWide>
-                : graph_kernel<PAPER_LAW, UNIT_OCC, HAS_CACHE, false, kWide>;
+    return pick_graph_loops<PAPER_LAW, UNIT_OCC, HAS_CACHE, kWide>(bf16,
+                                                                   sharded);
   }
   return nullptr;
 }
 
-// The template instance for one specialization: the graph-free kernel
-// when j is 0, else the graph instance of j loops a thread.  A cache
+// The graph-free template instance for one specialization.  A cache
 // segment always runs with unit occupancy (the resident set replaces the
 // occupancy model).
-SweepFn pick(int paper_law, int unit_occupancy, int has_cache, int bf16,
-             int j) {
+SweepFn pick(int paper_law, int unit_occupancy, int has_cache, int bf16) {
   const bool b = bf16 != 0;
-  if (j > 0) {
-    if (has_cache) {
-      return paper_law ? pick_graph_instance<true, true, true>(b, j)
-                       : pick_graph_instance<false, true, true>(b, j);
-    }
-    if (paper_law) {
-      return unit_occupancy ? pick_graph_instance<true, true, false>(b, j)
-                            : pick_graph_instance<true, false, false>(b, j);
-    }
-    return unit_occupancy ? pick_graph_instance<false, true, false>(b, j)
-                          : pick_graph_instance<false, false, false>(b, j);
-  }
   if (has_cache) {
     return paper_law ? pick_instance<true, true, true>(b)
                      : pick_instance<false, true, true>(b);
@@ -1049,12 +1165,30 @@ SweepFn pick(int paper_law, int unit_occupancy, int has_cache, int bf16,
                         : pick_instance<false, false, false>(b);
 }
 
+// The graph instance of j loops a thread for one specialization, with
+// the node shards' meet when `sharded`.
+GraphFn pick_graph(int paper_law, int unit_occupancy, int has_cache,
+                   int bf16, int j, int sharded) {
+  const bool b = bf16 != 0;
+  const bool x = sharded != 0;
+  if (has_cache) {
+    return paper_law ? pick_graph_instance<true, true, true>(b, j, x)
+                     : pick_graph_instance<false, true, true>(b, j, x);
+  }
+  if (paper_law) {
+    return unit_occupancy ? pick_graph_instance<true, true, false>(b, j, x)
+                          : pick_graph_instance<true, false, false>(b, j, x);
+  }
+  return unit_occupancy ? pick_graph_instance<false, true, false>(b, j, x)
+                        : pick_graph_instance<false, false, false>(b, j, x);
+}
+
 // Dynamic shared memory of a graph launch over S + 1 stage rows; past the
 // default 48 KB a block may take only after the kernel is allowed it.
-cudaError_t graph_smem(SweepFn fn, int rows, size_t* bytes) {
+cudaError_t graph_smem(const void* fn, int rows, size_t* bytes) {
   *bytes = 2 * static_cast<size_t>(rows) * sizeof(float);
   if (*bytes <= 16 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(reinterpret_cast<const void*>(fn),
+  return cudaFuncSetAttribute(fn,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(*bytes));
 }
@@ -1064,8 +1198,9 @@ struct ClusterLaunch {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
 
-  ClusterLaunch(SweepFn fn, dim3 grid, int threads, size_t smem, int cluster,
-                cudaStream_t stream, cudaError_t* err) : cfg(), attr() {
+  ClusterLaunch(const void* fn, dim3 grid, int threads, size_t smem,
+                int cluster, cudaStream_t stream, cudaError_t* err)
+      : cfg(), attr() {
     cfg.gridDim = grid;
     cfg.blockDim = dim3(threads);
     cfg.dynamicSmemBytes = smem;
@@ -1080,8 +1215,7 @@ struct ClusterLaunch {
       cfg.numAttrs = 1;
       if (cluster > 8) {
         *err = cudaFuncSetAttribute(
-            reinterpret_cast<const void*>(fn),
-            cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+            fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
       }
     }
   }
@@ -1101,7 +1235,7 @@ extern "C" int dynims_sweep_segment(int paper_law, int unit_occupancy,
   if (T <= 0 || L <= 0 || N <= 0) return 0;
   const int block_nodes = kThreads * nodes_per_thread(has_cache != 0);
   const dim3 grid((N + block_nodes - 1) / block_nodes, L);
-  const SweepFn fn = pick(paper_law, unit_occupancy, has_cache, bf16, 0);
+  const SweepFn fn = pick(paper_law, unit_occupancy, has_cache, bf16);
   fn<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       demand, lp, np_rows, alive, state_in, state_out, hist, T, L, N, t0,
       *consts, nullptr, nullptr, nullptr, 0, 0.0f);
@@ -1115,6 +1249,12 @@ extern "C" int dynims_sweep_segment(int paper_law, int unit_occupancy,
 // those blocks (one block or one cluster a lane) or `cooperative` with
 // clusters of one, the lanes' blocks meeting at the zeroed (L, 4) int32
 // barrier workspace `ws`.  `work` is (S+1, N) and `stage` (2, S+1).
+// With `shards` > 1 this launch is one of that many node shards of the
+// same lanes, launched at once on one card, which meet every interval at
+// the zeroed (L, 4) int32 barrier `xbar` they share; the planner has
+// capped the lanes so that every shard's blocks are resident together,
+// so the grid route launches without the cooperative API (which knows of
+// one launch only; `ws` unused).  A wait past `deadline_ns` traps.
 // Returns the launch's CUDA error (0 on success): a shape this entry
 // does not take is cudaErrorInvalidValue, and a cluster or cooperative
 // grid the card cannot hold resident is refused by the runtime (an
@@ -1125,11 +1265,13 @@ extern "C" int dynims_graph_segment(
     const float* lp, const float* np_rows, const float* alive,
     const float* state_in, float* state_out, int* hist, const float* work,
     const float* stage, int* ws, int T, int L, int N, int t0, int S,
-    float comp_itv, const SweepConsts* consts, void* stream) {
+    float comp_itv, const SweepConsts* consts, int shards, int* xbar,
+    long long deadline_ns, void* stream) {
   if (T <= 0 || L <= 0 || N <= 0) return 0;
-  const SweepFn fn = pick(paper_law, unit_occupancy, has_cache, bf16, j);
+  const GraphFn fn = pick_graph(paper_law, unit_occupancy, has_cache, bf16,
+                                j, shards > 1);
   if (fn == nullptr || threads < 32 || threads > kGraphThreads ||
-      threads % 32 != 0) {
+      threads % 32 != 0 || shards < 1 || (shards > 1 && xbar == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int blocks = (N + j * threads - 1) / (j * threads);
@@ -1138,23 +1280,25 @@ extern "C" int dynims_graph_segment(
                             : cluster == blocks && cluster <= kMaxCluster;
   if (!shape_ok) return static_cast<int>(cudaErrorInvalidValue);
   size_t smem = 0;
-  cudaError_t err = graph_smem(fn, S + 1, &smem);
+  const void* f = reinterpret_cast<const void*>(fn);
+  cudaError_t err = graph_smem(f, S + 1, &smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(blocks, L);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   SweepConsts c = *consts;
-  if (cooperative) {
-    void* args[] = {&demand, &lp,   &np_rows, &alive, &state_in, &state_out,
-                    &hist,   &T,    &L,       &N,     &t0,       &c,
-                    &work,   &stage, &ws,     &S,     &comp_itv};
-    err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fn),
-                                      grid, dim3(threads), args, smem, s);
+  if (cooperative && shards == 1) {
+    void* args[] = {&demand, &lp,    &np_rows,  &alive, &state_in,
+                    &state_out, &hist, &T,      &L,     &N,
+                    &t0,     &c,     &work,     &stage, &ws,
+                    &S,      &comp_itv, &shards, &xbar, &deadline_ns};
+    err = cudaLaunchCooperativeKernel(f, grid, dim3(threads), args, smem, s);
   } else {
-    ClusterLaunch launch(fn, grid, threads, smem, cluster, s, &err);
+    ClusterLaunch launch(f, grid, threads, smem, cluster, s, &err);
     if (err == cudaSuccess) {
       err = cudaLaunchKernelEx(&launch.cfg, fn, demand, lp, np_rows, alive,
                                state_in, state_out, hist, T, L, N, t0, c,
-                               work, stage, ws, S, comp_itv);
+                               work, stage, ws, S, comp_itv, shards, xbar,
+                               deadline_ns);
     }
   }
   const cudaError_t last = cudaGetLastError();
@@ -1183,17 +1327,22 @@ extern "C" int dynims_sweep_graph_interval(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Of one template instance (j as in pick: 0 for the graph-free kernel),
-// into out[0..4]: registers a thread, static shared bytes a block,
-// resident blocks an SM at `threads` a block and the dynamic shared
-// memory of `rows` stage rows, the most clusters of `cluster` blocks the
-// card holds at once (0 when cluster < 2), and local (spilled) bytes a
-// thread.  Returns the CUDA error (0 on success).
+// Of one template instance (j: 0 for the graph-free kernel, else the
+// graph instance of j loops a thread, with the node shards' meet when
+// `sharded`), into out[0..4]: registers a thread, static shared bytes a
+// block, resident blocks an SM at `threads` a block and the dynamic
+// shared memory of `rows` stage rows, the most clusters of `cluster`
+// blocks the card holds at once (0 when cluster < 2), and local
+// (spilled) bytes a thread.  Returns the CUDA error (0 on success).
 extern "C" int dynims_sweep_resources(int paper_law, int unit_occupancy,
                                       int has_cache, int bf16, int j,
                                       int threads, int cluster, int rows,
-                                      int* out) {
-  const SweepFn fn = pick(paper_law, unit_occupancy, has_cache, bf16, j);
+                                      int sharded, int* out) {
+  const void* fn =
+      j > 0 ? reinterpret_cast<const void*>(pick_graph(
+                  paper_law, unit_occupancy, has_cache, bf16, j, sharded))
+            : reinterpret_cast<const void*>(
+                  pick(paper_law, unit_occupancy, has_cache, bf16));
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
@@ -1213,6 +1362,6 @@ extern "C" int dynims_sweep_resources(int paper_law, int unit_occupancy,
   ClusterLaunch launch(fn, dim3(cluster, 1), threads, smem, cluster,
                        nullptr, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaOccupancyMaxActiveClusters(
-      &out[3], reinterpret_cast<const void*>(fn), &launch.cfg));
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(&out[3], fn, &launch.cfg));
 }

@@ -21,8 +21,11 @@ are accumulators, handed in and returned anew, never updated in place.
   :func:`~repro_torch.lab.score.hist_add`.
 * :data:`LAUNCHES` counts kernel launches, and only those.
 * :func:`graph_interval` is the graph instance one interval a launch,
-  for a lane whose nodes are split over shards (below);
-  :data:`INTERVAL_LAUNCHES` counts its launches.
+  for a lane whose nodes are split over shards on different cards
+  (below); :data:`INTERVAL_LAUNCHES` counts its launches.
+* :func:`graph_segment_shards` runs node shards that share one card, a
+  whole segment a launch each, meeting at a barrier in device memory;
+  :data:`SHARD_LAUNCHES` counts its launches.
 
 **AppGraph.**  With a scenario's stage DAG (``graph=``: the ``(S+1, N)``
 work matrix and the ``(2, S+1)`` stage-demand and barrier rows of
@@ -42,7 +45,12 @@ cluster (Hopper's hardware cluster barrier and distributed shared
 memory) or, past the largest cluster, a per-lane barrier between blocks
 in device memory (a cooperative launch, the lanes a launch capped by
 co-residency).  When the lane's nodes are
-split over shards the min leaves the launch: :func:`graph_interval`
+split over node shards that share a card, each shard's launch runs the
+whole segment and, once it has its lane min, meets the other shards'
+launches at a per-lane barrier in device memory
+(:func:`graph_segment_shards`; every shard's blocks resident at once,
+the lanes a launch capped by :func:`graph_route` with ``shards``).  On
+different cards the min leaves the launch: :func:`graph_interval`
 runs one interval a launch with the loop body rotated (promote with the
 previous interval's fleet min, then step up to the progress code and
 write this shard's lane min), and the caller folds the shards' mins
@@ -651,8 +659,9 @@ def _spread(n_nodes: int, loops: int, cap: int) -> Tuple[int, int]:
     return blocks, 32 * -(-n_nodes // (32 * loops * blocks))
 
 
-def graph_route(n_nodes: int, has_cache: bool,
-                limits: GraphLimits) -> GraphRoute:
+def graph_route(n_nodes: int, has_cache: bool, limits: GraphLimits,
+                shards: int = 1, on_card: Optional[int] = None
+                ) -> GraphRoute:
     """The launch shape of a lane of ``n_nodes``, from its shape and the
     card's limits alone.
 
@@ -669,51 +678,61 @@ def graph_route(n_nodes: int, has_cache: bool,
     the lane's blocks meet at a barrier in device memory, which needs
     every block of the launch resident: at most ``blocks_per_sm * n_sms``
     blocks a launch, and raises when not even one lane fits.
+
+    ``shards`` > 1: ``n_nodes`` is one node shard's part of the lane,
+    and that many launches of the same shape share the card and meet at
+    a barrier in device memory every interval, so every route needs all
+    of them resident at once: the lanes a launch are capped on every
+    route (the card's room over the shards), and a lane whose shards do
+    not fit the card together raises.  ``on_card`` (default ``shards``)
+    counts every such launch that runs on the card at once: the node
+    shards of every gain shard that shares it, each row's launches
+    issued without waiting for the other rows'.
     """
     if n_nodes < 1:
         raise ValueError(f"a lane needs a node; got {n_nodes}")
+    if shards < 1:
+        raise ValueError(f"shards must be >= 1; got {shards}")
+    share = shards if on_card is None or shards == 1 else on_card
+    if share < shards:
+        raise ValueError(f"on_card ({on_card}) counts the launches on the "
+                         f"card, at least the {shards} shards")
     loops = 1 if n_nodes <= 32 else WIDE_LOOPS[has_cache]
-    if n_nodes <= 32 * loops:
-        return GraphRoute(loops, 32, 1, 1, False, None)
-    best, most = None, 0
-    for cap in GRAPH_BLOCKS:
-        blocks, threads = _spread(n_nodes, loops, cap)
+    shapes = [(1, 32)] if n_nodes <= 32 * loops else [
+        _spread(n_nodes, loops, cap) for cap in GRAPH_BLOCKS]
+    best, most, held = None, 0, 0
+    for blocks, threads in shapes:
         if blocks > limits.max_cluster:
             continue
+        if shards == 1 and threads == 32:
+            return GraphRoute(loops, 32, 1, 1, False, None)
         resident = (limits.blocks_per_sm(threads) * limits.n_sms
                     if blocks == 1 else limits.clusters(threads, blocks))
-        if resident > most:
-            best = GraphRoute(loops, threads, blocks, blocks, False, None)
-            most = resident
+        held = max(held, resident)
+        if resident // share > most:
+            best = GraphRoute(loops, threads, blocks, blocks, False,
+                              None if shards == 1 else resident // share)
+            most = resident // share
     if best is not None:
         return best
+    if held:
+        beside = "" if share == shards else f" beside {share - shards} more"
+        raise ValueError(f"an AppGraph lane of {n_nodes} nodes a shard "
+                         f"needs its {shards} shards co-resident{beside}; "
+                         f"the card holds {held} lane shards at once")
     blocks, threads = _spread(n_nodes, loops, GRAPH_THREADS)
     if blocks <= limits.max_cluster:
         raise ValueError(f"the card holds no cluster of an AppGraph lane "
                          f"of {n_nodes} nodes")
-    lanes = limits.blocks_per_sm(threads) * limits.n_sms // blocks
-    if lanes < 1:
+    held = limits.blocks_per_sm(threads) * limits.n_sms
+    n_lanes = held // (blocks * share)
+    if n_lanes < 1:
+        each = "" if share == 1 else f" ({blocks} a shard x {share})"
         raise ValueError(f"an AppGraph lane of {n_nodes} nodes needs "
-                         f"{blocks} co-resident blocks; the card holds "
-                         f"{limits.blocks_per_sm(threads)} x "
+                         f"{blocks * share} co-resident blocks{each}; the "
+                         f"card holds {limits.blocks_per_sm(threads)} x "
                          f"{limits.n_sms}")
-    return GraphRoute(loops, threads, blocks, 1, True, lanes)
-
-
-def block_nodes(has_cache: bool) -> int:
-    """Nodes one block of the graph instance holds at most."""
-    return GRAPH_THREADS * WIDE_LOOPS[has_cache]
-
-
-def coresident_lanes(n_nodes: int, has_cache: bool, blocks_per_sm: int,
-                     n_sms: int, max_cluster: int = PORTABLE_CLUSTER
-                     ) -> Optional[int]:
-    """Most lanes one AppGraph launch may hold, or None for no limit:
-    :func:`graph_route`'s ``lanes`` on a card of ``n_sms`` SMs that
-    holds ``blocks_per_sm`` blocks of any size an SM."""
-    limits = GraphLimits(max_cluster, n_sms, lambda threads: blocks_per_sm,
-                         lambda threads, blocks: 1)
-    return graph_route(n_nodes, has_cache, limits).lanes
+    return GraphRoute(loops, threads, blocks, 1, True, n_lanes)
 
 
 class Resources(NamedTuple):
@@ -729,20 +748,23 @@ class Resources(NamedTuple):
 def instance_resources(paper_law: bool, unit_occupancy: bool,
                        has_cache: bool, bf16: bool, loops: int = 0,
                        threads: int = KERNEL_THREADS, cluster: int = 1,
-                       rows: int = 0, lib=None) -> Resources:
+                       rows: int = 0, sharded: bool = False,
+                       lib=None) -> Resources:
     """:class:`Resources` of the graph-free kernel (``loops`` 0) or of
-    the graph instance of ``loops`` a thread, at ``threads`` a block,
-    clusters of ``cluster`` blocks and ``rows`` stage rows in its
-    dynamic shared memory."""
+    the graph instance of ``loops`` a thread (``sharded``: the one with
+    the node shards' meet), at ``threads`` a block, clusters of
+    ``cluster`` blocks and ``rows`` stage rows in its dynamic shared
+    memory."""
     if lib is None:
         from ._build import load_library
         lib = load_library().lib
     fn = lib.dynims_sweep_resources
-    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 5)()
     rc = fn(int(paper_law), int(unit_occupancy), int(has_cache), int(bf16),
-            loops, threads, cluster, rows, ctypes.addressof(out))
+            loops, threads, cluster, rows, int(sharded),
+            ctypes.addressof(out))
     if rc != 0:
         raise RuntimeError(f"the sweep instance's resources: CUDA error "
                            f"{rc}")
@@ -751,24 +773,26 @@ def instance_resources(paper_law: bool, unit_occupancy: bool,
 
 @functools.lru_cache(maxsize=None)
 def _card_resources(paper_law: bool, unit_occupancy: bool, has_cache: bool,
-                    bf16: bool, rows: int, index: int, threads: int,
-                    cluster: int) -> Resources:
+                    bf16: bool, rows: int, sharded: bool, index: int,
+                    threads: int, cluster: int) -> Resources:
     with torch.cuda.device(index):
         return instance_resources(paper_law, unit_occupancy, has_cache,
                                   bf16, WIDE_LOOPS[has_cache], threads,
-                                  cluster, rows)
+                                  cluster, rows, sharded)
 
 
-def graph_limits(con, device: torch.device, rows: int) -> GraphLimits:
+def graph_limits(con, device: torch.device, rows: int,
+                 sharded: bool = False) -> GraphLimits:
     """:class:`GraphLimits` of ``device`` for ``con``'s wide graph
-    instance with ``rows`` stage rows, from the CUDA runtime
+    instance (``sharded``: the one with the node shards' meet) with
+    ``rows`` stage rows, from the CUDA runtime
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``,
     ``cudaOccupancyMaxActiveClusters``, each shape asked once): clusters
     of :data:`MAX_CLUSTER` blocks where the card schedules one, else
     :data:`PORTABLE_CLUSTER`."""
     index = torch.device(device).index
     key = (con.paper_law, con.unit_occupancy, con.has_cache,
-           con.precision == "bf16", rows,
+           con.precision == "bf16", rows, sharded,
            torch.cuda.current_device() if index is None else index)
 
     def res(threads, cluster):
@@ -782,19 +806,26 @@ def graph_limits(con, device: torch.device, rows: int) -> GraphLimits:
         lambda threads, blocks: res(threads, blocks).clusters)
 
 
-def graph_plan(con, n_nodes: int, device: torch.device,
-               rows: int = 1) -> GraphRoute:
+def graph_plan(con, n_nodes: int, device: torch.device, rows: int = 1,
+               shards: int = 1, on_card: Optional[int] = None
+               ) -> GraphRoute:
     """:func:`graph_route` on ``device`` (``rows``: the stage rows, S +
-    1)."""
-    return graph_route(n_nodes, con.has_cache,
-                       graph_limits(con, device, rows))
+    1; ``shards``: the node shards that share the card, whose launches
+    take the graph instance with the shards' meet; ``on_card``: every
+    such launch on the card at once)."""
+    limits = (graph_limits(con, device, rows, sharded=True) if shards > 1
+              else graph_limits(con, device, rows))
+    return graph_route(n_nodes, con.has_cache, limits, shards, on_card)
 
 
 def graph_lane_limit(con, n_nodes: int, device: torch.device,
-                     rows: int = 1) -> Optional[int]:
+                     rows: int = 1, shards: int = 1,
+                     on_card: Optional[int] = None) -> Optional[int]:
     """Most lanes one graph launch may hold on ``device``, or None for no
-    limit: only the cooperative route caps them."""
-    return graph_plan(con, n_nodes, device, rows).lanes
+    limit: the cooperative route caps them, and with node shards on the
+    card every route does, over every shard's launch on it
+    (``on_card``)."""
+    return graph_plan(con, n_nodes, device, rows, shards, on_card).lanes
 
 
 @functools.lru_cache(maxsize=None)
@@ -803,10 +834,12 @@ def _graph_fn():
     fn = load_library().lib.dynims_graph_segment
     # (paper_law, unit_occupancy, has_cache, bf16, j, threads, cluster,
     #  cooperative, demand, lp, np_rows, alive, state_in, state_out, hist,
-    #  work, stage, ws, T, L, N, t0, S, comp_itv, consts, stream)
+    #  work, stage, ws, T, L, N, t0, S, comp_itv, consts, shards, xbar,
+    #  deadline_ns, stream)
     fn.argtypes = ([ctypes.c_int] * 8 + [ctypes.c_void_p] * 10
                    + [ctypes.c_int] * 5
                    + [ctypes.c_float, ctypes.POINTER(_SweepConsts),
+                      ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -849,7 +882,7 @@ def _launch(state, hist, demand_seg, lp, np_rows, alive, *, t0: int, con,
             state_out.data_ptr(), hist_out.data_ptr(), work.data_ptr(),
             stage.data_ptr(), 0 if ws is None else ws.data_ptr(), t_seg,
             n_lanes, n_nodes, int(t0), n_rows, con.comp_itv,
-            ctypes.byref(_consts(con)), stream)
+            ctypes.byref(_consts(con)), 1, 0, 0, stream)  # no shards
     if rc != 0:
         raise RuntimeError(f"sweep kernel launch failed: CUDA error {rc}")
     global LAUNCHES
@@ -881,3 +914,156 @@ def sweep_segment(state, hist, demand_seg, lp, np_rows, alive, *, t0: int,
                          f"{state.device}")
     return _launch(state, hist, demand_seg, lp, np_rows, alive, t0=t0,
                    con=con, names=names, graph=graph)
+
+
+# ---- Node shards on one card: a segment a launch ------------------------
+
+# Launches of the shards' segment entry since import (or since a reset).
+SHARD_LAUNCHES = 0
+# Seconds a shard's launch waits at its barrier before it traps: far past
+# any wait of launches that share a card and are all resident.
+BARRIER_DEADLINE_S = 5.0
+
+
+def _deadline_ns(seconds: float = BARRIER_DEADLINE_S) -> int:
+    return int(seconds * 1e9)
+
+
+def _check_shards(states, hists, demands, lp, rows, alives, graphs, t0,
+                  con, names, streams, xbar) -> None:
+    n = len(states)
+    if n < 1 or any(len(x) != n for x in (hists, demands, lp, rows, alives,
+                                          graphs)):
+        raise ValueError("every shard needs its state, histogram, demand, "
+                         "lane and node packs, alive mask and graph")
+    device = states[0].device
+    for i in range(n):
+        _check(states[i], hists[i], demands[i], lp[i], rows[i], alives[i],
+               t0, con, names, graphs[i])
+        if states[i].device != device:
+            raise ValueError(f"shard {i} is on {states[i].device}, shard 0 "
+                             f"on {device}: the shards share one device")
+        if not (states[i].is_contiguous() and hists[i].is_contiguous()):
+            raise ValueError("state and hist are updated in place and must "
+                             "be contiguous")
+        if (demands[i].shape != demands[0].shape
+                or lp[i].shape != lp[0].shape):
+            raise ValueError("the shards run the same lanes over the same "
+                             "intervals, as many nodes each")
+    if device.type != "cuda":
+        return
+    if xbar is None:
+        raise ValueError("the shards' launches need their barriers: xbar, "
+                         "(L, 4) int32 zeroed, on the card")
+    if n < 2:
+        raise ValueError("a lane split over node shards needs two shards "
+                         "or more; one is sweep_segment")
+    if len(streams) != n or len({s.cuda_stream for s in streams}) != n:
+        raise ValueError("each shard needs a CUDA stream of its own: "
+                         "launches on one stream cannot meet")
+    want = (lp[0].shape[1], 4)
+    if (tuple(xbar.shape) != want or xbar.dtype != torch.int32
+            or xbar.device != device or not xbar.is_contiguous()):
+        raise ValueError(f"xbar must be contiguous int32 of shape {want} "
+                         f"on {device}")
+
+
+def _launch_shard(state, state_out, hist, demand_seg, lp, np_rows, alive,
+                  *, t0: int, con, graph, route: GraphRoute, shards: int,
+                  xbar, stream, deadline_s: float = BARRIER_DEADLINE_S
+                  ) -> None:
+    """One shard's segment launch on ``stream``, its operands contiguous,
+    checked and made on that stream: the new state into ``state_out``,
+    the counts added to ``hist`` in place."""
+    work, stage = graph
+    flags = (int(con.paper_law), int(con.unit_occupancy), int(con.has_cache),
+             int(con.precision == "bf16"))
+    rc = _graph_fn()(
+        *flags, route.loops, route.threads, route.cluster,
+        int(route.cooperative), demand_seg.data_ptr(), lp.data_ptr(),
+        np_rows.data_ptr(), alive.data_ptr(), state.data_ptr(),
+        state_out.data_ptr(), hist.data_ptr(), work.data_ptr(),
+        stage.data_ptr(), 0, demand_seg.shape[0], lp.shape[1],
+        demand_seg.shape[1], int(t0), stage.shape[1] - 1, con.comp_itv,
+        ctypes.byref(_consts(con)), shards, xbar.data_ptr(),
+        _deadline_ns(deadline_s), stream.cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"graph segment launch of a node shard failed: "
+                           f"CUDA error {rc}")
+    global SHARD_LAUNCHES
+    SHARD_LAUNCHES += 1
+
+
+def _launch_shards(states, hists, demands, lp, rows, alives, graphs, *,
+                   t0: int, con, streams, xbar) -> None:
+    n = len(states)
+    n_lanes = lp[0].shape[1]
+    if n_lanes > 65535:
+        raise ValueError("at most 65535 gain lanes per launch")
+    device = states[0].device
+    n_nodes = demands[0].shape[1]
+    route = graph_plan(con, n_nodes, device, graphs[0][1].shape[1],
+                       shards=n)
+    if n_lanes > route.lanes:
+        raise ValueError(f"{n_lanes} lanes over {n} node shards of "
+                         f"{n_nodes} nodes: the card holds {route.lanes} "
+                         f"such lanes resident at once")
+    # every operand and output is made before the first launch: once it
+    # runs, the first shard spins until the others arrive, so nothing
+    # issued between the launches may wait for the card (an allocation
+    # may)
+    ops = []
+    for i, s in enumerate(streams):
+        with torch.cuda.stream(s):
+            ops.append([torch.empty_like(states[i])] + [
+                x.contiguous() for x in (demands[i], lp[i], rows[i],
+                                         alives[i], *graphs[i])])
+    for i, s in enumerate(streams):
+        out, demand_seg, lane, node, alive, work, stage = ops[i]
+        _launch_shard(states[i], out, hists[i], demand_seg, lane, node,
+                      alive, t0=t0, con=con, graph=(work, stage),
+                      route=route, shards=n, xbar=xbar, stream=s)
+    for state, op, s in zip(states, ops, streams):
+        with torch.cuda.stream(s):
+            state.copy_(op[0])
+
+
+def graph_segment_shards(states, hists, demands, lp, rows, alives, graphs,
+                         *, t0: int, con, names: Tuple[str, ...],
+                         streams, xbar: Optional[torch.Tensor]) -> None:
+    """A segment of the AppGraph carry with each lane's nodes split over
+    node shards that share one device, in place.
+
+    The arguments are :func:`repro_torch.lab.mesh.graph_exchange`'s, a
+    list entry a shard: ``states`` (S, L, N_s) and ``hists`` (L,
+    HIST_BINS), contiguous, updated in place; each shard's demand
+    segment, lane pack (the same lanes), node pack, alive mask and graph
+    operands.  On the card each shard runs the whole segment in one
+    launch of the graph instance on its own CUDA stream (``streams``, one
+    a shard, distinct; the caller orders each after the work that made
+    its shard's operands, and reads the results after it), and the
+    launches meet every interval at a per-lane barrier in device memory,
+    ``xbar``: (L, 4) int32, zero, ordered before every stream's launch
+    and never reused (``repro_torch.lab.mesh`` zeroes one a gain shard).
+    Every shard's blocks must be resident at once, so the lanes are
+    capped (:func:`graph_lane_limit` with ``shards``) and a larger chunk
+    raises.  CPU tensors run the plain version, which needs neither
+    streams nor barriers (pass None): the exchange
+    (:func:`repro_torch.lab.mesh.graph_exchange`) over
+    :func:`graph_interval_plain`.  CUDA tensors launch
+    ``dynims_graph_segment`` once a shard (:data:`SHARD_LAUNCHES`).
+    """
+    streams = list(streams or ())
+    _check_shards(states, hists, demands, lp, rows, alives, graphs, t0,
+                  con, names, streams, xbar)
+    device = states[0].device
+    if device.type == "cpu":
+        from ..lab.mesh import Shard, graph_exchange
+        return graph_exchange([Shard(device) for _ in states], states,
+                              hists, demands, lp, rows, alives, graphs,
+                              t0=t0, con=con, names=names)
+    if device.type != "cuda":
+        raise ValueError(f"graph_segment_shards runs on cpu or cuda, not "
+                         f"{device}")
+    return _launch_shards(states, hists, demands, lp, rows, alives, graphs,
+                          t0=t0, con=con, streams=streams, xbar=xbar)

@@ -22,8 +22,14 @@ The counterpart of the JAX package's meshes (``_compiled_sweep`` in
   (:func:`~repro_torch.lab.score.fleet_partials`), and the partials and
   histograms fold over the shards in shard order on the first shard's
   device (:func:`~repro_torch.lab.score.finalize_partials`).
-* AppGraph's per-interval barrier crosses the node shards.  Each shard
-  runs the sweep kernel's one-interval graph entry
+* AppGraph's per-interval barrier crosses the node shards.  Where every
+  node shard of a gain shard is on one device (:func:`shares_a_device`),
+  each shard runs the whole segment in one launch on its stream, and the
+  launches meet every interval at a per-lane barrier in device memory
+  (:func:`graph_segment`; the lane chunk capped so that the blocks of
+  every shard on the card, of every gain shard, are resident at once:
+  :func:`launches_on_devices`).  Across devices each shard runs the
+  sweep kernel's one-interval graph entry
   (:func:`~repro_torch.kernels.sweep.graph_interval`); between launches
   the shards' (L,) lane mins fold on the first shard's stream and go
   back to every shard, ordered by events (:func:`graph_exchange`), with
@@ -36,9 +42,10 @@ Every fold and exchange reports its bytes as an ``"all-reduce"``
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,11 +53,13 @@ import torch
 from ..analysis.runtime import dispatch_guard
 from ..kernels import count_collective
 from ..kernels.sweep import (LVL_EMPTY, graph_interval, graph_lane_limit,
-                             interval_schedule, state_names, sweep_segment)
+                             graph_segment_shards, interval_schedule,
+                             state_names, sweep_segment)
 from .score import FleetStats
 
-__all__ = ["Shard", "check_layout", "graph_exchange", "layout",
-           "mesh_sweep_demand", "node_columns", "to_lead"]
+__all__ = ["Shard", "check_layout", "graph_exchange", "graph_segment",
+           "launches_on_devices", "layout", "mesh_sweep_demand",
+           "node_columns", "shares_a_device", "to_lead"]
 
 
 class Shard:
@@ -189,6 +198,71 @@ def graph_exchange(shards: Sequence[Shard], states, hists, demands, lp,
                     for i, s in enumerate(shards)]
 
 
+def shares_a_device(devices: Sequence[torch.device]) -> bool:
+    """Whether node shards on ``devices`` take AppGraph's segment route
+    (:func:`graph_segment`): every one on the same device.  Any other
+    layout exchanges the lane mins between one-interval launches
+    (:func:`graph_exchange`)."""
+    return len({torch.device(d) for d in devices}) == 1
+
+
+def graph_segment(shards: Sequence[Shard], states, hists, demands, lp,
+                  rows, alives, graphs, *, t0: int, con, names,
+                  xbar: Optional[torch.Tensor]) -> None:
+    """:func:`graph_exchange`'s segment for shards that share one device:
+    on a card one launch a shard, each on its shard's stream, meeting
+    every interval at a per-lane barrier in device memory
+    (:func:`~repro_torch.kernels.sweep.graph_segment_shards`; ``xbar``
+    its zeroed (L, 4) int32 barriers from :func:`_shard_barriers`); on
+    the CPU the exchange itself, the kernel's plain version (``xbar``
+    None).  The arguments and the in-place update are
+    :func:`graph_exchange`'s, and so are the collectives reported: each
+    shard's (L,) int32 lane min an interval and one more at the
+    segment's end."""
+    if shards[0].device.type != "cuda":
+        return graph_exchange(shards, states, hists, demands, lp, rows,
+                              alives, graphs, t0=t0, con=con, names=names)
+    graph_segment_shards(states, hists, demands, lp, rows, alives, graphs,
+                         t0=t0, con=con, names=names,
+                         streams=[s.stream for s in shards], xbar=xbar)
+    mins = [torch.empty((lp[0].shape[1],), dtype=torch.int32,
+                        device="meta")] * len(shards)
+    for _ in range(demands[0].shape[0] + 1):
+        count_collective("all-reduce", mins)
+
+
+def _shard_barriers(shards: Sequence[Shard], n_lanes: int
+                    ) -> Optional[torch.Tensor]:
+    """Every lane's barrier of :func:`graph_segment` on a card, zeroed
+    once on the first shard and ordered before every shard's later work;
+    each lane chunk takes its own rows (a chunk's launches may start on
+    one shard while another still runs the chunk before).  None off the
+    card, or where the shards do not share a device."""
+    lead = shards[0]
+    if lead.device.type != "cuda" or not shares_a_device(
+            [s.device for s in shards]):
+        return None
+    with lead.ctx():
+        xbar = torch.zeros((n_lanes, 4), dtype=torch.int32,
+                           device=lead.device)
+    ev = lead.record()
+    for s in shards[1:]:
+        s.wait(ev)
+        xbar.record_stream(s.stream)
+    return xbar
+
+
+def launches_on_devices(rows: Sequence[Sequence[torch.device]]
+                        ) -> Dict[torch.device, int]:
+    """How many shards of ``rows`` (the gain shards that run, each its
+    node shards' devices) each device holds: every one runs its launches
+    on a stream of its own, and the rows are issued without waiting for
+    each other, so a barrier's parties share the device with all of
+    them."""
+    return dict(collections.Counter(torch.device(d) for row in rows
+                                    for d in row))
+
+
 def node_columns(n_nodes: int, node_shards: int) -> List[slice]:
     """Each node shard's columns of the fleet, in order."""
     cols = n_nodes // node_shards
@@ -227,9 +301,12 @@ def _stage_node_shard(shard: Shard, demand, lanes, n_live: int,
 
 
 def _node_sharded_chunk(nodes: Sequence[_NodeShard], lo: int, hi: int, con,
-                        names, n_nodes: int, total_work) -> FleetStats:
+                        names, n_nodes: int, total_work,
+                        xbar: Optional[torch.Tensor]) -> FleetStats:
     """One lane chunk over every node shard of a gain shard: the kernel
-    on each shard's columns, then the folds on the first shard."""
+    on each shard's columns, then the folds on the first shard.  With
+    AppGraph, shards on one device take the segment route (``xbar``: the
+    gain shard's barriers on a card) and any other layout the exchange."""
     from .fused_sweep import (_finalize_parts, _init_state, _lane_partials,
                               _zero_hist)
     operands = []
@@ -241,13 +318,17 @@ def _node_sharded_chunk(nodes: Sequence[_NodeShard], lo: int, hi: int, con,
                                 names, nd.graph)
             operands.append((state, _zero_hist(lp), lp, alive))
     if con.has_graph:
+        shards = [nd.shard for nd in nodes]
         states = [o[0] for o in operands]
         hists = [o[1] for o in operands]
-        graph_exchange([nd.shard for nd in nodes], states, hists,
-                       [nd.demand_tn for nd in nodes],
-                       [o[2] for o in operands], [nd.np_rows for nd in nodes],
-                       [o[3] for o in operands], [nd.graph for nd in nodes],
-                       t0=0, con=con, names=names)
+        args = (shards, states, hists, [nd.demand_tn for nd in nodes],
+                [o[2] for o in operands], [nd.np_rows for nd in nodes],
+                [o[3] for o in operands], [nd.graph for nd in nodes])
+        if shares_a_device([s.device for s in shards]):
+            graph_segment(*args, t0=0, con=con, names=names,
+                          xbar=None if xbar is None else xbar[lo:hi])
+        else:
+            graph_exchange(*args, t0=0, con=con, names=names)
         results = list(zip(states, hists))
     else:
         results = []
@@ -307,6 +388,9 @@ def mesh_sweep_demand(demand: np.ndarray, gains, *, devices, node_shards: int,
     total_work = None if host_graph is None else host_graph[2]
     columns = node_columns(n_nodes, node_shards)
     n_cols = n_nodes // node_shards
+    on_device = launches_on_devices(
+        [[s.device for s in row] for g, row in enumerate(grid)
+         if g * per_shard < n_real])
     staged = []                     # (gain shard, real lanes, chunk, nodes)
     for g, row in enumerate(grid):
         lanes = gains.slice(g * per_shard, min((g + 1) * per_shard, n_real))
@@ -314,10 +398,13 @@ def mesh_sweep_demand(demand: np.ndarray, gains, *, devices, node_shards: int,
             continue
         lane_chunk = _resolve_chunk(chunk, len(lanes), n_cols)
         lane_chunk = -(-lane_chunk // LANE_TILE) * LANE_TILE
-        if (con.has_graph and node_shards == 1
-                and row[0].device.type == "cuda"):
-            limit = graph_lane_limit(con, n_nodes, row[0].device,
-                                     host_graph[1].shape[1])
+        if (con.has_graph and row[0].device.type == "cuda"
+                and shares_a_device([s.device for s in row])):
+            # one launch a node shard, the blocks of every shard on the
+            # card resident at once: this row's and the other rows'
+            limit = graph_lane_limit(con, n_cols, row[0].device,
+                                     host_graph[1].shape[1], node_shards,
+                                     on_device[row[0].device])
             lane_chunk = lane_chunk if limit is None \
                 else min(lane_chunk, limit)
         padded = _pad_gains(lanes, lane_chunk)
@@ -329,11 +416,15 @@ def mesh_sweep_demand(demand: np.ndarray, gains, *, devices, node_shards: int,
     with dispatch_guard():
         for lead, _, lane_chunk, nodes in staged:  # planecheck: hot-loop
             chunks = []
+            xbar = (_shard_barriers([nd.shard for nd in nodes],
+                                    nodes[0].lp.shape[1])
+                    if con.has_graph and node_shards > 1 else None)
             for lo in range(0, nodes[0].lp.shape[1], lane_chunk):
                 hi = lo + lane_chunk
                 if node_shards > 1:
                     chunks.append(_node_sharded_chunk(
-                        nodes, lo, hi, con, names, n_nodes, total_work))
+                        nodes, lo, hi, con, names, n_nodes, total_work,
+                        xbar))
                     continue
                 nd = nodes[0]
                 with nd.shard.ctx():

@@ -15,7 +15,10 @@ route's peak, in milliseconds, with the term that binds it.
   kernel's source, plus :data:`GRAPH_OPS_PER_UPDATE` for the AppGraph
   carry; its one-interval graph entry (:func:`sweep_interval`) moves the
   whole state in and out every launch, and of the histogram and the
-  work matrix only what the launch touches.  The AppGraph carry's
+  work matrix only what the launch touches; its segment route over node
+  shards on one card (:func:`sweep_shard_segment`) is the graph
+  instance on a shard's columns with the lanes' barriers.  The
+  AppGraph carry's
   intervals are serial (each waits on the lane's min), so beside those
   two terms its :attr:`Work.critical_path_ms` is the intervals times
   :data:`GRAPH_CHAIN_OPS` dependent operations at
@@ -178,6 +181,29 @@ def sweep_interval(n_nodes: int, n_lanes: int, *, cache: bool,
     ops = sweep(n_nodes, 1, n_lanes, cache=cache, paper_law=paper_law,
                 n_stages=n_stages).ops
     return Work(ops=ops, bytes=n_bytes, peak=PEAK_F32)
+
+
+# The int32 words of a lane's barrier in the node shards' segment route
+# (arrivals, episodes, two min slots).
+BARRIER_WORDS = 4
+
+
+def sweep_shard_segment(n_nodes: int, n_intervals: int, n_lanes: int, *,
+                        cache: bool, paper_law: bool = True, n_stages: int,
+                        demand_itemsize: int = 4) -> Work:
+    """One node shard's launch of the segment route
+    (``kernels.sweep.graph_segment_shards``) on a shard of ``n_nodes``:
+    :func:`sweep`'s graph instance over the shard's columns (the state
+    once in and out, its demand rows, the histogram, its columns of the
+    work matrix, the operations and the intervals' serial chain), plus
+    the lanes' barriers read and written.  The barrier's latency, an
+    atomic round trip a meet, is not added: the bound stays a lower
+    bound."""
+    one = sweep(n_nodes, n_intervals, n_lanes, cache=cache,
+                paper_law=paper_law, n_stages=n_stages,
+                demand_itemsize=demand_itemsize)
+    return dataclasses.replace(
+        one, bytes=one.bytes + 2 * BARRIER_WORDS * n_lanes * 4)
 
 
 def sweep_f64_bound_ms(work: Work, n_updates: int,

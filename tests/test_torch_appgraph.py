@@ -371,23 +371,6 @@ def test_tuners_on_makespan_make_jaxs_decisions(method):
 # Co-residency of the multi-block route
 # ---------------------------------------------------------------------------
 
-def test_coresident_lane_planner():
-    # one block holds the lane: no barrier between blocks, no limit
-    assert ks.coresident_lanes(2048, False, 1, 1) is None
-    assert ks.coresident_lanes(1024, True, 1, 1) is None
-    # 4096 nodes: one cluster a lane, which only has to be resident as a
-    # whole: no limit
-    assert ks.coresident_lanes(4096, False, 13, 132) is None
-    assert ks.coresident_lanes(4096, True, 8, 132) is None
-    # past the largest cluster the lane's 17 blocks meet in device memory
-    assert ks.coresident_lanes(32769, False, 2, 132, 16) == 2 * 132 // 17
-    with pytest.raises(ValueError, match="co-resident"):
-        ks.coresident_lanes(32769, False, 1, 16, 16)
-    assert ks.coresident_lanes(16385, False, 1, 9) == 1
-    assert ks.block_nodes(False) == ks.WIDE_LOOPS[False] * ks.GRAPH_THREADS
-    assert ks.block_nodes(True) == ks.WIDE_LOOPS[True] * ks.GRAPH_THREADS
-
-
 def _model_card(max_cluster=16):
     """A card of 132 SMs of 64K registers and threads of 128 registers,
     whose clusters pack without loss."""
@@ -441,8 +424,107 @@ def test_graph_route_at_each_routes_edge(edge):
     # a card that schedules portable clusters only takes the cooperative
     # route past 8 blocks of the larger size
     portable = ks.graph_route(n_nodes, cache, _model_card(8))
-    assert portable.cooperative == (-(-n_nodes // ks.block_nodes(cache))
-                                    > 8)
+    block_nodes = ks.WIDE_LOOPS[cache] * ks.GRAPH_THREADS
+    assert portable.cooperative == (-(-n_nodes // block_nodes) > 8)
+
+
+def _uniform_card(blocks_per_sm, n_sms, max_cluster=ks.PORTABLE_CLUSTER):
+    """A card that holds ``blocks_per_sm`` blocks of any size an SM and
+    one cluster of any shape."""
+    return ks.GraphLimits(max_cluster, n_sms, lambda threads: blocks_per_sm,
+                          lambda threads, blocks: 1)
+
+
+# (nodes a shard, cache, card, shards, route, lanes a launch: None for no
+# cap, or the ValueError's text) of co-residency: one block holds the
+# lane, or one cluster, which only has to be resident as a whole: no cap;
+# past the largest cluster the lane's blocks meet in device memory (17
+# blocks of 2 x 132, none on 1 x 16; 9 blocks on 9 SMs, portable
+# clusters).  Then node shards on _model_card, which meet at a barrier in
+# device memory on every route: at each route's edge with 2 and 4 shards
+# the lanes the card holds over the shards, and a lane whose shards do
+# not fit together refused.
+LANE_CAPS = [
+    (2048, False, _uniform_card(1, 1), 1, "cluster", None),
+    (1024, True, _uniform_card(1, 1), 1, "cluster", None),
+    (4096, False, _uniform_card(13, 132), 1, "cluster", None),
+    (4096, True, _uniform_card(8, 132), 1, "cluster", None),
+    (32769, False, _uniform_card(2, 132, 16), 1, "cooperative",
+     2 * 132 // 17),
+    (32769, False, _uniform_card(1, 16, 16), 1, "cooperative",
+     "co-resident"),
+    (16385, False, _uniform_card(1, 9), 1, "cooperative", 1),
+    (32, False, _model_card(), 2, "warp", 1056),
+    (32, False, _model_card(), 4, "warp", 528),
+    (128, False, _model_card(), 2, "warp", 1056),
+    (129, False, _model_card(), 2, "block", 528),
+    (1024, False, _model_card(), 2, "block", 132),
+    (1024, False, _model_card(), 4, "block", 66),
+    (1025, False, _model_card(), 2, "cluster", 99),
+    (1025, False, _model_card(), 4, "cluster", 49),
+    (4096, False, _model_card(), 4, "cluster", 16),
+    (4096, True, _model_card(), 4, "cluster", 8),
+    (16385, False, _model_card(), 2, "cluster", 7),
+    (32768, False, _model_card(), 2, "cluster", 4),
+    (32768, False, _model_card(), 4, "cluster", 2),
+    (32769, False, _model_card(), 2, "cooperative", 3),
+    (32769, False, _model_card(), 4, "cooperative", 1),
+    (67585, False, _model_card(), 2, "cooperative", 1),
+    (67585, False, _model_card(), 4, "cooperative", "co-resident"),
+    (32768, False, _model_card(), 9, "cluster", "co-resident"),
+    (1024, False, _model_card(), 265, "block", "co-resident"),
+    (32, False, _model_card(), 2113, "warp", "co-resident"),
+]
+
+
+@pytest.mark.parametrize("case", LANE_CAPS, ids=[
+    f"{n}-{'cache' if c else 'no-cache'}-{k}-shards-{i}"
+    for i, (n, c, _, k, _, _) in enumerate(LANE_CAPS)])
+def test_graph_route_caps_the_lanes_a_launch_holds(case):
+    n_nodes, cache, card, shards, name, lanes = case
+    if isinstance(lanes, str):
+        with pytest.raises(ValueError, match=lanes):
+            ks.graph_route(n_nodes, cache, card, shards)
+        return
+    route = ks.graph_route(n_nodes, cache, card, shards)
+    assert (route.name, route.lanes) == (name, lanes)
+    # node shards take the shape one shard would
+    assert route[:4] == ks.graph_route(n_nodes, cache, card)[:4]
+
+
+# (nodes, cache, shards, launches on the card, route, lanes a launch or
+# the refusal) on _model_card: node shards of several gain shards that
+# share the card cap every row's lanes by the room over all their
+# launches (the same cap as that many shards of one row); one shard a
+# lane is never capped by the others; fewer launches than shards is a
+# caller's error
+ON_CARD_CAPS = [
+    (1024, False, 2, 4, "block", 66),
+    (1025, False, 2, 4, "cluster", 49),
+    (2048, True, 2, 4, "cluster", 16),
+    (32769, False, 2, 4, "cooperative", 1),
+    (67585, False, 2, 4, "cooperative", "co-resident"),
+    (32768, False, 2, 9, "cluster", "co-resident"),
+    (32769, False, 1, 4, "cooperative", 7),
+    (1024, False, 4, 2, "block", "on_card"),
+]
+
+
+@pytest.mark.parametrize("case", ON_CARD_CAPS, ids=[
+    f"{n}-{'cache' if c else 'no-cache'}-{k}-of-{m}-{i}"
+    for i, (n, c, k, m, _, _) in enumerate(ON_CARD_CAPS)])
+def test_graph_route_caps_the_lanes_over_every_launch_on_the_card(case):
+    n_nodes, cache, shards, on_card, name, lanes = case
+    card = _model_card()
+    if isinstance(lanes, str):
+        with pytest.raises(ValueError, match=lanes):
+            ks.graph_route(n_nodes, cache, card, shards, on_card)
+        return
+    route = ks.graph_route(n_nodes, cache, card, shards, on_card)
+    assert (route.name, route.lanes) == (name, lanes)
+    assert route[:4] == ks.graph_route(n_nodes, cache, card, shards)[:4]
+    if shards > 1:
+        assert lanes == ks.graph_route(n_nodes, cache, card, on_card).lanes
 
 
 def test_graph_route_takes_the_block_size_the_card_holds_most_of():

@@ -27,9 +27,21 @@ read whole, and a cross cache at length 0 (zeros).  One moe layer
 (``moe_apply``) on the card against the CPU, with and without drops: the
 same choices kept.  The sweep's one-interval graph entry over node
 shards of the card against its plain version on the CPU, and the
-sharded sweeps over four shards of one card against one device.
+sharded sweeps over four shards of one card against one device.  Node
+shards of the card, a segment a launch each meeting at a barrier in
+device memory: at every meet route's edge with 2 and 4 shards, cache
+off and on, bit for bit the unsharded graph instance and against the
+plain version on the CPU; two lane chunks launched without a wait
+between them; and a barrier missing a party, which traps at its
+deadline (a CUDA error in a process of its own, not a hang).
 """
 
+import dataclasses
+import json
+import os
+import pathlib
+import subprocess
+import sys
 import time
 
 import numpy as np
@@ -223,7 +235,7 @@ def test_graph_lane_chunk_that_cannot_be_resident_raises(card):
     base = get_scenario("limplock")
     kw0 = _graph_segment(card, base, "paper")[1]
     stage_rows = kw0["graph"][1].shape[1]       # S + 1, whatever the nodes
-    n_nodes = ks.block_nodes(False) * ks.graph_limits(
+    n_nodes = ks.WIDE_LOOPS[False] * ks.GRAPH_THREADS * ks.graph_limits(
         kw0["con"], card, stage_rows).max_cluster + 1
     spec = base.replace(n_nodes=n_nodes, n_intervals=20)
     args, kw, _ = _graph_segment(card, spec, "paper", n_dead=0)
@@ -336,6 +348,242 @@ def test_graph_interval_entry_matches_plain_version(card, cache):
         assert torch.equal(sk, sp) and torch.equal(hk, hp)
 
 
+def _shard_operands(device, spec, gains, n_shards, n_dead):
+    """Each node shard's segment operands of ``spec`` on ``device``, and
+    the whole lane's (devices=1)."""
+    con = fs._engine_consts(plan_specialization(gains), spec.cache,
+                            spec.interval_s, 1.0, "f32", spec.app_graph)
+    names = ks.state_names(con.paper_law, con.has_cache, True)
+    demand = spec.build_demand(seed=5)
+    work, stage, _ = fs._graph_host(spec.app_graph, spec.n_nodes)
+    cols = spec.n_nodes // n_shards
+
+    def ops(c):
+        dtn, rows, lp = fs._stage(demand[c], gains, 125 * GiB, spec.cache,
+                                  "f32", device)
+        g = (torch.from_numpy(np.ascontiguousarray(work[:, c])).to(device),
+             torch.from_numpy(stage).to(device))
+        alive = fs._alive(len(gains), len(gains) - n_dead, device)
+        return [fs._init_state(lp, rows, dtn[0], con, names, g),
+                fs._zero_hist(lp), dtn, lp, rows, alive, g]
+    shards = [ops(slice(j * cols, (j + 1) * cols)) for j in range(n_shards)]
+    return shards, ops(slice(None)), dict(t0=0, con=con, names=names)
+
+
+def _lanes(ops, lo, hi):
+    """Lanes lo:hi of one shard's operands, contiguous."""
+    state, hist, dtn, lp, rows, alive, g = ops
+    return [state[:, lo:hi].contiguous(), hist[lo:hi].contiguous(), dtn,
+            lp[:, lo:hi].contiguous(), rows, alive[:, lo:hi].contiguous(), g]
+
+
+def _barriers(n_lanes, streams):
+    """Zeroed shard barriers for ``n_lanes`` lanes, ordered before the
+    later work of every stream in ``streams``."""
+    xbar = torch.zeros((n_lanes, 4), dtype=torch.int32, device="cuda")
+    zeroed = torch.cuda.current_stream().record_event()
+    for s in streams:
+        s.wait_event(zeroed)
+        xbar.record_stream(s)
+    return xbar
+
+
+def _segment_shards(shards, kw, lo, hi, streams=None):
+    """graph_segment_shards over lanes lo:hi of every shard, its streams
+    ordered after the current stream's work and before its later work;
+    the shards' state (nodes in order) and summed histograms."""
+    part = [_lanes(o, lo, hi) for o in shards]
+    args = [list(x) for x in zip(*part)]
+    if streams is None:
+        ks.graph_segment_shards(*args, streams=None, xbar=None, **kw)
+        return torch.cat(args[0], -1), sum(args[1])
+    cur = torch.cuda.current_stream()
+    xbar = _barriers(hi - lo, streams)
+    ready = cur.record_event()
+    for s in streams:
+        s.wait_event(ready)
+    ks.graph_segment_shards(*args, streams=streams, xbar=xbar, **kw)
+    for s in streams:
+        cur.wait_event(s.record_event())
+    return torch.cat(args[0], -1), sum(args[1])
+
+
+# (scenario, nodes a shard without and with the cache, intervals) at each
+# meet route's edge of one shard's launch: one warp of one loop, one warp
+# of the wide loops at its largest, one block at its smallest and
+# largest, one cluster at its smallest, and past the largest cluster the
+# grid route, whose blocks meet at the shards' barrier (its size set by
+# the card's largest cluster in the test); and one block of two full
+# warps of a DAG of several stages
+SHARD_ROUTE_CASES = [("limplock", (32, 32), 400),
+                     ("spark-dag", (128, 64), 300),
+                     ("limplock", (129, 65), 300),
+                     ("spark-dag", (256, 128), 300),
+                     ("spark-dag", (1024, 512), 200),
+                     ("limplock", (1025, 513), 200),
+                     ("limplock", "grid", 30)]
+
+
+def _one_device(whole, kw, card):
+    """The unsharded graph instance on the card (devices=1), in as many
+    launches as its route's co-residency asks."""
+    rows = whole[6][1].shape[1]
+    limit = ks.graph_plan(kw["con"], whole[2].shape[1], card,
+                          rows).lanes or whole[3].shape[1]
+    outs = [ks.sweep_segment(*_lanes(whole, lo, lo + limit)[:6],
+                             graph=whole[6], **kw)
+            for lo in range(0, whole[3].shape[1], limit)]
+    return (torch.cat([o[0] for o in outs], 1),
+            torch.cat([o[1] for o in outs], 0))
+
+
+@pytest.mark.parametrize("case", SHARD_ROUTE_CASES, ids=str)
+@pytest.mark.parametrize("n_shards", [2, 4])
+@pytest.mark.parametrize("cache", [False, True])
+def test_shard_segments_match_plain_and_one_device(card, case, n_shards,
+                                                   cache):
+    """Node shards of the card, a whole segment a launch each meeting at
+    the shards' barrier: the state and summed histograms equal the
+    unsharded graph instance on the card (devices=1) bit for bit, and the
+    plain version on the CPU (bit for bit without the cache, to 1e-6 with
+    it, the stage rows and finish intervals exact); a dead lane is left
+    as it was, and the lanes run in as many launches a shard as the
+    co-residency cap asks."""
+    name, nodes, n_steps = case
+    base = get_scenario(name).replace(
+        cache=get_scenario("spark-iterative-cache").cache if cache
+        else None)
+    if nodes == "grid":
+        con = fs._engine_consts(plan_specialization(grid_gains()),
+                                base.cache, 0.1, 1.0, "f32", base.app_graph)
+        rows = fs._graph_host(base.app_graph, 8)[1].shape[1]
+        nodes = ks.WIDE_LOOPS[cache] * ks.GRAPH_THREADS * ks.graph_limits(
+            con, card, rows).max_cluster + 1
+    else:
+        nodes = nodes[cache]
+    spec = base.replace(n_nodes=nodes * n_shards, n_intervals=n_steps)
+    gains = grid_gains(lam=(0.3, 0.9, 1.5), r0=(0.9, 0.95))
+    shards, whole, kw = _shard_operands(card, spec, gains, n_shards, 1)
+    route = ks.graph_plan(kw["con"], nodes, card,
+                          shards[0][6][1].shape[1], shards=n_shards)
+    print(f"{name} {nodes} a shard x {n_shards}: {route}")
+    assert route.lanes >= 1
+    n_lanes = len(gains)
+    streams = [torch.cuda.Stream() for _ in shards]
+    before = ks.SHARD_LAUNCHES
+    outs = [_segment_shards(shards, kw, lo, min(lo + route.lanes, n_lanes),
+                            streams)
+            for lo in range(0, n_lanes, route.lanes)]
+    n_launches = -(-n_lanes // route.lanes)
+    assert ks.SHARD_LAUNCHES - before == n_shards * n_launches
+    sk = torch.cat([o[0] for o in outs], 1)
+    hk = torch.cat([o[1] for o in outs], 0)
+    one, one_hist = _one_device(whole, kw, card)
+    torch.cuda.synchronize()
+    assert torch.equal(sk, one) and torch.equal(hk, one_hist)
+    live = n_lanes - 1
+    assert torch.equal(sk[:, live:], whole[0][:, live:])       # dead lane
+    assert int(hk[live:].abs().sum()) == 0
+    cpu, _, _ = _shard_operands("cpu", spec, gains, n_shards, 1)
+    sp, hp = _segment_shards(cpu, kw, 0, n_lanes)
+    sk, hk = sk.cpu(), hk.cpu()
+    names = kw["names"]
+    for plane in ("sidx", "t_done"):
+        assert torch.equal(sk[names.index(plane)], sp[names.index(plane)])
+    if cache:
+        scale = sp.abs().amax(dim=(1, 2), keepdim=True).clamp_min(1e-30)
+        assert float(((sk - sp).abs() / scale).max()) <= 1e-6
+        assert int((hk != hp).sum()) <= live
+    else:
+        assert torch.equal(sk, sp) and torch.equal(hk, hp)
+
+
+def test_shard_lane_chunks_overlap_across_shards(card):
+    """Two lane chunks launched back to back on the same shard streams,
+    each with its own barriers: a shard may start the second chunk while
+    another still runs the first.  Both equal the unsharded instance."""
+    spec = get_scenario("spark-dag").replace(n_nodes=4 * 1024,
+                                             n_intervals=300)
+    gains = grid_gains(lam=np.linspace(0.2, 1.8, 8), r0=(0.9, 0.95))
+    shards, whole, kw = _shard_operands(card, spec, gains, 4, 0)
+    streams = [torch.cuda.Stream() for _ in shards]
+    chunks = [[list(x) for x in zip(*[_lanes(o, lo, lo + 8)
+                                      for o in shards])] for lo in (0, 8)]
+    xbar = _barriers(16, streams)
+    ready = torch.cuda.current_stream().record_event()
+    for s in streams:
+        s.wait_event(ready)
+    before = ks.SHARD_LAUNCHES
+    for lo, args in zip((0, 8), chunks):    # no wait between the chunks
+        ks.graph_segment_shards(*args, streams=streams,
+                                xbar=xbar[lo:lo + 8], **kw)
+    assert ks.SHARD_LAUNCHES - before == 8
+    one, one_hist = _one_device(whole, kw, card)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([torch.cat(a[0], -1) for a in chunks], 1),
+                       one)
+    assert torch.equal(torch.cat([sum(a[1]) for a in chunks], 0), one_hist)
+
+
+# A lone launch of a two-shard barrier, whose other party never comes:
+# it traps at the deadline (1 s here), and the process reports the
+# CUDA error and the seconds it took.
+LONE_PARTY = """
+import json, os, sys, time
+import numpy as np, torch
+from repro_torch.core.traces import GiB
+from repro_torch.kernels import sweep as ks
+from repro_torch.lab import fused_sweep as fs
+from repro_torch.lab.scenarios import get_scenario
+from repro_torch.lab.sweep import plan_specialization
+from repro_torch.lab.tune import grid_gains
+card = torch.device("cuda")
+spec = get_scenario("limplock").replace(n_nodes=256, n_intervals=100)
+gains = grid_gains(lam=(0.5, 1.0), r0=(0.9,))
+con = fs._engine_consts(plan_specialization(gains), None, 0.1, 1.0, "f32",
+                        spec.app_graph)
+names = ks.state_names(con.paper_law, con.has_cache, True)
+dtn, rows, lp = fs._stage(spec.build_demand(seed=0)[:128], gains,
+                          125 * GiB, None, "f32", card)
+work, stage, _ = fs._graph_host(spec.app_graph, 256)
+g = (torch.from_numpy(np.ascontiguousarray(work[:, :128])).to(card),
+     torch.from_numpy(stage).to(card))
+alive = fs._alive(len(gains), len(gains), card)
+state = fs._init_state(lp, rows, dtn[0], con, names, g)
+hist = fs._zero_hist(lp)
+route = ks.graph_plan(con, 128, card, stage.shape[1], shards=2)
+xbar = torch.zeros((len(gains), 4), dtype=torch.int32, device=card)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+try:
+    ks._launch_shard(state, torch.empty_like(state), hist, dtn, lp, rows,
+                     alive, t0=0, con=con, graph=g, route=route, shards=2,
+                     xbar=xbar, stream=torch.cuda.current_stream(),
+                     deadline_s=float(sys.argv[1]))
+    torch.cuda.synchronize()
+    error = None
+except RuntimeError as e:
+    error = str(e)
+print(json.dumps({"error": error, "seconds": time.perf_counter() - t0}),
+      flush=True)
+os._exit(0)                            # the CUDA context is unusable now
+"""
+
+
+def test_a_barrier_missing_a_party_traps_at_its_deadline(card):
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", LONE_PARTY, "1.0"],
+                          capture_output=True, text=True, timeout=120,
+                          env=dict(os.environ, PYTHONPATH=str(src)))
+    wall = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(got, f"{wall:.1f} s with the process's start")
+    assert got["error"] is not None and "CUDA" in got["error"]
+    assert 1.0 <= got["seconds"] < 10.0
+
+
 def test_sharded_sweeps_on_one_card_match_one_device(card):
     """Four shards of one card: gain shards bit for bit, node shards
     within the brackets and AppGraph's makespan exact."""
@@ -356,6 +604,39 @@ def test_sharded_sweeps_on_one_card_match_one_device(card):
     np.testing.assert_array_equal(b.stats.makespan, a.stats.makespan)
     assert stats_mismatches(b.stats, a.stats,
                             n_samples=spec.n_nodes * 300) == []
+
+
+def test_two_by_two_of_one_card_with_appgraph_matches_one_device(card):
+    """2 x 2 of one card at spark-dag 4096 x 1800 x 64 with the stage
+    tasks scaled to the fleet: both gain shards' node shards share the
+    card and their rows are issued without waiting for each other, so
+    each row's lane chunk is capped by the room over all four launches
+    (below the two shards' own cap), and every stat is devices=1's bit
+    for bit."""
+    base = get_scenario("spark-dag")
+    scale = 4096 // base.n_nodes
+    spec = base.replace(n_nodes=4096, app_graph=base.app_graph.replace(
+        stages=tuple(dataclasses.replace(st, tasks=st.tasks * scale)
+                     for st in base.app_graph.stages)))
+    gains = grid_gains()
+    demand = spec.build_demand(seed=0)
+    kw = dict(node_memory=125 * GiB, interval_s=spec.interval_s,
+              cache=spec.cache, app_graph=spec.app_graph)
+    con = fs._engine_consts(plan_specialization(gains), spec.cache,
+                            spec.interval_s, 1.0, "f32", spec.app_graph)
+    rows = fs._graph_host(spec.app_graph, 4096)[1].shape[1]
+    route = ks.graph_plan(con, 2048, card, rows, shards=2, on_card=4)
+    alone = ks.graph_plan(con, 2048, card, rows, shards=2)
+    assert route.lanes < 32 <= alone.lanes
+    from repro_torch.lab.sweep import sweep_demand
+    one = sweep_demand(demand, gains, devices=1, **kw)
+    before = ks.SHARD_LAUNCHES
+    got = sweep_demand(demand, gains, devices=("cuda:0",) * 4,
+                       node_shards=2, **kw)
+    assert ks.SHARD_LAUNCHES - before == 4 * -(-32 // route.lanes)
+    for f in one._fields:
+        np.testing.assert_array_equal(getattr(got, f), getattr(one, f),
+                                      err_msg=f)
 
 
 def _randn(card, shape, dtype, seed):

@@ -22,6 +22,8 @@
   worked out by hand on a 2 x 2 layout.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import pytest
@@ -244,6 +246,11 @@ def test_decode_step_bytes_are_worked_out_by_hand():
 
 # ---- the kernels' bounds -----------------------------------------------------
 
+def _on_shards(work, n):
+    """``n`` shards' launches of ``work`` together on one card."""
+    return dataclasses.replace(work, ops=n * work.ops, bytes=n * work.bytes)
+
+
 # PERF.md's kernel table: (work, its bound in ms as the table prints it)
 BOUNDS = {
     "B1 cache-off": (lambda: K.sweep(4096, 1000, 64, cache=False), 0.1291),
@@ -255,6 +262,10 @@ BOUNDS = {
     "B1 interval": (lambda: K.sweep_interval(1024, 64, cache=True,
                                              n_stages=12, hist_updates=576,
                                              work_reads=0), 0.0035),
+    # the segment route's four shard launches of one lane chunk on one
+    # card, 33 lanes x 1024 nodes x 100 intervals each
+    "B1 shard segment": (lambda: _on_shards(K.sweep_shard_segment(
+        1024, 100, 33, cache=True, n_stages=12), 4), 0.0226),
     "B2 bf16": (lambda: K.flash(2, 4096, 32, 8, 64, bf16=True), 0.1390),
     "B2 f32": (lambda: K.flash(2, 4096, 32, 8, 64), 0.8332),
     "B2 llama": (lambda: K.flash(2, 256, 32, 8, 64), 0.0033),
@@ -346,6 +357,22 @@ def test_one_interval_entry_counts_what_one_launch_touches():
     assert got.ops == K.sweep(n, 1, lanes, cache=True, n_stages=stages).ops
     assert got.bytes < K.sweep(n, 1, lanes, cache=True,
                                n_stages=stages).bytes
+
+
+def test_shard_segment_is_a_shards_graph_sweep_and_its_barriers():
+    """One node shard's launch of the segment route does the graph
+    instance's work on its columns and reads and writes the lanes'
+    (L, 4) int32 barriers; its serial chain is the whole lane's, so the
+    shards do not shorten it."""
+    n, t, lanes, stages = 1024, 1800, 33, 12
+    got = K.sweep_shard_segment(n, t, lanes, cache=True, n_stages=stages)
+    one = K.sweep(n, t, lanes, cache=True, n_stages=stages)
+    assert got.bytes == one.bytes + 2 * 4 * lanes * 4
+    assert (got.ops, got.peak) == (one.ops, one.peak)
+    whole = K.sweep(4 * n, t, lanes, cache=True, n_stages=stages)
+    assert got.critical_path_ms == whole.critical_path_ms > 0
+    assert 4 * got.ops == whole.ops
+    assert got.bound_ms < whole.bound_ms
 
 
 # ---- a step ------------------------------------------------------------------
