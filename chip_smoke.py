@@ -137,13 +137,23 @@ each, all at once) and drives the port's main paths on the card:
   and one launch timed beside its bound (24c); the fleet sweep over
   node shards (24d); a barrier missing a party traps at its deadline,
   a CUDA error and not a hang, in a process of its own (24e,
-  ``chip_smoke.py --lone-party SECONDS``).
+  ``chip_smoke.py --lone-party SECONDS``);
+* the sharding substrate (phase 25): the dry-run
+  (``repro_torch.launch.dryrun.run_cell``) of llama3.2-1b's three cells
+  and mistral-large-123b's train_4k on both production meshes, counted
+  on meta tensors on the host (not measured), and the per-chip argument
+  bytes of all 66 (cell, mesh) pairs; chip 0's train_4k arguments of
+  mistral-large-123b and dbrx-132b put on the card, the allocator's
+  requested bytes equal to the counted ones; ``build_cell``'s decode,
+  prefill and train functions on the card (the 1 x 1 mesh) at
+  llama3.2-1b's full width, cut in batch and length, bit for bit the
+  entry points they wrap, with B3 and B2 launched.
 
 Every bound comes from ``repro_torch.roofline`` (the H100's data-sheet
 peaks and each kernel's work from its shapes).  Phases 19c, 20d, 21d
 and 22c train without the end-of-run checkpoint that 18a writes and
 times.  To keep the script well inside its time limit on a slow host,
-phase 2 holds ``sweep_demand`` against the CPU at 16 of the 64 gains
+phase 2 holds ``sweep_demand`` against the CPU at 8 of the 64 gains
 (phase 1 holds the kernel at all 64), 17b runs the registry's fleets
 over their first 700 intervals and fleet_bench's rows over 250, 16e
 times the graph instance's plain version at 4096 nodes only, and 21b
@@ -190,6 +200,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.configs import DECODE_32K, get_config  # noqa: E402
+from repro_torch.configs import cells as all_cells  # noqa: E402
+from repro_torch.configs import get_shape  # noqa: E402
+from repro_torch.configs.base import InputShape  # noqa: E402
 from repro_torch.configs.dynims import (LAB_TUNED,  # noqa: E402
                                         LAB_TUNED_OBJECTIVES, PAPER_TABLE_I,
                                         hbm_pool_params)
@@ -227,6 +240,9 @@ from repro_torch.lab.sweep import (DEFAULT_CHUNK, GainSet,  # noqa: E402
 from repro_torch.lab.tune import (grid_gains, halving_tune,  # noqa: E402
                                   retune_online, tune_gains)
 from repro_torch.launch import chaos_drill  # noqa: E402
+from repro_torch.launch import cells as lcells  # noqa: E402
+from repro_torch.launch import dryrun as ldryrun  # noqa: E402
+from repro_torch.launch import mesh as lmesh  # noqa: E402
 from repro_torch.launch.profile_serve import (count_syncs,  # noqa: E402
                                               device_us, on_device,
                                               tick_launches, watch_ticks)
@@ -241,9 +257,11 @@ from repro_torch.launch.time_sweep import (_profiled,  # noqa: E402
 from repro_torch.models import Model, decode as D  # noqa: E402
 from repro_torch.models import moe as TM  # noqa: E402
 from repro_torch.models import ssm as TS  # noqa: E402
+from repro_torch.models.params import shard_shape  # noqa: E402
 from repro_torch.models.transformer import layer_windows  # noqa: E402
 from repro_torch.roofline import analyze_step, bound  # noqa: E402
 from repro_torch.roofline import kernels as rk  # noqa: E402
+from repro_torch.roofline import sharding as lsharding  # noqa: E402
 from repro_torch.train import step as train_step  # noqa: E402
 from repro_torch.roofline.constants import (HBM_BW,  # noqa: E402
                                             PEAK_F32, PEAK_F64)
@@ -443,11 +461,11 @@ def assert_same(tag, card, cpu, n_samples):
         f"{len(card._fields)} fields bit-identical)")
 
 
-# Phase 2's sweep_demand against the CPU: 16 gains spread over the
+# Phase 2's sweep_demand against the CPU: 8 gains spread over the
 # default 8 x 8 grid, its corners included (the CPU runs at all 64 take
-# ~60 s; phase 1 holds the kernel at all 64 lanes bit for bit)
-PHASE2_GAINS = grid_gains(lam=(0.1, 0.5, 1.0, 1.8),
-                          r0=(0.88, 0.92, 0.95, 0.98))
+# ~60 s; phase 1 holds the kernel at all 64 lanes bit for bit).  At 16
+# gains phase 2 took 56.0 s (PR 29's run H); 8 pay for phase 25.
+PHASE2_GAINS = grid_gains(lam=(0.1, 0.5, 1.0, 1.8), r0=(0.88, 0.98))
 
 
 def phase2(demand):
@@ -4727,6 +4745,240 @@ def phase24(demand, big_ms, smi):
                 seconds=seconds)
 
 
+# ---- the sharding substrate (phase 25) ----
+
+# 25a: the cells run_cell counts on both production meshes
+DRYRUN_25A = (("llama3.2-1b", "train_4k"), ("llama3.2-1b", "prefill_32k"),
+              ("llama3.2-1b", "decode_32k"), ("mistral-large-123b",
+                                              "train_4k"))
+# 25b: the train cells whose chip-0 arguments are put on the card
+FIT_25B = ("mistral-large-123b", "dbrx-132b")
+# The caching allocator's rounding of one tensor's block: a multiple of
+# 512 bytes under 1 MiB; above it, a block is not split when what would
+# be left of its segment is under 1 MiB, and a fresh large segment is a
+# multiple of 2 MiB, so less than 2 MiB a tensor
+ALLOC_BLOCK, ALLOC_LARGE, ALLOC_ROUND_LARGE = 512, 2**20, 2 * 2**20
+# 25c: llama3.2-1b's cells on the card, cut in batch and length:
+# kind -> (batch, length) of the cut, and the cell it cuts
+CELLS_25C = {"decode": ((8, 1024), "decode_32k"),
+             "prefill": ((2, 1024), "prefill_32k"),
+             "train": ((2, 1024), "train_4k")}
+DECODE_POS_25C = 700                   # the slots' one shared position
+
+
+def phase25a(out_dir):
+    """25a: run_cell at full width on meta tensors, and every cell's
+    argument bytes on both meshes; everything counted, nothing timed."""
+    log(f"phase 25a: the dry-run at full width (repro_torch.launch.dryrun."
+        f"run_cell on meta tensors on the host: COUNTED, not measured; "
+        f"bounds from the H100's data-sheet peaks, float32 products at 67 "
+        f"TFLOP/s, 3.35 TB/s, 450 GB/s a link)")
+    rows = {}
+    for arch, shape in DRYRUN_25A:
+        for mp in (False, True):
+            t0 = time.perf_counter()
+            r = ldryrun.run_cell(arch, shape, mp, out_dir)
+            tag = "2x16x16" if mp else "16x16"
+            t = r["roofline"]
+            args = r["memory_analysis"]["argument_size_in_bytes"]
+            coll = r["collectives"]["total_bytes"]
+            log(f"  {arch} {shape} on {tag} (counted): args "
+                f"{args / 2**30:.3f} GiB a chip, {r['hlo_flops_per_chip']:.4e}"
+                f" FLOPs, {r['hlo_bytes_per_chip']:.4e} bytes, collectives "
+                f"{coll:.4e} bytes; compute {t['compute_s'] * 1e3:.3f} ms, "
+                f"memory {t['memory_s'] * 1e3:.3f} ms, collective "
+                f"{t['collective_s'] * 1e3:.3f} ms: bound "
+                f"{t['bound_s'] * 1e3:.3f} ms by {t['dominant']} (scaling "
+                f"{r['scaling']}; {time.perf_counter() - t0:.1f} s host)")
+            rows[f"{arch} {shape} {tag}"] = {
+                "argument_bytes": args,
+                "flops_per_chip": r["hlo_flops_per_chip"],
+                "bytes_per_chip": r["hlo_bytes_per_chip"],
+                "collective_bytes_per_chip": coll,
+                "dominant": t["dominant"], "bound_ms": t["bound_s"] * 1e3}
+    t0 = time.perf_counter()
+    per_pair = {}
+    for arch, shape in all_cells():
+        for mp in (False, True):
+            mesh = lmesh.make_production_mesh(multi_pod=mp)
+            _, inputs, _ = lcells.build_cell(arch, shape, mesh)
+            per_pair[f"{arch} {shape} {'2x16x16' if mp else '16x16'}"] = \
+                sum(lsharding.argument_bytes(inputs, mesh).values())
+    check(len(per_pair) == 66, f"{len(per_pair)} (cell, mesh) pairs, not 66")
+    big = max(per_pair, key=per_pair.get)
+    log(f"  argument bytes a chip of all {len(per_pair)} (cell, mesh) pairs "
+        f"(counted from the specs, {time.perf_counter() - t0:.1f} s host), "
+        f"GiB: " + json.dumps({k: round(v / 2**30, 4)
+                               for k, v in per_pair.items()}))
+    log(f"  the largest: {big}, {per_pair[big] / 2**30:.3f} GiB of the "
+        f"80 GB card")
+    return {"cells": rows, "argument_bytes": per_pair}
+
+
+def phase25b(smi):
+    """25b: chip 0's arguments of two train cells on the card, the
+    allocator's rise against the dry-run's argument bytes."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"phase 25b: chip 0's train_4k arguments on the 16x16 mesh put on "
+        f"the card (its shard of every parameter in bf16 drawn from a seed, "
+        f"its f32 moments, the step, its rows of the batch): the rise of "
+        f"the caching allocator's requested bytes equal to the dry-run's "
+        f"argument_size_in_bytes, and the rise of "
+        f"torch.cuda.memory_allocated() above it by the allocator's "
+        f"rounding, bounded by {ALLOC_BLOCK} bytes a tensor under "
+        f"{ALLOC_LARGE} bytes and {ALLOC_ROUND_LARGE} a larger one; {smi}, "
+        f"total_memory {total} bytes")
+    mesh = lmesh.make_production_mesh()
+    rows = {}
+    for arch in FIT_25B:
+        _, inputs, _ = lcells.build_cell(arch, "train_4k", mesh)
+        want = sum(lsharding.argument_bytes(inputs, mesh).values())
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        requested = torch.cuda.memory_stats()["requested_bytes.all.current"]
+        gen = torch.Generator(device=CUDA).manual_seed(25)
+        vocab = get_config(arch).vocab_size
+        held = []
+        for path, t in lsharding.input_leaves(inputs):
+            shape = shard_shape(t.shape, t.spec, mesh)
+            if path.startswith("0."):              # a parameter's shard
+                x = torch.randn(shape, generator=gen, device=CUDA,
+                                dtype=t.dtype)
+            elif t.dtype == torch.int32 and path.startswith("2."):
+                x = torch.randint(0, vocab, shape, generator=gen,
+                                  device=CUDA, dtype=t.dtype)
+            else:                                  # moments and the step
+                x = torch.zeros(shape, dtype=t.dtype, device=CUDA)
+            held.append(x)
+        torch.cuda.synchronize()
+        rise = torch.cuda.memory_allocated() - before
+        asked = torch.cuda.memory_stats()["requested_bytes.all.current"] \
+            - requested
+        slack = sum(ALLOC_ROUND_LARGE if x.nbytes >= ALLOC_LARGE
+                    else ALLOC_BLOCK for x in held)
+        check(asked == want, f"{arch}: {asked} bytes requested on the card "
+              f"against the dry-run's {want}")
+        check(0 <= rise - want <= slack,
+              f"{arch}: the card's rise {rise} bytes against the dry-run's "
+              f"{want} (bound {slack})")
+        log(f"  {arch}: {len(held)} tensors, {asked} bytes requested = the "
+            f"dry-run's argument_size_in_bytes {want} ({want / 2**30:.4f} "
+            f"GiB); memory_allocated rose {rise} bytes ({rise / 2**30:.4f} "
+            f"GiB): {rise - want} bytes of rounding within the bound "
+            f"{slack}; {rise / total:.2%} of the card's {total} bytes")
+        rows[arch] = {"tensors": len(held), "requested_rise": asked,
+                      "allocated_rise": rise,
+                      "argument_size_in_bytes": want,
+                      "rounding_bytes": rise - want, "bound_bytes": slack,
+                      "total_memory": total}
+        del held, x
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _equal_trees(a, b) -> bool:
+    la = [t for _, t in lsharding.input_leaves(a)]
+    lb = [t for _, t in lsharding.input_leaves(b)]
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def phase25c():
+    """25c: build_cell's three functions on the card (the 1x1 mesh) at
+    llama3.2-1b's full width, cut in batch and length, each bit for bit
+    the entry point it wraps on the same operands."""
+    cuts = {k: f"{b} x {s} (of {get_shape(c).global_batch} x "
+            f"{get_shape(c).seq_len})" for k, ((b, s), c) in CELLS_25C.items()}
+    log(f"phase 25c: build_cell({ARCH!r}, ..., single_device_mesh()) on the "
+        f"card at full width, each function against the entry point it "
+        f"wraps; reduced: " + ", ".join(f"{k} {v}" for k, v in cuts.items())
+        + f", decode at one shared position {DECODE_POS_25C}, train one "
+        f"step")
+    mesh = lmesh.single_device_mesh()
+    gen = torch.Generator(device=CUDA).manual_seed(25)
+    out = {"reduced": cuts}
+
+    def cell(kind):
+        (b, s), full = CELLS_25C[kind]
+        return lcells.build_cell(ARCH, InputShape(f"{full} cut", s, b, kind),
+                                 mesh)
+
+    fn, (params, state, tok), _ = cell("decode")
+    for t in (state.k, state.v):
+        t.copy_(torch.randn(t.shape, generator=gen, device=CUDA,
+                            dtype=t.dtype))
+    state.pos.fill_(DECODE_POS_25C)
+    tok.copy_(torch.randint(0, fn.model.cfg.vocab_size, tok.shape,
+                            generator=gen, device=CUDA, dtype=tok.dtype))
+    twin = dataclasses.replace(state, k=state.k.clone(), v=state.v.clone(),
+                               pos=state.pos.clone())
+    zero_kernel_counts()
+    got = fn(params, state, tok)
+    torch.cuda.synchronize()
+    n_decode = kernel_counts()["decode"]
+    with torch.no_grad():
+        want = D.decode_step(fn.model, twin, tok)
+    same = _equal_trees((got, state.k, state.v, state.pos),
+                        (want, twin.k, twin.v, twin.pos))
+    check(same, "25c: decode_step(uniform_pos=True) differs from "
+          "decode_step at one shared position")
+    check(n_decode > 0, "25c: the decode cell never launched B3")
+    log(f"  decode: logits and caches bit for bit decode_step's; B3 "
+        f"launched {n_decode} times")
+    out["decode"] = {"equal": same, "decode_launches": n_decode}
+    del fn, params, state, tok, twin, got, want
+    torch.cuda.empty_cache()
+
+    fn, (params, batch), _ = cell("prefill")
+    zero_kernel_counts()
+    got = fn(params, batch)
+    torch.cuda.synchronize()
+    n_flash = kernel_counts()["flash"]
+    with torch.no_grad():
+        want = fn.model(batch["tokens"])
+    same = torch.equal(got, want)
+    check(same, "25c: the prefill cell differs from Model.forward")
+    check(n_flash > 0, "25c: the prefill cell never launched B2")
+    log(f"  prefill: logits bit for bit Model.forward's; B2 launched "
+        f"{n_flash} times")
+    out["prefill"] = {"equal": same, "flash_launches": n_flash}
+    del fn, params, batch, got, want
+    torch.cuda.empty_cache()
+
+    fn, (params, state, batch), desc = cell("train")
+    step = train_step.build_train_step(fn.model, train_step.TrainStepConfig(
+        microbatches=desc["settings"]["microbatches"]))
+    got = fn(params, state, batch)
+    torch.cuda.synchronize()
+    want = step(params, state, batch)
+    torch.cuda.synchronize()
+    same = _equal_trees(got, want)
+    check(same, "25c: the train cell differs from the port's train step")
+    loss = float(got[2]["loss"])
+    check(math.isfinite(loss), f"25c: the train cell's loss is {loss}")
+    log(f"  train: new parameters, AdamW state and metrics bit for bit the "
+        f"port's train step's; loss {loss:.4f}")
+    out["train"] = {"equal": same, "loss": loss}
+    del fn, params, state, batch, got, want, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase25(smi):
+    """Phase 25: the sharding substrate."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        a = phase25a(tmp)
+    b = phase25b(smi)
+    c = phase25c()
+    seconds = time.perf_counter() - t0
+    log(f"phase 25 seconds (host clock): {seconds:.1f}")
+    return dict(dryrun=a, fit=b, cells=c, seconds=seconds)
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--decode-times"]:
         print(json.dumps(fresh_decode_times(json.loads(sys.argv[2]))))
@@ -5100,6 +5352,19 @@ def main() -> None:
         "deadline": mesh24["deadline"]}
     log("multi-device sweeps on the card: "
         + json.dumps(mesh24, default=str))
+    shard25 = phase25(smi)
+    n_dec25 = shard25["cells"]["decode"]["decode_launches"]
+    n_fl25 = shard25["cells"]["prefill"]["flash_launches"]
+    log(f"main path: decode attention launched {n_dec25} times (phase 25c's "
+        f"decode cell), flash attention {n_fl25} times (phase 25c's prefill "
+        f"cell)")
+    decode["launches"] += n_dec25
+    decode["launches_by_path"][f"{ARCH} build_cell decode on the 1x1 mesh "
+                               f"(phase 25c)"] = n_dec25
+    flash["launches"] += n_fl25
+    flash["launches_by_path"][f"{ARCH} build_cell prefill on the 1x1 mesh "
+                              f"(phase 25c)"] = n_fl25
+    log("sharding substrate: " + json.dumps(shard25, default=str))
     line = [kernel, interval, segment, decode, flash, scan]
     for entry in line:
         missing = sorted(KERNEL_LINE_KEYS - set(entry))

@@ -16,10 +16,14 @@ layernorm encoder over frames and a decoder that attends to it); and
 ``xlstm-125m`` (ssm: six pairs of an mLSTM and an sLSTM block, no
 attention).  These are all of the JAX package's registry.  dbrx-132b
 and mistral-large-123b do not fit one 80 GB card at full width; their
-``-smoke`` reductions serve and train.
+``-smoke`` reductions serve and train.  :func:`cells` lists the
+benchmark cells (arch x shape) the dry-run takes to the production
+meshes, and :func:`all_configs` every config by name.
 """
 
 from __future__ import annotations
+
+from typing import Dict, List, Tuple
 
 from .base import (ArchConfig, DECODE_32K, InputShape, LONG_500K,
                    PREFILL_32K, SHAPES, TRAIN_4K)
@@ -34,12 +38,13 @@ from .qwen2_moe_a27b import ARCH as _QWEN2_MOE_A27B
 from .whisper_large_v3 import ARCH as _WHISPER_LARGE_V3
 from .xlstm_125m import ARCH as _XLSTM_125M
 
-_ARCHS = {a.name: a for a in (_LLAMA32_1B, _HYMBA_15B, _GEMMA3_1B,
-                              _QWEN2_15B, _QWEN2_MOE_A27B, _DBRX_132B,
-                              _MISTRAL_LARGE_123B, _LLAMA32_VISION_11B,
-                              _WHISPER_LARGE_V3, _XLSTM_125M)}
+# in the JAX registry's order, which cells() and the dry-run follow
+_ARCHS = {a.name: a for a in (_DBRX_132B, _QWEN2_MOE_A27B, _WHISPER_LARGE_V3,
+                              _QWEN2_15B, _GEMMA3_1B, _MISTRAL_LARGE_123B,
+                              _LLAMA32_1B, _XLSTM_125M, _LLAMA32_VISION_11B,
+                              _HYMBA_15B)}
 
-ARCH_IDS = list(_ARCHS)
+ARCH_IDS: List[str] = list(_ARCHS)
 
 
 def get_config(name: str) -> ArchConfig:
@@ -59,6 +64,22 @@ def get_shape(name: str) -> InputShape:
     return SHAPES[name]
 
 
+def all_configs() -> Dict[str, ArchConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}
+
+
+def cells(include_skips: bool = False) -> List[Tuple[str, str]]:
+    """All (arch, shape) benchmark cells; an arch's unsupported shapes
+    (full attention at 500k) are left out unless ``include_skips``."""
+    out = []
+    for a in ARCH_IDS:
+        cfg = get_config(a)
+        for s in SHAPES.values():
+            if include_skips or cfg.supports_shape(s):
+                out.append((a, s.name))
+    return out
+
+
 __all__ = ["ARCH_IDS", "ArchConfig", "DECODE_32K", "InputShape",
-           "LONG_500K", "PREFILL_32K", "SHAPES", "TRAIN_4K", "get_config",
-           "get_shape"]
+           "LONG_500K", "PREFILL_32K", "SHAPES", "TRAIN_4K", "all_configs",
+           "cells", "get_config", "get_shape"]

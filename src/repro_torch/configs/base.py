@@ -1,8 +1,14 @@
 """Architecture and run-shape configuration schema.
 
-A copy of ``repro/configs/base.py`` without the mesh sharding report:
-the port runs on one card.  Configs are frozen dataclasses, equal field
-for field to the JAX package's (``tests/test_torch_port_rules.py``).
+A copy of ``repro/configs/base.py``.  Configs are frozen dataclasses,
+equal field for field to the JAX package's
+(``tests/test_torch_port_rules.py``).
+
+The divisibility policy lives here (:meth:`ArchConfig.sharding_report`):
+a tensor dimension is sharded on a mesh axis only when divisible,
+otherwise replicated on that axis and the decision is recorded, so the
+dry-run (``repro_torch.launch.dryrun``) shows which layout each
+architecture got.
 """
 
 from __future__ import annotations
@@ -163,6 +169,48 @@ class ArchConfig:
                            if self.vision_tokens else 0),
             ssm_state=min(self.ssm_state, 8) if self.ssm_state else 0,
         )
+
+    # ---- sharding report (the divisibility policy) -------------------------
+    def sharding_report(self, data: int, model: int) -> Dict[str, object]:
+        """Which dims shard on a (data, model) mesh, and why not if not."""
+        heads_tp = self.n_heads % model == 0
+        kv_eff = self.n_kv_heads
+        kv_note = "native"
+        if heads_tp and self.n_kv_heads < model:
+            if model % self.n_kv_heads == 0:
+                kv_eff = model
+                kv_note = (f"expanded {self.n_kv_heads}->{model} "
+                           f"(Megatron KV replication)")
+            else:
+                heads_tp = False
+                kv_note = f"kv={self.n_kv_heads} not expandable to {model}"
+        elif heads_tp and self.n_kv_heads >= model:
+            if self.n_kv_heads % model:
+                heads_tp = False
+                kv_note = f"kv={self.n_kv_heads} % model={model} != 0"
+        ff = self.d_ff_expert if self.is_moe else self.d_ff
+        report = {
+            "arch": self.name,
+            "mesh": {"data": data, "model": model},
+            "attn_tp": heads_tp,
+            "attn_note": kv_note if heads_tp else (
+                f"attention replicated over model axis "
+                f"(heads={self.n_heads} % {model} != 0; {kv_note})"),
+            "kv_heads_effective": kv_eff if heads_tp else self.n_kv_heads,
+            "mlp_tp": ff % model == 0 if ff else False,
+            "vocab_tp": self.padded_vocab % model == 0,
+            "d_model_fsdp": self.d_model % data == 0,
+            "experts_padded": 0,
+        }
+        if self.is_moe:
+            e = self.n_experts
+            pad = (model - e % model) % model if e % model else 0
+            report["experts_padded"] = pad
+            report["expert_parallel"] = True
+            report["moe_note"] = (
+                f"{e} experts padded +{pad} to {e + pad} for EP={model}"
+                if pad else f"{e} experts, EP={model}")
+        return report
 
 
 def _count_params(c: ArchConfig, active_only: bool) -> int:

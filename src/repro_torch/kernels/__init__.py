@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the port, each beside its plain version."""
 
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -27,7 +27,8 @@ def refuse_autograd(kernel: str, tensors, instead: str) -> None:
 
 
 def count_call(kernel: str, x: torch.Tensor, work: Callable,
-               *data: torch.Tensor) -> bool:
+               *data: torch.Tensor,
+               layout: Optional[torch.Tensor] = None) -> bool:
     """Report one call of ``kernel`` to every open work count.
 
     A ``ctypes`` launch is invisible to any dispatch mode, so each
@@ -38,12 +39,15 @@ def count_call(kernel: str, x: torch.Tensor, work: Callable,
     waits for no device inside the step.  Returns True when ``x`` lies on the meta device
     under a count: the call is counted, not run, and the wrapper returns
     an empty output.  Outside a count it does nothing and returns False.
+    ``layout`` (``x`` if None) is the operand whose split over a mesh
+    splits the call's work, which :mod:`repro_torch.roofline.sharding`
+    reads.
     """
     if not WORK_COUNTS:
         return False
     data = tuple(d if d.device.type == "meta" else d.clone() for d in data)
     for count in WORK_COUNTS:
-        count.append((kernel, work, data))
+        count.append((kernel, work, data, x if layout is None else layout))
     return x.device.type == "meta"
 
 

@@ -231,7 +231,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         return decode_attention_plain(q, k_cache, v_cache, lengths,
                                       window=window)
     if count_call("decode_attention", q,
-                  lambda lens: _work(q, k_cache, lens, window), lengths):
+                  lambda lens: _work(q, k_cache, lens, window), lengths,
+                  layout=k_cache):
         return torch.empty_like(q)                # counted on meta, not run
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cpu or cuda, not "

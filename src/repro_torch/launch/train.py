@@ -27,8 +27,10 @@ a live :class:`~repro_torch.core.plane.MemoryPlane` with
 restart, heartbeats, stragglers).  Prints ``arch=... params=...`` and
 one row of metrics per log step.  Without ``--device`` it runs on the
 card and raises when there is none.  ``--compress`` runs the int8
-error-feedback compression on the gradients (no collective carries
-them yet: ROADMAP A5.4).
+error-feedback compression on the gradients: the numerical core alone.
+The pod-axis all-reduce it would feed runs in no program of the port;
+the dry-run (``repro_torch.launch.dryrun``) counts it, as JAX's
+compiled multi-pod program holds it.
 """
 
 from __future__ import annotations

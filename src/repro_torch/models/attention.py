@@ -27,11 +27,12 @@ from ..configs.base import ArchConfig
 from ..kernels.decode_attention import decode_attention
 from ..kernels.flash_attention import flash_attention, make_mask
 from .layers import apply_rope, matmul_f32
+from .params import TP_HINT, Axes, Spec
 
 __all__ = ["attention_chunked", "attention_decode", "attention_dense",
-           "cross_decode", "kv_project", "make_mask", "out_project",
-           "qkv_project", "self_attention", "self_attention_train",
-           "update_kv_cache"]
+           "attention_specs", "attn_tp", "cross_decode", "kv_project",
+           "make_mask", "out_project", "qkv_project", "self_attention",
+           "self_attention_train", "update_kv_cache"]
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -45,6 +46,34 @@ def _no_softcap(cfg: ArchConfig) -> None:
             f"{cfg.name}: attention logit softcap is not ported (neither "
             f"attention kernel has one, and no config of the registry "
             f"sets it; ROADMAP A5.2)")
+
+
+def attn_tp(cfg: ArchConfig, axes: Axes, tp_size_hint: int = TP_HINT
+            ) -> Tuple[Optional[str], Optional[str]]:
+    """(query heads' axis, kv heads' axis) under the divisibility policy
+    (``_attn_tp``): query heads split over ``tp`` when the production
+    size divides them, kv heads too when it divides theirs; otherwise
+    each shard holds every kv head (Megatron KV replication)."""
+    if axes.tp is None or cfg.n_heads % tp_size_hint:
+        return None, None
+    kv_axis = axes.tp if cfg.n_kv_heads % tp_size_hint == 0 else None
+    return axes.tp, kv_axis
+
+
+def attention_specs(cfg: ArchConfig, axes: Axes, *,
+                    cross: bool = False) -> dict:
+    """The specs of an :class:`~repro_torch.models.transformer.Attention`
+    (``attention_schema``): heads over ``tp`` by :func:`attn_tp`, d over
+    ``fsdp``; ``wo`` is row-parallel."""
+    q_tp, kv_tp = attn_tp(cfg, axes)
+    out = {"wq": Spec(axes.fsdp, q_tp, None),
+           "wk": Spec(axes.fsdp, kv_tp, None),
+           "wv": Spec(axes.fsdp, kv_tp, None),
+           "wo": Spec(q_tp, None, axes.fsdp)}
+    if cfg.qkv_bias and not cross:
+        out.update(bq=Spec(q_tp, None), bk=Spec(kv_tp, None),
+                   bv=Spec(kv_tp, None))
+    return out
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor,
@@ -224,7 +253,7 @@ def self_attention_train(p, x: torch.Tensor, cfg: ArchConfig, window: int,
 
 def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
                     k: torch.Tensor, v: torch.Tensor,
-                    pos: torch.Tensor) -> None:
+                    pos: torch.Tensor, uniform: bool = False) -> None:
     """Write one token's K/V into (B, S, KV, hd) caches, in place.
 
     ``k``/``v`` are (B, 1, KV, hd) and ``pos`` (B,) the per-sequence
@@ -235,8 +264,20 @@ def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
     keeps ticking past the cache's end.  The cast to the cache's type
     rounds to nearest even, as JAX's does.  Everything stays on the
     device; nothing syncs with the host.
+
+    ``uniform=True`` asserts that every sequence sits at ``pos[0]``
+    (bulk decode benchmarks, synchronized batches): the token's K/V go
+    in as one slice along the sequence dim (``index_copy_``), the same
+    bits the per-sequence write gives there.  JAX's ``uniform`` path
+    writes nothing at a position past the cache's end; this one clamps
+    it as the per-sequence path does.
     """
     b, s = k_cache.shape[0], k_cache.shape[1]
+    if uniform:
+        at = pos[:1].clamp(max=s - 1).to(torch.int64)
+        k_cache.index_copy_(1, at, k.to(k_cache.dtype))
+        v_cache.index_copy_(1, at, v.to(v_cache.dtype))
+        return
     rows = torch.arange(b, device=k_cache.device)
     at = pos.clamp(max=s - 1).to(torch.int64)
     k_cache.index_put_((rows, at), k[:, 0].to(k_cache.dtype))

@@ -46,9 +46,11 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .attention import (attention_decode, cross_decode, kv_project,
-                        out_project, qkv_project, update_kv_cache)
+from .attention import (attention_decode, attn_tp, cross_decode,
+                        kv_project, out_project, qkv_project,
+                        update_kv_cache)
 from .layers import embed_tokens
+from .params import Axes, Spec, tp_if
 from .ssm import (mamba_decode_step, mamba_state_shape, mlstm_decode_step,
                   mlstm_state_shapes, slstm_decode_step, slstm_state_shapes)
 from .transformer import Model, fuse_branches, norm_of
@@ -133,6 +135,66 @@ def init_state(model: Model, batch: int, max_len: int,
     return state
 
 
+# ---------------------------------------------------------------------------
+# The state's specs (``state_schema``'s PartitionSpecs)
+# ---------------------------------------------------------------------------
+
+def _batch_axis(axes: Axes, batch: int):
+    if batch == 1:
+        return None
+    return axes.batch if len(axes.batch) > 1 else axes.batch[0]
+
+
+def _kv_spec(cfg, axes: Axes, batch: int) -> Spec:
+    """A (B, S, KV, hd) cache's spec (``_kv_def``).
+
+    batch > 1: the batch over the batch axes; the kv heads over ``tp``
+    where they divide, else the sequence over ``tp`` (attention's
+    softmax then reduces over a split dim).  batch == 1 (long_500k): the
+    sequence over every axis the heads leave free.
+    """
+    _, kv_tp = attn_tp(cfg, axes)
+    if batch == 1:
+        seq = [a for a in (axes.fsdp, axes.tp if kv_tp is None else None)
+               if a]
+        return Spec(None, tuple(seq) if len(seq) > 1
+                    else (seq[0] if seq else None), kv_tp, None)
+    return Spec(_batch_axis(axes, batch), axes.tp if kv_tp is None else None,
+                kv_tp, None)
+
+
+def state_specs(model: Model, batch: int, max_len: int,
+                axes: Axes) -> DecodeState:
+    """A :class:`DecodeState` of :class:`~repro_torch.models.params.Spec`
+    for ``init_state(model, batch, max_len)``'s tensors under ``axes``
+    (``state_specs``): each stacked field's spec is its per-layer spec
+    behind the layer axis, which is never split; the Mamba state's
+    channels and an mLSTM's value head dim over ``tp`` where
+    :data:`~repro_torch.models.params.TP_HINT` divides them."""
+    cfg, ba = model.cfg, _batch_axis(axes, batch)
+    kv = _kv_spec(cfg, axes, batch).with_layer_axis()
+    specs = DecodeState(k=kv, v=kv, pos=Spec(ba))
+    if cfg.family == "hybrid":
+        tp = tp_if(axes, cfg.ssm_expand * cfg.d_model)
+        specs.mamba_h = Spec(ba, tp, None).with_layer_axis()
+        specs.mamba_conv = Spec(ba, None, tp).with_layer_axis()
+    if cfg.family in ("vlm", "audio"):
+        specs.cross_k = specs.cross_v = kv
+    if cfg.family == "audio":
+        specs.enc_len = Spec()
+    if cfg.family == "ssm":
+        hd = cfg.ssm_expand * cfg.d_model // cfg.n_heads
+        leaves = {"mlstm": {"c": Spec(ba, None, None, tp_if(axes, hd)),
+                            "n": Spec(ba, None, None), "m": Spec(ba, None)},
+                  "slstm": {k: Spec(ba, None, None)
+                            for k in ("c", "n", "h", "m")}}
+        specs.recurrent = {
+            key: {name: s.with_layer_axis()
+                  for name, s in leaves[block.kind].items()}
+            for key, block in model.layers[0].items()}
+    return specs
+
+
 def _ssm_pair_decode(pair, state: DecodeState, i: int, x: torch.Tensor,
                      cfg) -> torch.Tensor:
     """One token through pair ``i`` of the ssm stack (``_decode_ssm``):
@@ -150,10 +212,11 @@ def _ssm_pair_decode(pair, state: DecodeState, i: int, x: torch.Tensor,
 
 
 def _attend(layer, h, state: DecodeState, i: int, q_pos, cfg,
-            window: int) -> torch.Tensor:
+            window: int, uniform: bool) -> torch.Tensor:
     """Self-attention of one token against layer ``i``'s cache."""
     q, k, v = qkv_project(layer.attn, h, h, cfg, q_pos, q_pos)
-    update_kv_cache(state.k[i], state.v[i], k, v, state.pos)
+    update_kv_cache(state.k[i], state.v[i], k, v, state.pos,
+                    uniform=uniform)
     o = attention_decode(q, state.k[i], state.v[i], state.pos, cfg,
                          window=window)
     return out_project(layer.attn, o, h.dtype)
@@ -170,8 +233,15 @@ def _cross_lengths(state: DecodeState) -> torch.Tensor:
 
 
 def decode_step(model: Model, state: DecodeState,  # planecheck: hot-loop
-                tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, 1) -> logits (B, 1, padded_vocab); ``state`` in place."""
+                tokens: torch.Tensor, uniform_pos: bool = False
+                ) -> torch.Tensor:
+    """tokens (B, 1) -> logits (B, 1, padded_vocab); ``state`` in place.
+
+    ``uniform_pos=True``: every sequence sits at one position (bulk
+    benchmark decode), so each layer writes its token's K/V as one slice
+    (:func:`~repro_torch.models.attention.update_kv_cache`); the same
+    bits as the per-sequence path when the positions are equal.
+    """
     cfg = model.cfg
     x = embed_tokens(model.tokens, tokens, model.dtype, cfg.name)
     q_pos = state.pos[:, None]                     # (B, 1) rope positions
@@ -183,7 +253,7 @@ def decode_step(model: Model, state: DecodeState,  # planecheck: hot-loop
             continue
         if cfg.family == "hybrid":                 # _hybrid_layer_decode
             h = norm_of(layer, "norm", x, cfg)
-            a = _attend(layer, h, state, i, q_pos, cfg, window)
+            a = _attend(layer, h, state, i, q_pos, cfg, window, uniform_pos)
             m, hs, conv = mamba_decode_step(layer.mamba, h, state.mamba_h[i],
                                             state.mamba_conv[i], cfg)
             state.mamba_h[i].copy_(hs)
@@ -191,7 +261,8 @@ def decode_step(model: Model, state: DecodeState,  # planecheck: hot-loop
             x = x + fuse_branches(a, m).to(x.dtype)
         else:                                      # _self_layer_decode
             h = norm_of(layer, "attn_norm", x, cfg)
-            x = x + _attend(layer, h, state, i, q_pos, cfg, window)
+            x = x + _attend(layer, h, state, i, q_pos, cfg, window,
+                            uniform_pos)
         if layer.cross is not None:                # _decode_audio
             h = norm_of(layer, "cross_norm", x, cfg)
             x = x + cross_decode(layer.cross, h, state.cross_k[i],

@@ -12,10 +12,13 @@ keep the JAX layouts (``wi``/``wg`` ``(d, f)``, ``wo`` ``(f, d)``,
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..configs.base import ArchConfig
+from .params import Axes, Spec, tp_if
 
 F32 = torch.float32
 
@@ -108,6 +111,36 @@ def apply_mlp(x: torch.Tensor, wi: torch.Tensor, wg: Optional[torch.Tensor],
     h = matmul_f32(x, wi)
     h = fn(h) if wg is None else fn(matmul_f32(x, wg)) * h
     return matmul_f32(h.to(x.dtype), wo).to(x.dtype)
+
+
+def norm_specs(cfg: ArchConfig, name: str) -> Dict[str, Spec]:
+    """The norm ``name``'s scale and, layernorm, its ``<name>_bias``:
+    never split (``norm_schema``)."""
+    out = {name: Spec(None)}
+    if cfg.norm == "layernorm":
+        out[name + "_bias"] = Spec(None)
+    return out
+
+
+def mlp_specs(cfg: ArchConfig, axes: Axes,
+              d_ff: Optional[int] = None) -> Dict[str, Spec]:
+    """``wi``/``wg`` (d, f) column-parallel and ``wo`` (f, d)
+    row-parallel over ``tp`` where it divides f, d over ``fsdp``
+    (``mlp_schema``)."""
+    tp = tp_if(axes, d_ff or cfg.d_ff)
+    out = {"wi": Spec(axes.fsdp, tp), "wo": Spec(tp, axes.fsdp)}
+    if cfg.mlp_gated:
+        out["wg"] = Spec(axes.fsdp, tp)
+    return out
+
+
+def embedding_specs(cfg: ArchConfig, axes: Axes) -> Dict[str, Spec]:
+    """``tokens`` (Vp, d) and, untied, ``unembed`` (d, Vp): the vocab
+    over ``tp``, d over ``fsdp`` (``embedding_schema``)."""
+    out = {"tokens": Spec(axes.tp, axes.fsdp)}
+    if not cfg.tie_embeddings:
+        out["unembed"] = Spec(axes.fsdp, axes.tp)
+    return out
 
 
 def embed_tokens(tokens_table: torch.Tensor, ids: torch.Tensor,

@@ -37,6 +37,7 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from .layers import ACTIVATIONS, matmul_f32
+from .params import Axes, Spec
 
 F32 = torch.float32
 
@@ -57,6 +58,25 @@ def padded_experts(cfg: ArchConfig, hint: int = EP_HINT) -> int:
     if e % hint == 0 or e < hint:
         return e
     return -(-e // hint) * hint
+
+
+def moe_specs(cfg: ArchConfig, axes: Axes) -> dict:
+    """The specs of a :class:`MoE` (``moe_schema``): the experts over
+    ``tp`` (expert parallelism, where the padded count is a multiple of
+    :data:`EP_HINT`), d over ``fsdp``; the shared experts' f over
+    ``tp``."""
+    e_pad = padded_experts(cfg)
+    ep = axes.tp if (axes.tp and e_pad % EP_HINT == 0) else None
+    out = {"router": Spec(axes.fsdp, None),
+           "wi": Spec(ep, axes.fsdp, None),
+           "wg": Spec(ep, axes.fsdp, None),
+           "wo": Spec(ep, None, axes.fsdp)}
+    if cfg.n_shared_experts:
+        out.update({"shared.wi": Spec(axes.fsdp, axes.tp),
+                    "shared.wg": Spec(axes.fsdp, axes.tp),
+                    "shared.wo": Spec(axes.tp, axes.fsdp),
+                    "shared.gate": Spec(axes.fsdp, None)})
+    return out
 
 
 def _group_size(n_tokens: int, want: int = GROUP_TOKENS) -> int:

@@ -44,6 +44,7 @@ from torch import nn
 from ..configs.base import ArchConfig
 from ..kernels.ssm_scan import ssm_scan
 from .layers import matmul_f32, rms
+from .params import Axes, Spec, tp_if
 
 F32 = torch.float32
 
@@ -69,6 +70,18 @@ class Mamba(nn.Module):
         self.a_log = make((inner, n), "ones")
         self.d_skip = make((inner,), "ones")
         self.out_proj = make((inner, d), "fan_in")
+
+
+def mamba_specs(cfg: ArchConfig, axes: Axes) -> dict:
+    """The specs of a :class:`Mamba` (``mamba_schema``): the inner
+    channels over ``tp`` where they divide (channel-wise state
+    independence: no collective inside), d over ``fsdp``; ``out_proj``
+    is row-parallel."""
+    tp = tp_if(axes, cfg.ssm_expand * cfg.d_model)
+    return {"in_proj": Spec(axes.fsdp, tp), "conv_w": Spec(None, tp),
+            "conv_b": Spec(tp), "x_dbc": Spec(tp, None),
+            "dt_bias": Spec(tp), "a_log": Spec(tp, None),
+            "d_skip": Spec(tp), "out_proj": Spec(tp, axes.fsdp)}
 
 
 def _dt_bc(p: Mamba, x: torch.Tensor, n: int):
@@ -242,6 +255,17 @@ class MLSTM(nn.Module):
         self.down_proj = make((inner, d), "fan_in")
 
 
+def mlstm_specs(cfg: ArchConfig, axes: Axes) -> dict:
+    """The specs of an :class:`MLSTM` (``mlstm_schema``): the value head
+    dim over ``tp`` where it divides, d over ``fsdp``."""
+    inner = cfg.ssm_expand * cfg.d_model
+    tp = tp_if(axes, inner // cfg.n_heads)
+    return {"up_proj": Spec(axes.fsdp, None), "wq": Spec(None, None, None),
+            "wk": Spec(None, None, None), "wv": Spec(None, None, tp),
+            "w_if": Spec(None, None, None), "b_if": Spec(None, None),
+            "out_norm": Spec(None), "down_proj": Spec(None, axes.fsdp)}
+
+
 def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsi,ihk->bshk", x, w)`` in float32, as one product."""
     return matmul_f32(x, w.flatten(1)).unflatten(-1, w.shape[1:])
@@ -385,6 +409,16 @@ def slstm_state_shapes(cfg: ArchConfig, batch: int):
     h = cfg.n_heads
     hd = cfg.d_model // h
     return {k: (batch, h, hd) for k in ("c", "n", "h", "m")}
+
+
+def slstm_specs(cfg: ArchConfig, axes: Axes) -> dict:
+    """The specs of an :class:`SLSTM` (``slstm_schema``): replicated over
+    ``tp`` (small, and its recurrence is dense in hd), d over
+    ``fsdp``."""
+    return {"w_gates": Spec(axes.fsdp, None, None, None),
+            "r_gates": Spec(None, None, None, None),
+            "b_gates": Spec(None, None, None), "out_norm": Spec(None),
+            "out_proj": Spec(axes.fsdp, None)}
 
 
 def _recurrence(p: SLSTM) -> torch.Tensor:

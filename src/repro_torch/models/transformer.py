@@ -68,12 +68,15 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..configs.base import ArchConfig
 from ..device import DeviceLike, resolve_device
-from .attention import self_attention, self_attention_train
+from .attention import attention_specs, self_attention, self_attention_train
 from .layers import (ACTIVATIONS, apply_mlp, apply_norm, cross_entropy,
-                     embed_tokens, rms, unembed)
-from .moe import MoE, moe_apply
+                     embed_tokens, embedding_specs, mlp_specs, norm_specs,
+                     rms, unembed)
+from .moe import MoE, SharedExperts, moe_apply, moe_specs
+from .params import Axes, Spec
 from .ssm import (MLSTM, SLSTM, Mamba, mamba_apply, mamba_apply_chunked,
-                  mlstm_apply, slstm_apply)
+                  mamba_specs, mlstm_apply, mlstm_specs, slstm_apply,
+                  slstm_specs)
 
 F32 = torch.float32
 REMAT_POLICIES = ("full", "dots", "none")
@@ -303,6 +306,36 @@ def layer_windows(cfg: ArchConfig) -> List[int]:
     return [0 if i < grouped and i % p == p - 1 else w for i in range(n)]
 
 
+def _own_specs(module: nn.Module, cfg: ArchConfig,
+               axes: Axes) -> Dict[str, Spec]:
+    """The specs of the parameters ``module`` holds itself, by their
+    names there: a block's by its ``*_specs`` function, a moe layer's
+    shared experts' with the layer's; a norm's scale and bias, and a
+    vlm cross layer's ``gate``, are never split; the model's
+    ``tokens``/``unembed`` by :func:`embedding_specs`."""
+    block = {Attention: lambda: attention_specs(
+                 cfg, axes, cross=module.bq is None),
+             MLP: lambda: mlp_specs(cfg, axes),
+             MoE: lambda: moe_specs(cfg, axes),
+             SharedExperts: dict,           # the MoE's specs name them
+             Mamba: lambda: mamba_specs(cfg, axes),
+             MLSTM: lambda: mlstm_specs(cfg, axes),
+             SLSTM: lambda: slstm_specs(cfg, axes)}.get(type(module))
+    if block is not None:
+        return block()
+    out = {}
+    for name, _ in module.named_parameters(recurse=False):
+        if name.endswith("norm"):
+            out.update(norm_specs(cfg, name))
+        elif name == "gate":
+            out[name] = Spec(None)
+        elif name in ("tokens", "unembed"):
+            out[name] = embedding_specs(cfg, axes)[name]
+        elif not name.endswith("norm_bias"):        # norm_specs names it
+            raise KeyError(f"{type(module).__name__}.{name} has no spec")
+    return out
+
+
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for any config feature the port does not carry yet."""
     unsupported = {
@@ -381,6 +414,24 @@ class Model(nn.Module):
         # the untied readout (d, Vp), ``embed["unembed"]`` in JAX
         self.unembed = (None if cfg.tie_embeddings
                         else make((cfg.d_model, cfg.padded_vocab), "fan_in"))
+
+    def specs(self, axes: Axes) -> Dict[str, Spec]:
+        """{parameter name: :class:`~repro_torch.models.params.Spec`}
+        under ``axes``, in :meth:`named_parameters` order (``Model.specs``).
+
+        A parameter of a layer stack has the spec of JAX's stacked leaf
+        less its leading layer axes, which are never split.
+        """
+        out = {}
+        for prefix, module in self.named_modules():
+            for name, spec in _own_specs(module, self.cfg, axes).items():
+                out[f"{prefix}.{name}" if prefix else name] = spec
+        names = [n for n, _ in self.named_parameters()]
+        if set(names) != set(out):
+            raise KeyError(f"specs without a parameter: "
+                           f"{sorted(set(out) - set(names))}; parameters "
+                           f"without a spec: {sorted(set(names) - set(out))}")
+        return {n: out[n] for n in names}
 
     @property
     def dtype(self) -> torch.dtype:

@@ -14,7 +14,9 @@ parameters along a leading layer axis (the encoder's and the cross
 layers' too), so a layer's (d,) norm and layernorm bias are (L, d)
 arrays there and decay, and so does a vlm cross layer's (1,) gate;
 only ``final_norm`` and ``enc_norm`` (and their biases) do not
-(:func:`decays`).
+(:func:`decays`).  The moments shard exactly like their parameters
+(:func:`opt_state_specs`): FSDP shards optimizer state as it shards
+parameters, the ZeRO-3 layout.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from __future__ import annotations
 from typing import Dict, Mapping, NamedTuple
 
 import torch
+
+from ..models.params import Spec
 
 F32 = torch.float32
 
@@ -74,3 +78,10 @@ def adamw_update(grads: Mapping[str, torch.Tensor], state: AdamWState,
         new_params[name] = (p.to(F32) - lr * delta).to(p.dtype)
         new_mu[name], new_nu[name] = m, v
     return new_params, AdamWState(step=step, mu=new_mu, nu=new_nu)
+
+
+def opt_state_specs(param_specs: Mapping[str, Spec]) -> AdamWState:
+    """Moments shard exactly like their parameters (ZeRO-3); the step
+    counter is replicated."""
+    return AdamWState(step=Spec(), mu=dict(param_specs),
+                      nu=dict(param_specs))

@@ -4,8 +4,11 @@ A copy of ``repro/optim/compress.py``: quantize (grad + residual) to
 symmetric per-tensor int8, dequantize, carry the residual.  The
 error-feedback invariant holds exactly: ``deq_t + residual_{t+1} ==
 grad_t + residual_t``.  JAX feeds the int8 payload to the pod-axis
-all-reduce; the port has no collective yet (ROADMAP A5.4), so here it
-is the numerical core alone, over dicts of tensors.
+all-reduce, which exists in JAX only as what its compiled multi-pod
+program does; the port runs no collective: the dry-run
+(``repro_torch.launch.dryrun``) counts that all-reduce, with the int8
+payload when the step compresses, and here the compression is the
+numerical core alone, over dicts of tensors.
 """
 
 from __future__ import annotations

@@ -154,7 +154,7 @@ def step_cost(fn: Callable, *args, **kwargs) -> dict:
         WORK_COUNTS.remove(count.kernels)
     kernels: Dict[str, dict] = {}
     records = []
-    for name, work, data in count.kernels:
+    for name, work, data, _ in count.kernels:
         if name in COLLECTIVE_OPS:
             records.append((name, work(*data)))
             continue
