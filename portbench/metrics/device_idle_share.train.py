@@ -1,0 +1,9 @@
+"""Percent of the profiled steps in which no operation ran on the
+device."""
+
+
+def read(run):
+    t = run.trace
+    if not t or t.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
